@@ -14,6 +14,8 @@ axis -- into a ``MimoUNet`` state dict with the reference's keys:
   params['decoder']['outc'][s]    -> decoder.outcs.{s}.conv
 
 A DoubleConv maps onto ``double_conv.{0,1,3,4}`` (conv, BN, conv, BN).
+``jax_loss_buffer_to_state`` carries the train state's loss-buffer ring
+over; Adam's moments start at zero on both sides and need no converter.
 Only arrays cross over (anything with ``__array__``), so this module needs
 no JAX.
 """
@@ -25,6 +27,7 @@ from typing import Dict
 import numpy as np
 import torch
 
+from mimo_unet_torch.loss_buffer import LossBufferState
 from mimo_unet_torch.models.mimo_unet import MimoUNetConfig
 
 
@@ -84,3 +87,10 @@ def jax_pytree_to_state_dict(params: dict, state: dict,
                      _index(dec_s["up4"]["conv"], i))
         _conv(sd, f"decoder.outcs.{i}.conv", _index(dec_p["outc"], i))
     return sd
+
+
+def jax_loss_buffer_to_state(loss_buffer) -> LossBufferState:
+    """The JAX package's ``LossBufferState`` (buffer [size, S], index) ->
+    the port's, on the CPU."""
+    return LossBufferState(buffer=_t(loss_buffer.buffer).float(),
+                           index=int(np.asarray(loss_buffer.index)))

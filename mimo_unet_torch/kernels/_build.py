@@ -1,10 +1,12 @@
 """Build and load the hand-written CUDA kernels.
 
 ``mimo_unet_torch/csrc/*.cu`` compile at first use into one shared library
-with a plain C interface, loaded with ``ctypes``:
+with a plain C interface, loaded with ``ctypes``: one nvcc per source, all
+started together, then one link:
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
-         -Xcompiler -fPIC -o <build>/<hash>/libmimo_unet_kernels.so csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 \
+         -Xcompiler -fPIC -c csrc/<name>.cu -o <build>/<hash>/<name>.o
+    nvcc -shared -o <build>/<hash>/libmimo_unet_kernels.so <build>/<hash>/*.o
 
 The build directory (``mimo_unet_torch/_build/``, git-ignored) is keyed by a
 hash of the sources and the command, so an edited source rebuilds and an
@@ -29,7 +31,7 @@ CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 LIB_NAME = "libmimo_unet_kernels.so"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC"]
+              "-Xcompiler", "-fPIC"]
 
 # element offsets and sizes cross the C boundary as 64-bit ints: a B=128
 # flagship in_conv output alone holds 352 M elements
@@ -43,6 +45,27 @@ _SIGNATURES = {
     "mimo_pool_w": [_P, _P, _I, _I, _I, _P],
     # x, lo, w0, w1, out, rows, w2, c, stream
     "mimo_upsample_w2x": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
+    # x1, x2, w, sc, sh, y, psum, psq,
+    # n, h, w, c1, c2, n2, o, groups, prologue, stream
+    "mimo_conv3x3_fwd": [_P] * 8 + [_I] * 9 + [_P],
+    # g, wt, x1, sc, sh, dx1, dx2, pdsc, pdsh,
+    # n, h, w, o, c1, c2, n2, groups, prologue, stream
+    "mimo_conv3x3_dx": [_P] * 9 + [_I] * 9 + [_P],
+    # x1, x2, g, sc, sh, partial,
+    # n, h, w, c1, c2, n2, o, groups, prologue, chunk, stream
+    "mimo_conv3x3_dw": [_P] * 6 + [_I] * 10 + [_P],
+    # dy, y, dsum, dsumsq, out, n, hw, o, groups, stream
+    "mimo_g_eff": [_P] * 5 + [_I] * 4 + [_P],
+    # y, sc, sh, z, n, hw, c, groups, stream
+    "mimo_affine_relu": [_P] * 4 + [_I] * 4 + [_P],
+    # dz, y, sc, sh, dy, pdsc, pdsh, n, hw, c, groups, stream
+    "mimo_affine_relu_bwd": [_P] * 7 + [_I] * 4 + [_P],
+    # y, sc, sh, wo, bo, out, n, hw, c, oc, groups, stream
+    "mimo_conv1x1_prelu": [_P] * 6 + [_I] * 5 + [_P],
+    # g, y, sc, sh, wo, dy, partial, n, hw, c, oc, groups, stream
+    "mimo_conv1x1_prelu_bwd": [_P] * 7 + [_I] * 5 + [_P],
+    # partial, out, groups, p, l, stream
+    "mimo_reduce_groups": [_P] * 2 + [_I] * 3 + [_P],
 }
 
 _lock = threading.Lock()
@@ -75,22 +98,35 @@ def _digest() -> str:
     return h.hexdigest()[:16]
 
 
+def _run_all(cmds):
+    """Run the commands concurrently; raise with the first failure's
+    output once all have ended."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True) for c in cmds]
+    outs = [p.communicate() for p in procs]
+    for cmd, p, (so, se) in zip(cmds, procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({p.returncode}):\n{' '.join(cmd)}"
+                               f"\n{se}{so}")
+
+
 def _build(out: Path) -> None:
     global build_seconds
     out.parent.mkdir(parents=True, exist_ok=True)
-    cu = [str(s) for s in sorted(CSRC_DIR.glob("*.cu"))]
-    # write to a temporary name, then rename: a concurrent loader never sees
-    # a half-written library
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
-    os.close(fd)
-    cmd = [_nvcc()] + NVCC_FLAGS + ["-o", tmp] + cu
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}"
-                           f"\n{proc.stderr}{proc.stdout}")
-    os.replace(tmp, out)
+    with tempfile.TemporaryDirectory(dir=out.parent) as tmpdir:
+        objs, cmds = [], []
+        for src in sorted(CSRC_DIR.glob("*.cu")):
+            obj = os.path.join(tmpdir, src.stem + ".o")
+            objs.append(obj)
+            cmds.append([nvcc] + NVCC_FLAGS + ["-c", str(src), "-o", obj])
+        _run_all(cmds)
+        # link under a temporary name, then rename: a concurrent loader
+        # never sees a half-written library
+        tmp = os.path.join(tmpdir, LIB_NAME)
+        _run_all([[nvcc, "-shared", "-o", tmp] + objs])
+        os.replace(tmp, out)
     build_seconds = time.perf_counter() - t0
 
 

@@ -14,8 +14,12 @@ keys match reference checkpoints:
 
 ``nn.Conv2d`` and ``nn.BatchNorm2d`` hold the parameters; the forward runs
 the ops of ``mimo_unet_torch.ops`` so that bf16 rounds where the JAX
-package rounds.  Only eval mode is ported: train mode raises.  The unpool
-and transpose ``Up`` modes are not ported yet.
+package rounds.  Both modes follow ``double_conv_apply``
+(mimo_unet_tpu/models/blocks.py:62-121): in train mode the convs skip their
+bias, BatchNorm normalizes with batch statistics and folds the bias into
+its running mean (updated in place).  Dropout is not ported yet (the
+callers raise for a nonzero rate); the unpool and transpose ``Up`` modes
+are not ported yet.
 """
 
 from __future__ import annotations
@@ -28,6 +32,7 @@ from torch import nn
 
 from mimo_unet_torch.ops import (
     batch_norm_eval,
+    batch_norm_train,
     conv1x1,
     conv3x3_reflect,
     max_pool_2x2,
@@ -55,13 +60,6 @@ def init_bn_(bn: nn.BatchNorm2d) -> None:
         bn.num_batches_tracked.zero_()
 
 
-def _eval_only(module: nn.Module) -> None:
-    if module.training:
-        raise NotImplementedError(
-            f"{type(module).__name__}: only the eval forward is ported; "
-            "call .eval() first")
-
-
 class DoubleConv(nn.Module):
     """(3x3 reflect conv -> BN -> ReLU) x 2."""
 
@@ -86,8 +84,12 @@ class DoubleConv(nn.Module):
         init_bn_(bn2)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        _eval_only(self)
         c1, bn1, _, c2, bn2, _ = self.double_conv
+        if self.training:
+            y = conv3x3_reflect(x, c1.weight, None)
+            y = torch.relu(batch_norm_train(y, bn1, fold_conv_bias=c1.bias))
+            y = conv3x3_reflect(y, c2.weight, None)
+            return torch.relu(batch_norm_train(y, bn2, fold_conv_bias=c2.bias))
         y = conv3x3_reflect(x, c1.weight, c1.bias)
         y = torch.relu(batch_norm_eval(y, bn1.weight, bn1.bias,
                                        bn1.running_mean, bn1.running_var,
@@ -105,8 +107,12 @@ class Down(nn.Module):
         super().__init__()
         self.conv = DoubleConv(in_channels, out_channels)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.conv(max_pool_2x2(x))
+    def forward(self, x: torch.Tensor, *, pre_pooled: bool = False
+                ) -> torch.Tensor:
+        """``pre_pooled``: ``x`` is already pooled (the caller pooled it
+        with ``max_pool_2x2_skip`` to fold a skip consumer's cotangent into
+        the pool backward, mimo_unet_tpu/models/blocks.py:132-162)."""
+        return self.conv(x if pre_pooled else max_pool_2x2(x))
 
 
 class Up(nn.Module):

@@ -12,8 +12,12 @@ Input and output are channels-last with the MIMO axis at position 1, as in
 ``mimo_unet_apply``: x [B, S, H, W, C_in] -> out [B, S, H, W, C_out] f32.
 
 ``MimoUNet.forward`` routes on configuration the way ``mimo_unet_apply``
-does: eligible inputs take the kernel path of ``models/fast_path.py``,
-everything else the plain modules below.  Only the eval forward is ported.
+does: eligible inputs take a kernel path of ``models/fast_path.py`` (the
+eval one, or in train mode the train one), everything else the plain
+modules below.  In train mode BatchNorm normalizes with batch statistics
+and updates its running statistics in place (the JAX package returns them
+as new state).  Dropout and ``remat`` are not ported yet: a train forward
+that would need them raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -25,7 +29,7 @@ import torch
 from torch import nn
 
 from mimo_unet_torch.models.blocks import DoubleConv, Down, OutConv, Up
-from mimo_unet_torch.ops import max_pool_2x2
+from mimo_unet_torch.ops import max_pool_2x2_skip
 
 CT_KERNEL_MODES = ("auto", "off", "force")
 
@@ -60,7 +64,7 @@ class MimoUNetConfig:
     # PyTorch version (tests)
     ct_kernels: str = "auto"
     # train-time rematerialization ladder of the JAX package; kept so the
-    # two configs carry the same fields (the train path is not ported yet)
+    # two configs carry the same fields (only "none" is ported)
     remat: str = "none"
 
     def __post_init__(self):
@@ -88,6 +92,30 @@ class MimoUNetConfig:
     def torch_dtype(self) -> torch.dtype:
         return torch.bfloat16 if self.compute_dtype == "bfloat16" else torch.float32
 
+    def check_train_ported(self) -> None:
+        """Raise for what the train forward does not port yet."""
+        rates = {k: getattr(self, k) for k in (
+            "center_dropout_rate", "final_dropout_rate",
+            "encoder_dropout_rate", "core_dropout_rate",
+            "decoder_dropout_rate")}
+        live = [k for k, v in rates.items() if v > 0]
+        if live:
+            raise NotImplementedError(
+                f"train-mode dropout is not ported yet: {live}")
+        if self.remat != "none":
+            raise NotImplementedError(
+                f"remat={self.remat!r} is not ported yet (only 'none')")
+
+
+def resolve_device(device) -> torch.device:
+    """``None`` means the card: the port's entry points run on CUDA unless
+    the caller asks for the CPU, and raise where there is no card."""
+    dev = torch.device("cuda") if device is None else torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("CUDA is not available; pass device='cpu' to run "
+                           "on the CPU")
+    return dev
+
 
 class Encoder(nn.Module):
     def __init__(self, cfg: MimoUNetConfig):
@@ -112,14 +140,21 @@ class Core(nn.Module):
         self.up3 = Up(4 * fs, 2 * fs // factor)
 
     def mid(self, pooled: torch.Tensor) -> torch.Tensor:
-        """down2 (its pool already applied to ``pooled``) .. up2."""
+        """down2 (its pool already applied to ``pooled``) .. up2.  Each
+        Down input that also feeds an Up skip is pooled through
+        ``max_pool_2x2_skip`` and the skip reads its identity output, as
+        ``core_apply`` routes them (mimo_unet_tpu/models/mimo_unet.py:
+        293-373): the two cotangents meet inside the pool backward."""
         x3 = self.down2.conv(pooled)
-        x4 = self.down3(x3)
-        x5 = self.down4(x4)
+        p3, x3 = max_pool_2x2_skip(x3)
+        x4 = self.down3(p3, pre_pooled=True)
+        p4, x4 = max_pool_2x2_skip(x4)
+        x5 = self.down4(p4, pre_pooled=True)
         return self.up2(self.up1(x5, x4), x3)
 
     def forward(self, x2_concat: torch.Tensor) -> torch.Tensor:
-        return self.up3(self.mid(max_pool_2x2(x2_concat)), x2_concat)
+        pooled, x2_concat = max_pool_2x2_skip(x2_concat)
+        return self.up3(self.mid(pooled), x2_concat)
 
 
 class Decoder(nn.Module):
@@ -137,14 +172,16 @@ class MimoUNet(nn.Module):
 
     Weights are drawn on the CPU from ``generator`` (a CPU
     ``torch.Generator``; the global generator when None), so a seed gives
-    the same weights on every device, then moved to ``device``.  BatchNorm
-    starts at torch's defaults (running mean 0, var 1).
+    the same weights on every device, then moved to ``device``: the card
+    when None (``resolve_device``).  BatchNorm starts at torch's defaults
+    (running mean 0, var 1).
     """
 
     def __init__(self, cfg: MimoUNetConfig, *,
                  device: Optional[torch.device] = None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
+        device = resolve_device(device)
         if cfg.mode != "bilinear":
             raise NotImplementedError(
                 f"up mode {cfg.mode!r} is not ported yet (bilinear only)")
@@ -157,13 +194,13 @@ class MimoUNet(nn.Module):
         for module in self.modules():  # registration order: deterministic
             if isinstance(module, (DoubleConv, OutConv)):
                 module.reset_parameters(generator)
-        if device is not None:
-            self.to(device)
+        self.to(device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """[B, S, H, W, C_in] -> [B, S, H, W, C_out] float32."""
         from mimo_unet_torch.models.fast_path import (
-            fast_path_supported, mimo_unet_apply_fast)
+            fast_path_supported, mimo_unet_apply_fast,
+            mimo_unet_apply_train, train_path_supported)
 
         cfg = self.config
         if x.ndim != 5 or x.shape[1] != cfg.num_subnetworks:
@@ -171,13 +208,18 @@ class MimoUNet(nn.Module):
                              f"{cfg.num_subnetworks}, got {tuple(x.shape)}")
         if x.shape[-1] != cfg.in_channels:
             raise ValueError(f"channel dim must be {cfg.in_channels}")
-        if fast_path_supported(cfg, x.shape, x.device, training=self.training):
+        if self.training:
+            cfg.check_train_ported()
+            if train_path_supported(cfg, x.shape, x.device, training=True):
+                return mimo_unet_apply_train(self, x)
+        elif fast_path_supported(cfg, x.shape, x.device, training=False):
             return mimo_unet_apply_fast(self, x)
         return self.forward_plain(x)
 
     def forward_plain(self, x: torch.Tensor) -> torch.Tensor:
         """The plain modules, one subnetwork at a time (reference
-        model.py:167-173, :292-295)."""
+        model.py:167-173, :292-295), in the modules' mode: in train mode
+        each subnetwork's BatchNorms see that subnetwork's batch."""
         x = x.to(self.config.torch_dtype)
         x1s, x2s = [], []
         for i, (in_conv, down1) in enumerate(

@@ -12,15 +12,22 @@ bf16 outputs round at the same two places.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 import torch.nn.functional as F
 
 
 def conv3x3_reflect(x: torch.Tensor, weight: torch.Tensor,
-                    bias: torch.Tensor, *, groups: int = 1) -> torch.Tensor:
-    """3x3 conv with 1-pixel reflect padding: [N, C, H, W] -> [N, O, H, W]."""
+                    bias: Optional[torch.Tensor], *, groups: int = 1
+                    ) -> torch.Tensor:
+    """3x3 conv with 1-pixel reflect padding: [N, C, H, W] -> [N, O, H, W].
+    ``bias=None`` skips the bias add (train mode: the BatchNorm that
+    follows cancels it, mimo_unet_tpu/models/blocks.py:86-91)."""
     y = F.conv2d(F.pad(x, (1, 1, 1, 1), mode="reflect"),
                  weight.to(x.dtype), None, groups=groups)
+    if bias is None:
+        return y
     return y + bias.to(y.dtype).view(1, -1, 1, 1)
 
 

@@ -9,7 +9,8 @@ The resize contracts H and W against the dense align-corners interpolation
 matrices (<= 2 nonzeros per row), one axis at a time, with the matrices in
 the activation dtype.  In float32 that is exact; in bfloat16 the weights
 round to bf16 and the H pass rounds to bf16 before the W pass, the same
-rounding points as the JAX package's bf16 path.
+rounding points as the JAX package's bf16 path.  Gradients come from
+autograd through the contractions.
 """
 
 from __future__ import annotations
@@ -41,13 +42,30 @@ def _interp_matrix(in_size: int, out_size: int) -> np.ndarray:
     return mat
 
 
-def upsample_bilinear_x2_align_corners(x: torch.Tensor) -> torch.Tensor:
-    """NCHW x2 bilinear upsample, align_corners=True (torch semantics)."""
+def _matrices(x: torch.Tensor):
     h, w = x.shape[-2], x.shape[-1]
     mh = torch.from_numpy(_interp_matrix(h, 2 * h)).to(x.device, x.dtype)
     mw = torch.from_numpy(_interp_matrix(w, 2 * w)).to(x.device, x.dtype)
+    return mh, mw
+
+
+def upsample_bilinear_x2_align_corners(x: torch.Tensor) -> torch.Tensor:
+    """NCHW x2 bilinear upsample, align_corners=True (torch semantics)."""
+    mh, mw = _matrices(x)
     y = torch.einsum("oh,nchw->ncow", mh, x)
     return torch.einsum("pw,ncow->ncop", mw, y)
+
+
+def upsample_x2_nchw_to_nhwc(x: torch.Tensor) -> torch.Tensor:
+    """The same upsample from NCHW [N, C, H, W] to a contiguous
+    channels-last [N, 2H, 2W, C]: the decoder's input on the train kernel
+    path (``mimo_unet_tpu/models/fast_path.py:270`` ``_upsample_ct_x2``,
+    the H pass then the W pass, each rounded to the activation dtype).
+    Differentiable through autograd: the backward is the same contraction
+    against the same matrices."""
+    mh, mw = _matrices(x)
+    y = torch.einsum("oh,nchw->nowc", mh, x)
+    return torch.einsum("pw,nowc->nopc", mw, y).contiguous()
 
 
 def pad_to_match(x: torch.Tensor, target_h: int, target_w: int) -> torch.Tensor:

@@ -1,11 +1,18 @@
-"""MIMO U-Net task: hyperparameters, model construction, forward and the
-validation step.
+"""MIMO U-Net task: hyperparameters, model construction, forward, the train
+step and the validation step.
 
 Counterpart of ``mimo_unet_tpu/tasks/mimo.py`` (reference
 mimo/models/mimo_unet.py:15-314): the same fields (the reference CLI flags),
 ``forward`` splitting the output channels into p1 (means) and p2
-(log-params), and ``val_step`` with the ``valid`` row weighting.  The train
-step comes with the train path.
+(log-params), ``train_step`` (input transform, per-subnetwork loss,
+loss-buffer weighting, Adam + StepLR) and ``val_step`` with the ``valid``
+row weighting.
+
+Where the JAX package threads a ``TrainState`` pytree through a pure step,
+the port's ``TrainState`` holds the model (parameters and BatchNorm
+statistics), the optimizer and its schedule, and the loss buffer, and
+``train_step`` updates them in place.  Entry points build on the card
+unless the caller passes ``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -15,10 +22,22 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from mimo_unet_torch.loss_buffer import (
+    LossBufferState,
+    loss_buffer_add,
+    loss_buffer_init,
+    loss_buffer_weights,
+)
 from mimo_unet_torch.losses import UncertaintyLoss
 from mimo_unet_torch.metrics import compute_regression_metrics
 from mimo_unet_torch.models.mimo_unet import MimoUNet, MimoUNetConfig
-from mimo_unet_torch.transforms import compute_uncertainties, repeat_subnetworks
+from mimo_unet_torch.train.optim import adam_with_steplr
+from mimo_unet_torch.transforms import (
+    apply_input_transform,
+    compute_uncertainties,
+    flatten_subnetwork_dimension,
+    repeat_subnetworks,
+)
 
 _NO_RESCALE_KEYS = ("mask", "valid")
 
@@ -34,6 +53,19 @@ def device_normalize(batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         return v if k in _NO_RESCALE_KEYS else v / 255.0
 
     return {k: norm(k, v) for k, v in batch.items()}
+
+
+@dataclasses.dataclass
+class TrainState:
+    """Everything a train step carries (``mimo_unet_tpu/tasks/mimo.py:55-66``);
+    ``train_step`` updates it in place."""
+
+    step: int
+    model: MimoUNet  # parameters and BatchNorm running statistics
+    optimizer: torch.optim.Adam
+    scheduler: torch.optim.lr_scheduler.LambdaLR
+    loss_buffer: LossBufferState
+    generator: torch.Generator  # CPU: the input transform's permutations
 
 
 @dataclasses.dataclass(frozen=True)
@@ -58,7 +90,7 @@ class MimoUnetTask:
     scheduler_step_size: int = 20
     scheduler_gamma: float = 0.5
     compute_dtype: Optional[str] = None
-    ct_kernels: str = "auto"  # kernel eval path (models/fast_path.py)
+    ct_kernels: str = "auto"  # kernel paths (models/fast_path.py)
     remat: str = "none"
 
     @property
@@ -86,12 +118,35 @@ class MimoUnetTask:
 
     def build_model(self, device=None,
                     generator: Optional[torch.Generator] = None) -> MimoUNet:
-        """A ``MimoUNet`` in eval mode on ``device``; weights drawn from
-        ``generator`` (a CPU generator; seeded from ``seed`` when None)."""
+        """A ``MimoUNet`` in eval mode on ``device`` (the card when None;
+        raises without one); weights drawn from ``generator`` (a CPU
+        generator; seeded from ``seed`` when None)."""
         if generator is None:
             generator = torch.Generator().manual_seed(self.seed)
         return MimoUNet(self.model_config, device=device,
                         generator=generator).eval()
+
+    def make_optimizer(self, model: MimoUNet, steps_per_epoch: int):
+        """(Adam, per-step StepLR schedule) over the model's parameters."""
+        return adam_with_steplr(model.parameters(), self.learning_rate,
+                                self.weight_decay, self.scheduler_step_size,
+                                self.scheduler_gamma, steps_per_epoch)
+
+    def init_state(self, steps_per_epoch: int, device=None,
+                   generator: Optional[torch.Generator] = None) -> TrainState:
+        """A fresh ``TrainState`` on ``device`` (the card when None): weights
+        from ``generator`` (seeded from ``seed`` when None), the model in
+        train mode, Adam moments at zero, an empty loss buffer."""
+        if generator is None:
+            generator = torch.Generator().manual_seed(self.seed)
+        model = self.build_model(device, generator).train()
+        opt, sched = self.make_optimizer(model, steps_per_epoch)
+        dev = next(model.parameters()).device
+        return TrainState(
+            step=0, model=model, optimizer=opt, scheduler=sched,
+            loss_buffer=loss_buffer_init(self.num_subnetworks,
+                                         self.loss_buffer_size, dev),
+            generator=torch.Generator().manual_seed(self.seed + 1))
 
     def forward(self, model: MimoUNet, x: torch.Tensor
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -99,6 +154,71 @@ class MimoUnetTask:
         out = model(x)
         c = self.out_channels // 2
         return out[..., :c], out[..., c:]
+
+    def objective(self, model: MimoUNet, image_t: torch.Tensor,
+                  label_t: torch.Tensor, mask_t: Optional[torch.Tensor],
+                  loss_buffer: LossBufferState):
+        """The train loss of transformed inputs [B, S, ...]: the
+        per-subnetwork NLL mean over (batch, H, W, channel), weighted by the
+        loss buffer.  Returns (loss, loss_vec [S], weights [S], p1, p2)."""
+        p1, p2 = self.forward(model, image_t)
+        per_px = self.loss_fn(p1, p2, label_t, mask=mask_t, reduce_mean=False)
+        loss_vec = per_px.mean(dim=(0, 2, 3, 4))
+        weights = loss_buffer_weights(loss_buffer, self.loss_buffer_temperature,
+                                      self.loss_buffer_size)
+        return (loss_vec * weights).mean(), loss_vec, weights, p1, p2
+
+    def train_step(self, state: TrainState, batch: Dict[str, torch.Tensor],
+                   with_outputs: bool = False):
+        """One optimization step, in place.  ``batch``: image/label
+        [B,H,W,C], optional mask [B,H,W,1], on any device (moved to the
+        model's).  Returns (state, logs, outputs-or-None)."""
+        model = state.model.train()
+        dev = next(model.parameters()).device
+        batch = device_normalize({k: v.to(dev) for k, v in batch.items()})
+        image_t, label_t, mask_t = apply_input_transform(
+            state.generator, batch["image"], batch["label"], batch.get("mask"),
+            num_subnetworks=self.num_subnetworks,
+            input_repetition_probability=self.input_repetition_probability,
+            batch_repetitions=self.batch_repetitions)
+
+        state.optimizer.zero_grad(set_to_none=True)
+        loss, loss_vec, weights, p1, p2 = self.objective(
+            model, image_t, label_t, mask_t, state.loss_buffer)
+        loss.backward()
+        # a parameter outside the graph (a conv bias that train-mode
+        # BatchNorm cancels) has a zero gradient, as in the JAX package, so
+        # Adam still applies weight decay to it
+        for p in model.parameters():
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        state.optimizer.step()
+        state.scheduler.step()
+        loss_buffer_add(state.loss_buffer, loss_vec, self.loss_buffer_size)
+        state.step += 1
+
+        with torch.no_grad():
+            loss_vec = loss_vec.detach()
+            p1, p2 = p1.detach(), p2.detach()
+            y_pred = self.loss_fn.mode(p1, p2)
+            logs = {"train_loss": loss_vec.mean()}
+            for i in range(self.num_subnetworks):
+                logs[f"train_loss_{i}"] = loss_vec[i]
+                logs[f"train_weight_{i}"] = weights[i]
+            for name, value in compute_regression_metrics(y_pred, label_t).items():
+                logs[f"metric_train/{name}"] = value
+            outputs = None
+            if with_outputs:
+                outputs = {
+                    "label": flatten_subnetwork_dimension(label_t),
+                    "preds": flatten_subnetwork_dimension(y_pred),
+                    "aleatoric_std_map": flatten_subnetwork_dimension(
+                        self.loss_fn.std(p1, p2)),
+                    "err_map": flatten_subnetwork_dimension(y_pred - label_t),
+                    "mask": (flatten_subnetwork_dimension(mask_t)
+                             if mask_t is not None else None),
+                }
+        return state, logs, outputs
 
     @torch.no_grad()
     def val_step(self, model: MimoUNet, batch: Dict[str, torch.Tensor]

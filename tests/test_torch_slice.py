@@ -76,9 +76,9 @@ def jax_weights(num_subnetworks=2, compute_dtype=None, seed=0):
 def torch_model(cfg_kwargs, params, state, device="cpu"):
     """The port's MimoUNet (eval) holding the JAX package's weights."""
     cfg = MimoUNetConfig(**cfg_kwargs)
-    model = MimoUNet(cfg)
+    model = MimoUNet(cfg, device=device)
     model.load_state_dict(jax_pytree_to_state_dict(params, state, cfg))
-    return model.to(device).eval()
+    return model.eval()
 
 
 def _inputs(seed=1):
@@ -92,7 +92,7 @@ def test_transplant_round_trip_exact(s):
     cfg, params, state = jax_weights(s, seed=s)
     sd = jax_pytree_to_state_dict(params, state, MimoUNetConfig(**kw))
     # the state dict is exactly the module's: strict load succeeds
-    MimoUNet(MimoUNetConfig(**kw)).load_state_dict(sd)
+    MimoUNet(MimoUNetConfig(**kw), device="cpu").load_state_dict(sd)
     p2, s2 = torch_state_dict_to_pytree(sd, cfg)
     for a, b in ((params, p2), (state, s2)):
         la, ta = jax.tree.flatten(a)
@@ -177,10 +177,15 @@ PORT_MODULES = [
     "mimo_unet_torch.kernels.fused_double_conv",
     "mimo_unet_torch.kernels.pool_w",
     "mimo_unet_torch.kernels.upsample_w2x",
+    "mimo_unet_torch.kernels.conv3x3_train",
+    "mimo_unet_torch.kernels.train_elem",
     "mimo_unet_torch.interop",
     "mimo_unet_torch.losses",
+    "mimo_unet_torch.loss_buffer",
     "mimo_unet_torch.transforms",
     "mimo_unet_torch.metrics",
+    "mimo_unet_torch.train",
+    "mimo_unet_torch.train.optim",
     "mimo_unet_torch.tasks.mimo",
 ]
 
