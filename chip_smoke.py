@@ -31,7 +31,28 @@ Run from the root of the repository.  Phases, each raising on failure:
    every train kernel ran and whose loss and parameters stay finite; then
    a profile of one B=16 step (device time by phase and the top device
    operations) and step times at B=16 and B=64.
-7. Print the kernels' JSON line, then the result line
+7. Dropout kernels: the grouped 1x1 (K11) forward at the MC-serving
+   decoder site (N=64 images of 256x256: 8 images x 4 MC passes x S=2)
+   and forward and backward at the 640x480 B=4 train site; affine_relu
+   (K8) and conv1x1_prelu (K12), forward and backward, with per-image
+   parameters (groups = N) at their 640x480 B=4 sites; each against its
+   plain version at phase 3's tolerance.
+8. MC serving: the flagship with the MC-dropout recipe (encoder, core and
+   decoder Dropout2d at 0.1) in an ``Ensemble(monte_carlo_steps=4)``
+   answers 8-image and 1-image ``predict`` requests (median latency); the
+   launch counters must show K1-K4 and K11; the raw predictions must match
+   the plain model (ct_kernels="off") drawing the same masks within
+   3e-2 * max|ref|, and another generator must move them.
+9. MC-recipe train at 640x480: one step's gradients against the plain
+   model with the same masks (cosine >= 0.999 per leaf above the noise
+   threshold, where the plain bf16 gradient is itself that close to the
+   plain f32 model's; elsewhere no further from the f32 gradient than the
+   plain bf16 model), 3 ``train_step``s of B=16 whose counters show the train
+   kernels with K8 and K12 launched at groups = N, step times at B=16
+   (kernels vs plain); then one B=4 ``train_step`` of the final-dropout
+   route whose counters show K11's forward and backward, and its
+   gradient check against the plain model.
+10. Print the kernels' JSON line, then the result line
    ``{"ok": true, "device": {...}}`` last.
 
 Every time carries the card's name and power limit.  Exits non-zero,
@@ -40,6 +61,7 @@ printing no result, without CUDA or outside the repo.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -67,7 +89,13 @@ KERNEL_INFO = {
     "affine_relu_bwd": ("mimo_unet_torch/csrc/train_elem.cu", _E + "ct_elem.py:106"),
     "conv1x1_prelu": ("mimo_unet_torch/csrc/train_elem.cu", _E + "ct_elem.py:527"),
     "conv1x1_prelu_bwd": ("mimo_unet_torch/csrc/train_elem.cu", _E + "ct_elem.py:560"),
+    "conv1x1": ("mimo_unet_torch/csrc/train_elem.cu", _E + "ct_elem.py:437"),
+    "conv1x1_bwd": ("mimo_unet_torch/csrc/train_elem.cu", _E + "ct_elem.py:464"),
 }
+# the documented MC-dropout recipe (reference Readme.md:82)
+MC_RECIPE = dict(encoder_dropout_rate=0.1, core_dropout_rate=0.1,
+                 decoder_dropout_rate=0.1)
+MC_STEPS, MC_B = 4, 8                  # MC passes; images per MC request
 
 
 @dataclasses.dataclass
@@ -374,6 +402,80 @@ def train_sites(dev, gen):
     return sites
 
 
+def dropout_kernel_sites(dev, gen):
+    """K11 at its call sites (models/fast_path.py: the MC-dropout eval
+    decoder, N = S*8*4 at 256x256; the final-dropout train decoder, N = S*4
+    at 640x480) and K8/K12 with per-image parameters (groups = N) at their
+    640x480 B=4 train sites, as the Dropout2d sites fold into them."""
+    import torch
+    from mimo_unet_torch import kernels as K
+
+    bf = torch.bfloat16
+    sites = []
+
+    def act(*shape, scale=1.0):
+        return (torch.randn(shape, device=dev, generator=gen) * scale).to(bf)
+
+    def out_conv(groups):
+        return ((torch.rand((groups, F, 2), device=dev, generator=gen) * 2 - 1) / F ** 0.5,
+                torch.randn((groups, 2), device=dev, generator=gen) * 0.1)
+
+    def baddbmm(z, wo, bo):  # one library call of the grouped 1x1
+        g = wo.shape[0]
+        return torch.baddbmm(bo.to(bf)[:, None, :], z.view(g, -1, z.shape[-1]),
+                             wo.to(bf))
+
+    n_mc = S * MC_B * MC_STEPS
+    z = act(n_mc, HW, HW, F)
+    wo, bo = out_conv(S)
+    px = n_mc * HW * HW
+    sites.append(Site("conv1x1", f"MC decoder 21->2, N={n_mc} @256",
+                      lambda: K.conv1x1(z, wo, bo), lambda: K.conv1x1_plain(z, wo, bo),
+                      False, 2.0 * px * F * 2,
+                      _nbytes((z.shape, 2), ((n_mc, HW, HW, 2), 2)),
+                      lambda: baddbmm(z, wo, bo)))
+
+    n, px = S * TB, S * TB * TH * TW
+    elem, logits = _nbytes(((n, TH, TW, F), 2)), _nbytes(((n, TH, TW, 2), 2))
+    zt = act(n, TH, TW, F)
+    gt = act(n, TH, TW, 2, scale=0.01)
+    sites.append(Site("conv1x1", f"final-dropout decoder 21->2, N={n} @640x480",
+                      lambda: K.conv1x1(zt, wo, bo), lambda: K.conv1x1_plain(zt, wo, bo),
+                      False, 2.0 * px * F * 2, elem + logits,
+                      lambda: baddbmm(zt, wo, bo)))
+    sites.append(Site("conv1x1_bwd", f"final-dropout decoder 21->2, N={n} @640x480",
+                      lambda: K.conv1x1_bwd(gt, zt, wo),
+                      lambda: K.conv1x1_bwd_plain(gt, zt, wo),
+                      False, px * (4.0 * F * 2 + 2), 2 * elem + logits))
+
+    # per-image affine: the per-group BN affine times each image's
+    # Dropout2d scale (0 or 1/keep)
+    keep = 0.9
+    m = (torch.rand((n, F), device=dev, generator=gen) < keep).float() / keep
+    sc = (torch.rand((S, F), device=dev, generator=gen) + 0.5).repeat_interleave(TB, 0) * m
+    sh = (torch.randn((S, F), device=dev, generator=gen) * 0.1).repeat_interleave(TB, 0) * m
+    y = act(n, TH, TW, F, scale=3.0)
+    dz = act(n, TH, TW, F, scale=0.01)
+    wo_i, bo_i = wo.repeat_interleave(TB, 0), bo.repeat_interleave(TB, 0)
+    sites.append(Site("affine_relu", f"in_conv x1s 21 ch, groups={n}",
+                      lambda: K.affine_relu(y, sc, sh),
+                      lambda: K.affine_relu_plain(y, sc, sh),
+                      False, 3.0 * px * F, 2 * elem))
+    sites.append(Site("affine_relu_bwd", f"in_conv x1s 21 ch, groups={n}",
+                      lambda: K.affine_relu_bwd(dz, y, sc, sh),
+                      lambda: K.affine_relu_bwd_plain(dz, y, sc, sh),
+                      False, 6.0 * px * F, 3 * elem))
+    sites.append(Site("conv1x1_prelu", f"decoder up4 Dropout2d + out-conv, groups={n}",
+                      lambda: K.conv1x1_prelu(y, sc, sh, wo_i, bo_i),
+                      lambda: K.conv1x1_prelu_plain(y, sc, sh, wo_i, bo_i),
+                      False, px * (3.0 * F + 2.0 * F * 2), elem + logits))
+    sites.append(Site("conv1x1_prelu_bwd", f"decoder up4 Dropout2d + out-conv, groups={n}",
+                      lambda: K.conv1x1_prelu_bwd(gt, y, sc, sh, wo_i),
+                      lambda: K.conv1x1_prelu_bwd_plain(gt, y, sc, sh, wo_i),
+                      False, px * (4.0 * F + 4.0 * F * 2), 2 * elem + logits))
+    return sites
+
+
 def check_kernels(sites, card):
     """Every site's kernel against its plain version; returns per-kernel
     {max_abs_err, ms, plain_ms, bound_ms, bound_by, library_ms}, the
@@ -413,17 +515,16 @@ def check_kernels(sites, card):
     return stats
 
 
-def serve(dev, card, ct_kernels="auto"):
-    """The flagship served through an Ensemble; returns the eval kernels'
-    launch counts over the requests."""
+def _flagship(dev, **rates):
+    """The flagship serving task (S=2, fbc=21, bf16, Laplace NLL) with
+    dropout ``rates`` and its model: seeded weights, random BatchNorm
+    statistics."""
     import torch
-    from mimo_unet_torch import kernels as K
-    from mimo_unet_torch.models.ensemble import Ensemble
     from mimo_unet_torch.tasks.mimo import MimoUnetTask
 
     task = MimoUnetTask(in_channels=3, out_channels=2, num_subnetworks=S,
                         filter_base_count=F, loss="laplace_nll",
-                        compute_dtype="bfloat16", ct_kernels=ct_kernels)
+                        compute_dtype="bfloat16", **rates)
     cpu_gen = torch.Generator().manual_seed(1)
     model = task.build_model(dev, cpu_gen)
     with torch.no_grad():
@@ -434,6 +535,25 @@ def serve(dev, card, ct_kernels="auto"):
                 mod.bias.copy_(torch.randn(c, generator=cpu_gen) * 0.1)
                 mod.running_mean.copy_(torch.randn(c, generator=cpu_gen) * 0.1)
                 mod.running_var.copy_(torch.rand(c, generator=cpu_gen) + 0.5)
+    return task, model
+
+
+def _plain_copy(task, model, dev):
+    """The same model on the plain modules (ct_kernels="off")."""
+    off_task = dataclasses.replace(task, ct_kernels="off")
+    off_model = off_task.build_model(dev)
+    off_model.load_state_dict(model.state_dict())
+    return off_task, off_model
+
+
+def serve(dev, card):
+    """The flagship served through an Ensemble; returns the eval kernels'
+    launch counts over the requests."""
+    import torch
+    from mimo_unet_torch import kernels as K
+    from mimo_unet_torch.models.ensemble import Ensemble
+
+    task, model = _flagship(dev)
     ens = Ensemble([(task, model)])
     rng = torch.Generator().manual_seed(2)
     requests = [torch.rand((B, HW, HW, 3), generator=rng).numpy()
@@ -457,10 +577,7 @@ def serve(dev, card, ct_kernels="auto"):
     if missing:
         raise AssertionError(f"kernels not launched on the serving path: {missing}")
 
-    off_task = dataclasses.replace(task, ct_kernels="off")
-    off_model = off_task.build_model(dev)
-    off_model.load_state_dict(model.state_dict())
-    off = Ensemble([(off_task, off_model)])
+    off = Ensemble([_plain_copy(task, model, dev)])
     for req, (mean, ale, epi) in zip(requests, answers):
         for name, arr in (("mean", mean), ("aleatoric", ale), ("epistemic", epi)):
             if arr.shape != (req.shape[0], HW, HW, 1):
@@ -487,6 +604,68 @@ def serve(dev, card, ct_kernels="auto"):
     return launches
 
 
+def serve_mc(dev, card):
+    """Phase 8: MC-dropout serving; returns the launch counts over the
+    requests."""
+    import torch
+    from mimo_unet_torch import kernels as K
+    from mimo_unet_torch.models.ensemble import Ensemble
+
+    task, model = _flagship(dev, **MC_RECIPE)
+    ens = Ensemble([(task, model)], monte_carlo_steps=MC_STEPS,
+                   generator=torch.Generator(dev).manual_seed(3))
+    rng = torch.Generator().manual_seed(4)
+    sizes = [MC_B] * 5 + [1] * 5
+    requests = [torch.rand((b, HW, HW, 3), generator=rng).numpy() for b in sizes]
+    for b in (MC_B, 1):  # warm-up: cuDNN plans per shape
+        ens.predict(requests[sizes.index(b)], batch_size=b)
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    times = {MC_B: [], 1: []}
+    answers = []
+    for req in requests:
+        t0 = time.perf_counter()
+        answers.append(ens.predict(req, batch_size=req.shape[0]))
+        times[req.shape[0]].append(time.perf_counter() - t0)
+    launches = K.launch_counts()
+    for b, ts in times.items():
+        ts.sort()
+        print(f"MC predict B={b} x {MC_STEPS} passes: median {ts[len(ts) // 2] * 1e3:.3f} ms "
+              f"over {len(ts)} (min {ts[0] * 1e3:.3f}) ({card})")
+    print(f"MC serve launches: {launches}")
+    missing = [k.__name__ for k in K.EVAL_KERNELS + (K.conv1x1,)
+               if launches[k.__name__] <= 0]
+    if missing:
+        raise AssertionError(f"kernels not launched on the MC serving path: {missing}")
+    for req, outs in zip(requests, answers):
+        for arr in outs:
+            if (arr.shape != (req.shape[0], HW, HW, 1)
+                    or not torch.isfinite(torch.from_numpy(arr)).all()):
+                raise AssertionError(f"MC predict: shape {arr.shape} or non-finite")
+
+    # the raw predictions against the plain model drawing the same masks
+    off = Ensemble([_plain_copy(task, model, dev)], monte_carlo_steps=MC_STEPS,
+                   generator=torch.Generator(dev).manual_seed(5))
+    image = torch.from_numpy(requests[0]).to(dev)
+    ens.generator.manual_seed(5)
+    got = ens.raw_forward(image)
+    want = off.raw_forward(image)
+    for name, g, w in zip(("p1", "p2"), got, want):
+        if g.shape != (MC_B, S * MC_STEPS, HW, HW, 1):
+            raise AssertionError(f"MC {name}: shape {tuple(g.shape)}")
+        scale = float(w.abs().max()) or 1.0
+        err = float((g - w).abs().max())
+        print(f"MC serve {name}: max abs vs ct_kernels=off {err} (scale {scale})")
+        if err > 3e-2 * scale:
+            raise AssertionError(f"MC {name}: kernel path vs plain {err} > 3e-2 * {scale}")
+    ens.generator.manual_seed(6)
+    moved = float((ens.raw_forward(image)[0] - got[0]).abs().max())
+    print(f"MC serve: another generator moves p1 by {moved}")
+    if not moved > 1e-2 * float(got[0].abs().max()):
+        raise AssertionError("MC serving: the dropout sites are not live")
+    return launches
+
+
 def _frames(gen, b):
     """Seeded random NYUv2-shaped uint8 frames and depth labels."""
     import torch
@@ -497,50 +676,89 @@ def _frames(gen, b):
                                    dtype=torch.uint8)}
 
 
-def _grad_check(task, state, dev, card):
+def _cos(a, b):
+    return float((a * b).sum() / (a.norm() * b.norm() + 1e-12))
+
+
+def _grad_check(task, state, dev, card, b=TRAIN_B, min_cos=0.99, f32_ref=False):
     """One step's loss and gradients: the kernel path against the plain
-    model (ct_kernels="off") with the same weights and inputs, on copies
-    of the train state's model."""
+    model (ct_kernels="off") with the same weights, inputs and dropout
+    masks, on copies of the train state's model: cosine >= ``min_cos`` on
+    every leaf above the noise threshold.  ``f32_ref`` also runs the plain
+    model in float32: a leaf whose plain bf16 gradient is itself further
+    than ``min_cos`` from the f32 one is set by bf16 rounding, not by the
+    kernels, and there the kernel path must be as close to the f32
+    gradient as the plain model is, up to tests/test_torch_train.py's slack
+    (0.15 on the minimum, 0.05 on the mean over those leaves)."""
     import torch
     from mimo_unet_torch.loss_buffer import loss_buffer_init
+    from mimo_unet_torch.models.mimo_unet import dropout_sites
+    from mimo_unet_torch.ops.dropout import DropoutSource
     from mimo_unet_torch.tasks.mimo import device_normalize
     from mimo_unet_torch.transforms import apply_input_transform
 
     batch = device_normalize({k: v.to(dev) for k, v in
-                              _frames(torch.Generator().manual_seed(5), TRAIN_B).items()})
+                              _frames(torch.Generator().manual_seed(5), b).items()})
     image_t, label_t, _ = apply_input_transform(
         torch.Generator().manual_seed(6), batch["image"], batch["label"], None, S)
+    sites = dropout_sites(task.model_config, image_t.shape[0], TH, TW)
+    source = None
+    if sites:  # one draw, given to every run
+        drawn = DropoutSource(torch.Generator(dev).manual_seed(8)).draw(sites, dev)
+        source = DropoutSource(masks={k: m for k, (m, _) in drawn.items()})
+    runs = {"kernels": dict(ct_kernels="auto"), "plain": dict(ct_kernels="off")}
+    if f32_ref:
+        runs["f32"] = dict(ct_kernels="off", compute_dtype=None)
     results = {}
-    for ct in ("auto", "off"):
-        t = dataclasses.replace(task, ct_kernels=ct)
+    for name, kw in runs.items():
+        t = dataclasses.replace(task, **kw)
         model = t.build_model(dev)
         model.load_state_dict(state.model.state_dict())
         model.train()
         loss = t.objective(model, image_t, label_t, None,
-                           loss_buffer_init(S, t.loss_buffer_size, dev))[0]
+                           loss_buffer_init(S, t.loss_buffer_size, dev), source)[0]
         loss.backward()
-        results[ct] = (float(loss.detach()), {k: p.grad.float() for k, p in
-                                     model.named_parameters() if p.grad is not None})
+        results[name] = (float(loss.detach()), {k: p.grad.float() for k, p in
+                                       model.named_parameters() if p.grad is not None})
         del model
-    (lk, gk), (lp, gp) = results["auto"], results["off"]
+    (lk, gk), (lp, gp) = results["kernels"], results["plain"]
     rel = abs(lk - lp) / abs(lp)
     print(f"grad check: loss kernels {lk} vs plain {lp} (rel {rel:.3e}) ({card})")
     if not rel <= 2e-2:
         raise AssertionError(f"train loss: kernel path {lk} vs plain {lp}")
     if gk.keys() != gp.keys():
         raise AssertionError(f"gradient leaves differ: {sorted(gk.keys() ^ gp.keys())}")
-    cos = {}
-    for k, b in gp.items():
-        if float(b.abs().max()) < 5e-3:  # noise-level leaf
-            continue
-        a = gk[k]
-        cos[k] = float((a * b).sum() / (a.norm() * b.norm() + 1e-12))
+    cos = {k: _cos(gk[k], g) for k, g in gp.items()
+           if float(g.abs().max()) >= 5e-3}  # else a noise-level leaf
     worst = min(cos, key=cos.get)
     print(f"grad check: {len(cos)} leaves, cosine min {cos[worst]:.5f} ({worst}), "
           f"mean {sum(cos.values()) / len(cos):.5f}")
-    low = {k: v for k, v in cos.items() if v < 0.99}
+    noisy = []
+    if f32_ref:
+        g32 = results["f32"][1]
+        print(f"grad check: loss f32 {results['f32'][0]}")
+        c_k = {k: _cos(gk[k], g32[k]) for k in cos}
+        c_p = {k: _cos(gp[k], g32[k]) for k in cos}
+        noisy = [k for k in cos if c_p[k] < min_cos]
+        for k in noisy:
+            print(f"  bf16-noisy leaf {k}: vs f32 kernels {c_k[k]:.5f}, plain "
+                  f"{c_p[k]:.5f}; kernels vs plain {cos[k]:.5f}")
+        if noisy:
+            mk, mp = min(c_k[k] for k in noisy), min(c_p[k] for k in noisy)
+            ak = sum(c_k[k] for k in noisy) / len(noisy)
+            ap = sum(c_p[k] for k in noisy) / len(noisy)
+            print(f"grad check: {len(noisy)} bf16-noisy leaves, cosine to f32 "
+                  f"min kernels {mk:.5f} vs plain {mp:.5f}, mean {ak:.5f} vs {ap:.5f}")
+            if mk < mp - 0.15 or ak < ap - 0.05:
+                raise AssertionError("kernel path further from the f32 gradients "
+                                     "than the plain bf16 model")
+    clean = {k: v for k, v in cos.items() if k not in noisy}
+    if noisy:
+        print(f"grad check: {len(clean)} other leaves, cosine min "
+              f"{min(clean.values()):.5f}, mean {sum(clean.values()) / len(clean):.5f}")
+    low = {k: v for k, v in clean.items() if v < min_cos}
     if low:
-        raise AssertionError(f"gradient cosine < 0.99: {low}")
+        raise AssertionError(f"gradient cosine < {min_cos}: {low}")
     return cos
 
 
@@ -662,6 +880,95 @@ def train(dev, card):
     return launches
 
 
+@contextlib.contextmanager
+def record_groups(names):
+    """Record the groups argument (the last before the stream) of every
+    launch of the library entries ``names``: {name: set of groups}."""
+    from mimo_unet_torch.kernels import _build
+
+    seen = {n: set() for n in names}
+    launch = _build.launch
+
+    def recording(name, device, *args):
+        if name in seen:
+            seen[name].add(int(args[-1]))
+        return launch(name, device, *args)
+
+    _build.launch = recording
+    try:
+        yield seen
+    finally:
+        _build.launch = launch
+
+
+def train_mc(dev, card):
+    """Phase 9; returns the launch counts of the MC-recipe steps and of the
+    final-dropout step."""
+    import torch
+    from mimo_unet_torch import kernels as K
+    from mimo_unet_torch.tasks.mimo import MimoUnetTask
+
+    task = MimoUnetTask(in_channels=3, out_channels=2, num_subnetworks=S,
+                        filter_base_count=F, loss="laplace_nll",
+                        learning_rate=1e-3, loss_buffer_size=10,
+                        compute_dtype="bfloat16", **MC_RECIPE)
+    spe = -(-795 // TRAIN_B)
+    state = task.init_state(spe, dev)
+    _grad_check(task, state, dev, card, min_cos=0.999, f32_ref=True)
+    torch.cuda.empty_cache()
+
+    gen = torch.Generator().manual_seed(9)
+    batches = [_frames(gen, TRAIN_B) for _ in range(3)]
+    per_image = ("mimo_affine_relu", "mimo_affine_relu_bwd", "mimo_conv1x1_prelu",
+                 "mimo_conv1x1_prelu_bwd")
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    with record_groups(per_image) as groups:
+        for i, batch in enumerate(batches):
+            state, logs, _ = task.train_step(state, batch)
+            loss = float(logs["train_loss"])
+            print(f"MC-recipe train step {i}: loss {loss:.5f}")
+            if not torch.isfinite(torch.tensor(loss)):
+                raise AssertionError(f"MC step {i}: non-finite loss")
+        torch.cuda.synchronize()
+    launches = K.launch_counts()
+    print(f"MC-recipe train launches: {launches}; K8/K12 groups: {groups}")
+    missing = [k.__name__ for k in K.TRAIN_KERNELS if launches[k.__name__] <= 0]
+    if missing:
+        raise AssertionError(f"kernels not launched on the MC train path: {missing}")
+    not_per_image = [k for k, g in groups.items() if S * TRAIN_B not in g]
+    if not_per_image:
+        raise AssertionError(f"no launch at groups = N: {not_per_image}")
+    if not all(bool(torch.isfinite(p).all()) for p in state.model.parameters()):
+        raise AssertionError("non-finite parameters after 3 MC-recipe steps")
+    _time_steps(task, state, gen, TRAIN_B, 5, card, "MC recipe, kernels")
+    del state
+    plain = dataclasses.replace(task, ct_kernels="off")
+    pstate = plain.init_state(spe, dev)
+    _time_steps(plain, pstate, gen, TRAIN_B, 5, card, "MC recipe, plain (cuDNN bf16)")
+    del pstate
+    torch.cuda.empty_cache()
+
+    # the final-dropout route: K8, the elementwise dropout, K11 fwd + bwd
+    ftask = dataclasses.replace(task, final_dropout_rate=0.1,
+                                **{k: 0.0 for k in MC_RECIPE})
+    fstate = ftask.init_state(spe, dev)
+    batch = _frames(gen, TB)
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    fstate, logs, _ = ftask.train_step(fstate, batch)
+    torch.cuda.synchronize()
+    flaunch = K.launch_counts()
+    print(f"final-dropout step B={TB}: loss {float(logs['train_loss']):.5f}, "
+          f"launches {flaunch}")
+    missing = [k.__name__ for k in (K.conv1x1, K.conv1x1_bwd, K.affine_relu,
+                                    K.affine_relu_bwd) if flaunch[k.__name__] <= 0]
+    if missing:
+        raise AssertionError(f"kernels not launched on the final-dropout route: {missing}")
+    _grad_check(ftask, fstate, dev, card, b=TB, min_cos=0.999, f32_ref=True)
+    return launches, flaunch
+
+
 def main() -> int:
     import torch
 
@@ -691,7 +998,7 @@ def main() -> int:
           f"({'nvcc ' + format(built, '.2f') + ' s' if built else 'cached'})",
           flush=True)
 
-    # ---- 3-6 ----------------------------------------------------------------
+    # ---- 3-9 ----------------------------------------------------------------
     from mimo_unet_torch import kernels as K
 
     stats = check_kernels(
@@ -703,10 +1010,19 @@ def main() -> int:
         train_sites(dev, torch.Generator(device=dev).manual_seed(1)), card))
     torch.cuda.empty_cache()
     trained = train(dev, card)
+    torch.cuda.empty_cache()
+    stats.update(check_kernels(
+        dropout_kernel_sites(dev, torch.Generator(device=dev).manual_seed(2)), card))
+    torch.cuda.empty_cache()
+    served_mc = serve_mc(dev, card)
+    torch.cuda.empty_cache()
+    trained_mc, final = train_mc(dev, card)
     launches = {k.__name__: served[k.__name__] for k in K.EVAL_KERNELS}
     launches.update({k.__name__: trained[k.__name__] for k in K.TRAIN_KERNELS})
+    launches["conv1x1"] = served_mc["conv1x1"]
+    launches["conv1x1_bwd"] = final["conv1x1_bwd"]
 
-    # ---- 7. results --------------------------------------------------------
+    # ---- 10. results -------------------------------------------------------
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": KERNEL_INFO[k][0],
          "replaces": KERNEL_INFO[k][1], "launches": launches[k], **stats[k]}

@@ -14,6 +14,13 @@
 //     mimo_conv1x1_prelu_bwd: dy, with per-block partials of dwo, dbo,
 //     dscale and dshift.  Replaces ct_elem.py:527 conv1x1_prelu_ct and :560
 //     _conv1x1_prelu_bwd (pallas_call :600).
+//   * mimo_conv1x1: out = wo_g^T . z + bo_g, the grouped 1x1 out-conv of
+//     the dropout routes (a live dropout site sits between the decoder's
+//     DoubleConv and its out-conv), and mimo_conv1x1_bwd: dz = wo_g . g,
+//     with per-block partials of dwo and dbo.  Replaces ct_elem.py:437
+//     conv1x1_ct (_elem_call :71) and :464 _conv1x1_bwd (pallas_call
+//     :494).  The same kernels as conv1x1_prelu without the prologue (the
+//     template flag PRO).
 //   * mimo_reduce_groups: the second pass of every per-block reduction of
 //     the train kernels (these and conv3x3_train.cu): out[g] = sum of the
 //     group's partials, in a fixed order.
@@ -21,8 +28,8 @@
 // What bounds them on the H100: device-memory bytes.  Each element takes a
 // few flops against 2-6 bytes read and 2 written.  Design: the pure maps
 // are one grid-stride pass; the passes with channel reductions give each
-// block 256 pixels of one group (h*w is a multiple of 256 on the train
-// path) and a 32 x 8 thread layout, channel x pixel lane, so a warp reads
+// block 256 pixels of one group (h*w is a multiple of 256 on every path
+// that calls them) and a 32 x 8 thread layout, channel x pixel lane, so a warp reads
 // a pixel's channels contiguously and each thread keeps its channel's sums
 // in registers; the eight lanes then combine in shared memory in a fixed
 // order and the block writes one partial per channel.  No atomics: results
@@ -111,8 +118,10 @@ __global__ void __launch_bounds__(256) affine_relu_bwd_kernel(
   }
 }
 
-// one thread per pixel; block PB pixels of one group
-__global__ void __launch_bounds__(PB) conv1x1_prelu_kernel(
+// one thread per pixel; block PB pixels of one group.  PRO: z is the
+// affine + ReLU of y rounded to bf16 (K12); else z = y (K11).
+template <bool PRO>
+__global__ void __launch_bounds__(PB) conv1x1_kernel(
     const bf16* __restrict__ y, const float* __restrict__ sc,
     const float* __restrict__ sh, const bf16* __restrict__ wo,
     const float* __restrict__ bo, bf16* __restrict__ out, int64_t group_pixels,
@@ -120,18 +129,22 @@ __global__ void __launch_bounds__(PB) conv1x1_prelu_kernel(
   __shared__ float s_sc[CMAX], s_sh[CMAX], s_wo[CMAX * OCMAX], s_bo[OCMAX];
   const int64_t pix0 = (int64_t)blockIdx.x * PB;
   const int g = (int)(pix0 / group_pixels);
-  for (int i = threadIdx.x; i < c; i += PB) {
-    s_sc[i] = sc[g * c + i];
-    s_sh[i] = sh[g * c + i];
-  }
+  if constexpr (PRO)
+    for (int i = threadIdx.x; i < c; i += PB) {
+      s_sc[i] = sc[g * c + i];
+      s_sh[i] = sh[g * c + i];
+    }
   for (int i = threadIdx.x; i < c * oc; i += PB) s_wo[i] = bf2f(wo[(int64_t)g * c * oc + i]);
   for (int i = threadIdx.x; i < oc; i += PB) s_bo[i] = bo[g * oc + i];
   __syncthreads();
   const int64_t pix = pix0 + threadIdx.x;
   float acc[OCMAX] = {};
   for (int ch = 0; ch < c; ++ch) {
-    const float a = affine(bf2f(y[pix * c + ch]), s_sc[ch], s_sh[ch]);
-    const float z = bf2f(f2bf(a > 0.f ? a : 0.f));
+    float z = bf2f(y[pix * c + ch]);
+    if constexpr (PRO) {
+      const float a = affine(z, s_sc[ch], s_sh[ch]);
+      z = bf2f(f2bf(a > 0.f ? a : 0.f));
+    }
 #pragma unroll
     for (int k = 0; k < OCMAX; ++k)
       if (k < oc) acc[k] = fmaf(z, s_wo[ch * oc + k], acc[k]);
@@ -142,8 +155,9 @@ __global__ void __launch_bounds__(PB) conv1x1_prelu_kernel(
 }
 
 // block (32, 8): channel lane x pixel lane; grid n*hw / PB.  Partial row of
-// a block: [dwo (c*oc), dbo (oc), dscale (c), dshift (c)].
-__global__ void __launch_bounds__(256) conv1x1_prelu_bwd_kernel(
+// a block: [dwo (c*oc), dbo (oc)] and with PRO [dscale (c), dshift (c)].
+template <bool PRO>
+__global__ void __launch_bounds__(256) conv1x1_bwd_kernel(
     const bf16* __restrict__ gout, const bf16* __restrict__ y,
     const float* __restrict__ sc, const float* __restrict__ sh,
     const bf16* __restrict__ wo, bf16* __restrict__ dy,
@@ -151,7 +165,7 @@ __global__ void __launch_bounds__(256) conv1x1_prelu_bwd_kernel(
   __shared__ float red[8 * 32];
   const int64_t pix0 = (int64_t)blockIdx.x * PB;
   const int g = (int)(pix0 / group_pixels);
-  const int L = c * oc + oc + 2 * c;
+  const int L = c * oc + oc + (PRO ? 2 * c : 0);
   float* prow = partial + blockIdx.x * (int64_t)L;
   for (int c0 = 0; c0 < c; c0 += 32) {
     const int ch = c0 + threadIdx.x;
@@ -159,8 +173,10 @@ __global__ void __launch_bounds__(256) conv1x1_prelu_bwd_kernel(
     float w[OCMAX] = {}, dwo[OCMAX] = {}, dbo[OCMAX] = {};
     float scv = 0.f, shv = 0.f, s = 0.f, q = 0.f;
     if (live) {
-      scv = sc[g * c + ch];
-      shv = sh[g * c + ch];
+      if constexpr (PRO) {
+        scv = sc[g * c + ch];
+        shv = sh[g * c + ch];
+      }
       for (int k = 0; k < oc; ++k) w[k] = bf2f(wo[((int64_t)g * c + ch) * oc + k]);
     }
     for (int pp = threadIdx.y; pp < PB; pp += 8) {
@@ -173,18 +189,25 @@ __global__ void __launch_bounds__(256) conv1x1_prelu_bwd_kernel(
         for (int k = 0; k < OCMAX; ++k) dbo[k] += gk[k];
       if (!live) continue;
       const float yv = bf2f(y[pix * c + ch]);
-      const float a = affine(yv, scv, shv);
-      const float z = bf2f(f2bf(a > 0.f ? a : 0.f));
+      float a = 0.f, z = yv;
+      if constexpr (PRO) {
+        a = affine(yv, scv, shv);
+        z = bf2f(f2bf(a > 0.f ? a : 0.f));
+      }
       float dz = 0.f;
 #pragma unroll
       for (int k = 0; k < OCMAX; ++k) {
         dz = fmaf(w[k], gk[k], dz);
         dwo[k] = fmaf(z, gk[k], dwo[k]);
       }
-      const float da = a > 0.f ? dz : 0.f;
-      dy[pix * c + ch] = f2bf(__fmul_rn(da, scv));
-      s = fmaf(da, yv, s);
-      q += da;
+      if constexpr (PRO) {
+        const float da = a > 0.f ? dz : 0.f;
+        dy[pix * c + ch] = f2bf(__fmul_rn(da, scv));
+        s = fmaf(da, yv, s);
+        q += da;
+      } else {
+        dy[pix * c + ch] = f2bf(dz);
+      }
     }
     for (int k = 0; k < oc; ++k) {
       const float v = lane_sum(red, dwo[k]);
@@ -195,11 +218,13 @@ __global__ void __launch_bounds__(256) conv1x1_prelu_bwd_kernel(
         const float v = lane_sum(red, dbo[k]);
         if (threadIdx.y == 0 && threadIdx.x == 0) prow[c * oc + k] = v;
       }
-    s = lane_sum(red, s);
-    q = lane_sum(red, q);
-    if (threadIdx.y == 0 && live) {
-      prow[c * oc + oc + ch] = s;
-      prow[c * oc + oc + c + ch] = q;
+    if constexpr (PRO) {
+      s = lane_sum(red, s);
+      q = lane_sum(red, q);
+      if (threadIdx.y == 0 && live) {
+        prow[c * oc + oc + ch] = s;
+        prow[c * oc + oc + c + ch] = q;
+      }
     }
   }
 }
@@ -262,17 +287,46 @@ extern "C" int mimo_affine_relu_bwd(const void* dz, const void* y, const void* s
   return (int)cudaGetLastError();
 }
 
+namespace {
+
+bool bad_1x1(int64_t n, int64_t hw, int64_t c, int64_t oc, int64_t groups) {
+  return n <= 0 || hw % PB || c <= 0 || c > CMAX || oc <= 0 || oc > OCMAX ||
+         groups <= 0 || n % groups;
+}
+
+template <bool PRO>
+int conv1x1_launch(const void* y, const void* sc, const void* sh, const void* wo,
+                   const void* bo, void* out, int64_t n, int64_t hw, int64_t c,
+                   int64_t oc, int64_t groups, void* stream) {
+  if (bad_1x1(n, hw, c, oc, groups)) return bad();
+  conv1x1_kernel<PRO><<<(unsigned)(n * hw / PB), PB, 0, (cudaStream_t)stream>>>(
+      (const bf16*)y, (const float*)sc, (const float*)sh, (const bf16*)wo,
+      (const float*)bo, (bf16*)out, n / groups * hw, (int)c, (int)oc);
+  return (int)cudaGetLastError();
+}
+
+template <bool PRO>
+int conv1x1_bwd_launch(const void* g, const void* y, const void* sc,
+                       const void* sh, const void* wo, void* dy, void* partial,
+                       int64_t n, int64_t hw, int64_t c, int64_t oc,
+                       int64_t groups, void* stream) {
+  if (bad_1x1(n, hw, c, oc, groups)) return bad();
+  conv1x1_bwd_kernel<PRO><<<(unsigned)(n * hw / PB), dim3(32, 8), 0,
+                            (cudaStream_t)stream>>>(
+      (const bf16*)g, (const bf16*)y, (const float*)sc, (const float*)sh,
+      (const bf16*)wo, (bf16*)dy, (float*)partial, n / groups * hw, (int)c,
+      (int)oc);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
 extern "C" int mimo_conv1x1_prelu(const void* y, const void* sc, const void* sh,
                                   const void* wo, const void* bo, void* out,
                                   int64_t n, int64_t hw, int64_t c, int64_t oc,
                                   int64_t groups, void* stream) {
-  if (n <= 0 || hw % PB || c <= 0 || c > CMAX || oc <= 0 || oc > OCMAX ||
-      groups <= 0 || n % groups)
-    return bad();
-  conv1x1_prelu_kernel<<<(unsigned)(n * hw / PB), PB, 0, (cudaStream_t)stream>>>(
-      (const bf16*)y, (const float*)sc, (const float*)sh, (const bf16*)wo,
-      (const float*)bo, (bf16*)out, n / groups * hw, (int)c, (int)oc);
-  return (int)cudaGetLastError();
+  return conv1x1_launch<true>(y, sc, sh, wo, bo, out, n, hw, c, oc, groups,
+                              stream);
 }
 
 extern "C" int mimo_conv1x1_prelu_bwd(const void* g, const void* y,
@@ -280,15 +334,23 @@ extern "C" int mimo_conv1x1_prelu_bwd(const void* g, const void* y,
                                       const void* wo, void* dy, void* partial,
                                       int64_t n, int64_t hw, int64_t c,
                                       int64_t oc, int64_t groups, void* stream) {
-  if (n <= 0 || hw % PB || c <= 0 || c > CMAX || oc <= 0 || oc > OCMAX ||
-      groups <= 0 || n % groups)
-    return bad();
-  conv1x1_prelu_bwd_kernel<<<(unsigned)(n * hw / PB), dim3(32, 8), 0,
-                             (cudaStream_t)stream>>>(
-      (const bf16*)g, (const bf16*)y, (const float*)sc, (const float*)sh,
-      (const bf16*)wo, (bf16*)dy, (float*)partial, n / groups * hw, (int)c,
-      (int)oc);
-  return (int)cudaGetLastError();
+  return conv1x1_bwd_launch<true>(g, y, sc, sh, wo, dy, partial, n, hw, c, oc,
+                                  groups, stream);
+}
+
+extern "C" int mimo_conv1x1(const void* z, const void* wo, const void* bo,
+                            void* out, int64_t n, int64_t hw, int64_t c,
+                            int64_t oc, int64_t groups, void* stream) {
+  return conv1x1_launch<false>(z, nullptr, nullptr, wo, bo, out, n, hw, c, oc,
+                               groups, stream);
+}
+
+extern "C" int mimo_conv1x1_bwd(const void* g, const void* z, const void* wo,
+                                void* dz, void* partial, int64_t n, int64_t hw,
+                                int64_t c, int64_t oc, int64_t groups,
+                                void* stream) {
+  return conv1x1_bwd_launch<false>(g, z, nullptr, nullptr, wo, dz, partial, n,
+                                   hw, c, oc, groups, stream);
 }
 
 extern "C" int mimo_reduce_groups(const void* partial, void* out, int64_t groups,

@@ -26,11 +26,16 @@ from mimo_unet_torch.kernels.fused_double_conv import (
 from mimo_unet_torch.kernels.pool_w import pool_w, pool_w_plain
 from mimo_unet_torch.kernels.train_elem import (
     AffineRelu,
+    Conv1x1,
     Conv1x1Prelu,
     affine_relu,
     affine_relu_bwd,
     affine_relu_bwd_plain,
     affine_relu_plain,
+    conv1x1,
+    conv1x1_bwd,
+    conv1x1_bwd_plain,
+    conv1x1_plain,
     conv1x1_prelu,
     conv1x1_prelu_bwd,
     conv1x1_prelu_bwd_plain,
@@ -44,7 +49,10 @@ EVAL_KERNELS = (fused_double_conv, fused_double_conv9, pool_w, upsample_w2x)
 TRAIN_KERNELS = (conv3x3_fwd, conv3x3_dx, conv3x3_dx_fold, conv3x3_dw, g_eff,
                  affine_relu, affine_relu_bwd, conv1x1_prelu,
                  conv1x1_prelu_bwd)
-KERNELS = EVAL_KERNELS + TRAIN_KERNELS
+# K11: the out-conv of the dropout routes (MC-dropout eval: forward; train
+# with the elementwise final dropout: forward and backward)
+DROPOUT_KERNELS = (conv1x1, conv1x1_bwd)
+KERNELS = EVAL_KERNELS + TRAIN_KERNELS + DROPOUT_KERNELS
 
 
 def reset_launch_counts() -> None:
@@ -58,8 +66,10 @@ def launch_counts() -> dict:
 
 __all__ = [
     "AffineRelu",
+    "Conv1x1",
     "Conv1x1Prelu",
     "Conv3x3Train",
+    "DROPOUT_KERNELS",
     "EVAL_KERNELS",
     "KERNELS",
     "TRAIN_KERNELS",
@@ -67,6 +77,10 @@ __all__ = [
     "affine_relu_bwd",
     "affine_relu_bwd_plain",
     "affine_relu_plain",
+    "conv1x1",
+    "conv1x1_bwd",
+    "conv1x1_bwd_plain",
+    "conv1x1_plain",
     "conv1x1_prelu",
     "conv1x1_prelu_bwd",
     "conv1x1_prelu_bwd_plain",

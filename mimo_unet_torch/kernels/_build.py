@@ -64,6 +64,10 @@ _SIGNATURES = {
     "mimo_conv1x1_prelu": [_P] * 6 + [_I] * 5 + [_P],
     # g, y, sc, sh, wo, dy, partial, n, hw, c, oc, groups, stream
     "mimo_conv1x1_prelu_bwd": [_P] * 7 + [_I] * 5 + [_P],
+    # z, wo, bo, out, n, hw, c, oc, groups, stream
+    "mimo_conv1x1": [_P] * 4 + [_I] * 5 + [_P],
+    # g, z, wo, dz, partial, n, hw, c, oc, groups, stream
+    "mimo_conv1x1_bwd": [_P] * 5 + [_I] * 5 + [_P],
     # partial, out, groups, p, l, stream
     "mimo_reduce_groups": [_P] * 2 + [_I] * 3 + [_P],
 }

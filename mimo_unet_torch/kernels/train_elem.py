@@ -16,6 +16,16 @@ uses group n // (N / G)); per-group parameters are f32 ``[G, C]``.
     its backward (dy, dscale, dshift, dwo, dbo); ``Conv1x1Prelu`` is the
     ``autograd.Function``.  Replaces ``ct_elem.py:527`` ``conv1x1_prelu_ct``
     and ``_conv1x1_prelu_bwd`` (:560).
+  * ``conv1x1`` / ``conv1x1_bwd`` (K11): the grouped 1x1 out-conv
+    ``wo_g^T . z + bo_g`` rounded to bf16, and its backward (dz, dwo, dbo);
+    ``Conv1x1`` is the ``autograd.Function``.  The dropout routes run it:
+    a live dropout site between the decoder's DoubleConv and its out-conv
+    keeps the 1x1 out of the fused kernels.  Replaces ``ct_elem.py:437``
+    ``conv1x1_ct`` and ``_conv1x1_bwd`` (:464); K12's kernels without the
+    prologue.
+
+Parameters may be per image (G = N): the Dropout2d sites of the train
+path fold into the affine (``models/fast_path.py`` ``_per_image_affine``).
 
 Rounding points (both versions, ct_elem.py:83-160, :527-600): the affine in
 f32 from the bf16 input as a multiply then an add; z rounded to bf16 before
@@ -200,23 +210,23 @@ class AffineRelu(torch.autograd.Function):
 
 # ---------------------------------------------------------------- K12 conv1x1 + prologue
 
-def _check_1x1(y, scale, shift, wo, bo) -> int:
-    groups = _check_act(y, (scale, shift))
+def _check_wo(y, wo, bo, groups: int) -> None:
     c = y.shape[-1]
     if wo.ndim != 3 or wo.shape[:2] != (groups, c) or wo.shape[2] > 8:
         raise ValueError(f"wo must be [{groups}, {c}, OC<=8], got {tuple(wo.shape)}")
     if tuple(bo.shape) != (groups, wo.shape[2]):
         raise ValueError(f"bo must be [{groups}, {wo.shape[2]}], got {tuple(bo.shape)}")
+
+
+def _check_1x1(y, scale, shift, wo, bo) -> int:
+    groups = _check_act(y, (scale, shift))
+    _check_wo(y, wo, bo, groups)
     return groups
 
 
 def conv1x1_prelu_plain(y, scale, shift, wo, bo):
     """Plain PyTorch version of ``conv1x1_prelu``."""
-    n, h, w, c = y.shape
-    groups = scale.shape[0]
-    z = affine_relu_plain(y, scale, shift).float().reshape(groups, -1, c)
-    out = torch.bmm(z, wo.to(BF16).float()) + bo.float()[:, None, :]
-    return out.reshape(n, h, w, -1).to(BF16)
+    return conv1x1_plain(affine_relu_plain(y, scale, shift), wo, bo)
 
 
 def conv1x1_prelu(y: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor,
@@ -244,20 +254,15 @@ def conv1x1_prelu(y: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor,
 
 def conv1x1_prelu_bwd_plain(g, y, scale, shift, wo):
     """Plain PyTorch version of ``conv1x1_prelu_bwd``."""
-    n, h, w, c = y.shape
-    groups = scale.shape[0]
+    n, groups = y.shape[0], scale.shape[0]
     yv = y.float()
     sc = per_image(scale, n)
     a = yv * sc + per_image(shift, n)
-    z = torch.relu(a).to(BF16).float().reshape(groups, -1, c)
-    gf = g.float().reshape(groups, -1, g.shape[-1])
-    wob = wo.to(BF16).float()
-    dz = torch.bmm(gf, wob.transpose(1, 2)).reshape(n, h, w, c)
+    dz, dwo, dbo = _conv1x1_bwd_f32(g, torch.relu(a).to(BF16), wo)
     da = torch.where(a > 0, dz, torch.zeros((), dtype=torch.float32,
                                             device=y.device))
     return ((da * sc).to(BF16), group_sum(da * yv, groups),
-            group_sum(da, groups), torch.bmm(z.transpose(1, 2), gf),
-            gf.sum(dim=1))
+            group_sum(da, groups), dwo, dbo)
 
 
 def conv1x1_prelu_bwd(g: torch.Tensor, y: torch.Tensor, scale: torch.Tensor,
@@ -310,8 +315,112 @@ class Conv1x1Prelu(torch.autograd.Function):
                 dwo.to(wo.dtype), dbo)
 
 
+# ---------------------------------------------------------------- K11 grouped conv1x1
+
+def _check_z(z, wo, bo) -> int:
+    """z [N, H, W, C] with wo [G, C, OC<=8] and bo [G, OC]; returns G."""
+    if z.ndim != 4:
+        raise ValueError(f"expected [N, H, W, C], got {tuple(z.shape)}")
+    groups = wo.shape[0]
+    _check_wo(z, wo, bo, groups)
+    if z.shape[0] % groups:
+        raise ValueError(f"N={z.shape[0]} must divide into {groups} groups")
+    return groups
+
+
+def conv1x1_plain(z, wo, bo):
+    """Plain PyTorch version of ``conv1x1``."""
+    n, h, w, c = z.shape
+    groups = wo.shape[0]
+    zf = z.float().reshape(groups, -1, c)
+    out = torch.bmm(zf, wo.to(BF16).float()) + bo.float()[:, None, :]
+    return out.reshape(n, h, w, -1).to(BF16)
+
+
+def conv1x1(z: torch.Tensor, wo: torch.Tensor, bo: torch.Tensor) -> torch.Tensor:
+    """The grouped 1x1 out-conv: z [N, H, W, C] bf16, wo [G, C, OC] (used
+    in bf16), bo [G, OC] f32 -> [N, H, W, OC] bf16; image n uses group
+    n // (N / G).  CPU tensors take the plain version; CUDA tensors launch
+    the kernel or raise."""
+    groups = _check_z(z, wo, bo)
+    if z.device.type == "cpu":
+        return conv1x1_plain(z, wo, bo)
+    _reducing_ok(z)
+    bof = bo.float().contiguous()
+    wob = wo.to(BF16).contiguous()
+    _build.require_cuda(z, wob, bof)
+    _build.require_cuda(z, dtype=BF16)
+    n, h, w, c = z.shape
+    oc = wo.shape[2]
+    out = torch.empty((n, h, w, oc), device=z.device, dtype=BF16)
+    _build.launch("mimo_conv1x1", z.device, z.data_ptr(), wob.data_ptr(),
+                  bof.data_ptr(), out.data_ptr(), n, h * w, c, oc, groups)
+    conv1x1.launches += 1
+    return out
+
+
+def _conv1x1_bwd_f32(g, z, wo):
+    """(dz f32 [N, H, W, C], dwo [G, C, OC], dbo [G, OC]) of the grouped
+    1x1 for the cotangent g, from bf16 operands in f32."""
+    n, h, w, c = z.shape
+    groups = wo.shape[0]
+    zf = z.float().reshape(groups, -1, c)
+    gf = g.float().reshape(groups, -1, g.shape[-1])
+    dz = torch.bmm(gf, wo.to(BF16).float().transpose(1, 2))
+    return (dz.reshape(n, h, w, c), torch.bmm(zf.transpose(1, 2), gf),
+            gf.sum(dim=1))
+
+
+def conv1x1_bwd_plain(g, z, wo):
+    """Plain PyTorch version of ``conv1x1_bwd``."""
+    dz, dwo, dbo = _conv1x1_bwd_f32(g, z, wo)
+    return dz.to(BF16), dwo, dbo
+
+
+def conv1x1_bwd(g: torch.Tensor, z: torch.Tensor, wo: torch.Tensor):
+    """Backward of ``conv1x1`` for the output's cotangent g [N, H, W, OC]
+    bf16: (dz bf16, dwo [G, C, OC] f32, dbo [G, OC] f32)."""
+    groups = _check_z(z, wo, wo[:, 0, :])
+    if g.shape[:3] != z.shape[:3] or g.shape[3] != wo.shape[2]:
+        raise ValueError(f"g must be [N, H, W, {wo.shape[2]}], got {tuple(g.shape)}")
+    if z.device.type == "cpu":
+        return conv1x1_bwd_plain(g, z, wo)
+    _reducing_ok(z)
+    wob = wo.to(BF16).contiguous()
+    _build.require_cuda(g, z, wob)
+    _build.require_cuda(g, z, dtype=BF16)
+    n, h, w, c = z.shape
+    oc = wo.shape[2]
+    dz = torch.empty_like(z)
+    partial = torch.empty((n * h * w // PB, c * oc + oc), device=z.device,
+                          dtype=torch.float32)
+    _build.launch("mimo_conv1x1_bwd", z.device, g.data_ptr(), z.data_ptr(),
+                  wob.data_ptr(), dz.data_ptr(), partial.data_ptr(), n, h * w,
+                  c, oc, groups)
+    conv1x1_bwd.launches += 1
+    red = reduce_groups(partial, groups)
+    return dz, red[:, :c * oc].reshape(groups, c, oc), red[:, c * oc:]
+
+
+class Conv1x1(torch.autograd.Function):
+    """Differentiable ``conv1x1`` (the JAX package's custom VJP)."""
+
+    @staticmethod
+    def forward(ctx, z, wo, bo):
+        ctx.save_for_backward(z, wo)
+        return conv1x1(z, wo, bo)
+
+    @staticmethod
+    def backward(ctx, g):
+        z, wo = ctx.saved_tensors
+        dz, dwo, dbo = conv1x1_bwd(g.contiguous(), z, wo)
+        return dz, dwo.to(wo.dtype), dbo
+
+
 g_eff.launches = 0
 affine_relu.launches = 0
 affine_relu_bwd.launches = 0
 conv1x1_prelu.launches = 0
 conv1x1_prelu_bwd.launches = 0
+conv1x1.launches = 0
+conv1x1_bwd.launches = 0

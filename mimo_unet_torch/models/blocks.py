@@ -17,9 +17,11 @@ the ops of ``mimo_unet_torch.ops`` so that bf16 rounds where the JAX
 package rounds.  Both modes follow ``double_conv_apply``
 (mimo_unet_tpu/models/blocks.py:62-121): in train mode the convs skip their
 bias, BatchNorm normalizes with batch statistics and folds the bias into
-its running mean (updated in place).  Dropout is not ported yet (the
-callers raise for a nonzero rate); the unpool and transpose ``Up`` modes
-are not ported yet.
+its running mean (updated in place).  Every DoubleConv ends in its
+Dropout2d site (reference components.py:29; mimo_unet_tpu/models/
+blocks.py:119-120): the caller passes the site's keep mask, live in train
+mode and under MC dropout, where BatchNorm stays in eval mode as in the
+reference.  The unpool and transpose ``Up`` modes are not ported yet.
 """
 
 from __future__ import annotations
@@ -39,6 +41,7 @@ from mimo_unet_torch.ops import (
     pad_to_match,
     upsample_bilinear_x2_align_corners,
 )
+from mimo_unet_torch.ops.dropout import Drop, dropout2d
 
 
 def init_conv_(conv: nn.Conv2d, generator: Optional[torch.Generator]) -> None:
@@ -83,21 +86,25 @@ class DoubleConv(nn.Module):
         init_conv_(c2, generator)
         init_bn_(bn2)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, drop: Optional[Drop] = None
+                ) -> torch.Tensor:
+        """``drop``: the Dropout2d site's mask when it is live."""
         c1, bn1, _, c2, bn2, _ = self.double_conv
         if self.training:
             y = conv3x3_reflect(x, c1.weight, None)
             y = torch.relu(batch_norm_train(y, bn1, fold_conv_bias=c1.bias))
             y = conv3x3_reflect(y, c2.weight, None)
-            return torch.relu(batch_norm_train(y, bn2, fold_conv_bias=c2.bias))
+            y = torch.relu(batch_norm_train(y, bn2, fold_conv_bias=c2.bias))
+            return dropout2d(y, drop)
         y = conv3x3_reflect(x, c1.weight, c1.bias)
         y = torch.relu(batch_norm_eval(y, bn1.weight, bn1.bias,
                                        bn1.running_mean, bn1.running_var,
                                        bn1.eps))
         y = conv3x3_reflect(y, c2.weight, c2.bias)
-        return torch.relu(batch_norm_eval(y, bn2.weight, bn2.bias,
-                                          bn2.running_mean, bn2.running_var,
-                                          bn2.eps))
+        y = torch.relu(batch_norm_eval(y, bn2.weight, bn2.bias,
+                                       bn2.running_mean, bn2.running_var,
+                                       bn2.eps))
+        return dropout2d(y, drop)
 
 
 class Down(nn.Module):
@@ -107,12 +114,12 @@ class Down(nn.Module):
         super().__init__()
         self.conv = DoubleConv(in_channels, out_channels)
 
-    def forward(self, x: torch.Tensor, *, pre_pooled: bool = False
-                ) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, *, pre_pooled: bool = False,
+                drop: Optional[Drop] = None) -> torch.Tensor:
         """``pre_pooled``: ``x`` is already pooled (the caller pooled it
         with ``max_pool_2x2_skip`` to fold a skip consumer's cotangent into
         the pool backward, mimo_unet_tpu/models/blocks.py:132-162)."""
-        return self.conv(x if pre_pooled else max_pool_2x2(x))
+        return self.conv(x if pre_pooled else max_pool_2x2(x), drop)
 
 
 class Up(nn.Module):
@@ -125,10 +132,11 @@ class Up(nn.Module):
         self.conv = DoubleConv(in_channels, out_channels,
                                mid_channels=in_channels // 2)
 
-    def forward(self, x1: torch.Tensor, x2: torch.Tensor) -> torch.Tensor:
+    def forward(self, x1: torch.Tensor, x2: torch.Tensor,
+                drop: Optional[Drop] = None) -> torch.Tensor:
         x1 = upsample_bilinear_x2_align_corners(x1)
         x1 = pad_to_match(x1, x2.shape[-2], x2.shape[-1])
-        return self.conv(torch.cat([x2, x1], dim=1))
+        return self.conv(torch.cat([x2, x1], dim=1), drop)
 
 
 class OutConv(nn.Module):

@@ -21,11 +21,23 @@ kernels of ``mimo_unet_torch/kernels``; the shared core between them
 
 Subnetworks fold S-major into the image axis (n = s*B + b), as in the JAX
 package, so image n uses group n // B.  BatchNorm and bias fold into the
-kernels' (scale, shift); dropout is inactive (eval).
+kernels' (scale, shift).
+
+MC dropout (the reference sites live at eval, BatchNorm in eval mode):
+each Dropout2d site is a per-(image, channel) scale 0 or 1/keep on the
+kernel output, applied as plain tensor ops where the JAX package uses XLA
+(``_apply_mc_scale``, fast_path.py:328-335).  The scale is nonnegative and
+per channel, so it commutes with the max of the H half-pool the kernels
+emit: in_conv scales x1s and its H half, down1 the subnetwork concat
+(channel block g with subnetwork g's mask) and its H half, the core runs
+its sites in the plain modules, up3 scales the up3 kernel's output.  A
+live up4 Dropout2d or final dropout sits between the decoder's DoubleConv
+and its out-conv: the decoder kernel runs without the fused 1x1, the site
+applies, and the grouped 1x1 kernel (K11) follows (:645-679).
 
 Not ported for eval, being TPU-only: the NHWC down1 fallback for
 ``w/2 % 128``, the non-up3 decoder, the tile ladders and VMEM estimators, the compile probe,
-``w_img`` and ``group_minor``.  MC dropout is not ported yet.
+``w_img`` and ``group_minor``.
 
 The train half (``train_path_supported`` / ``mimo_unet_apply_train``) is
 the counterpart of ``ct_train_path_supported`` / ``mimo_unet_apply_ct_train``
@@ -43,7 +55,16 @@ the counterpart of ``ct_train_path_supported`` / ``mimo_unet_apply_ct_train``
                                                         [S*B, H, W, C_out]
 
 Every conv is a ``Conv3x3Train`` (forward K5; backward g_eff K9, dx K6 in
-plain or fold form, dw K7).  BatchNorm running statistics update in place.
+plain or fold form, dw K7).  BatchNorm running statistics update in place,
+from the raw conv output before any dropout site.
+
+Dropout (``_enc_train_local`` / ``_dec_train_local``, :1082-1380): the
+in_conv and up4 Dropout2d sites fold into a per-image BN affine,
+``relu(y*sc + sh)*m == relu(y*(sc*m) + sh*m)`` for m >= 0, so affine_relu
+(K8) and conv1x1_prelu (K12, with wo and bo broadcast per image) run with
+one parameter row per image; down1 and the core run their sites in the
+plain modules; the elementwise final dropout takes affine_relu, the
+dropout, then the grouped 1x1 (K11) forward and backward.
 """
 
 from __future__ import annotations
@@ -54,8 +75,10 @@ import torch
 
 from mimo_unet_torch.kernels import (
     AffineRelu,
+    Conv1x1,
     Conv1x1Prelu,
     Conv3x3Train,
+    conv1x1,
     fused_double_conv,
     fused_double_conv9,
     pool_w,
@@ -64,6 +87,13 @@ from mimo_unet_torch.kernels import (
 from mimo_unet_torch.models.blocks import DoubleConv
 from mimo_unet_torch.models.mimo_unet import MimoUNetConfig
 from mimo_unet_torch.ops import upsample_x2_nchw_to_nhwc
+from mimo_unet_torch.ops.dropout import (
+    NO_DROPOUT,
+    Drops,
+    dropout,
+    keep_scale,
+    scale_channels,
+)
 from mimo_unet_torch.ops.norm import update_running_stats
 
 # what the train kernels take (csrc/conv3x3_train.cu KMAX, train_elem.cu
@@ -77,17 +107,24 @@ def fast_path_supported(cfg: MimoUNetConfig, x_shape: Tuple[int, ...],
     """True when the kernel path applies.  Routes on configuration as
     ``ct_fast_path_supported`` does: "off" never, "auto" for CUDA inputs,
     "force" on any device (on the CPU every kernel wrapper runs its plain
-    version).  Gates on what the kernels need: eval, bf16, bilinear, no MC
-    dropout, and H, W multiples of 16 (four pool levels, no pad-to-match).
-    Nothing here catches a kernel failure: a CUDA launch that fails raises.
+    version).  Gates on what the kernels need: eval, bf16, bilinear, and
+    H, W multiples of 16 (four pool levels, no pad-to-match); with MC
+    dropout at the up4 or final site, the channel counts the grouped 1x1
+    kernel takes.  Every MC-dropout site is supported.  Nothing here
+    catches a kernel failure: a CUDA launch that fails raises.
     """
     if cfg.ct_kernels == "off":
         return False
     if cfg.ct_kernels == "auto" and torch.device(device).type != "cuda":
         return False
-    if training or mc_dropout:
+    if training:
         return False
     if cfg.compute_dtype != "bfloat16" or cfg.mode != "bilinear":
+        return False
+    if (mc_dropout and (cfg.decoder_dropout_rate > 0
+                        or cfg.final_dropout_rate > 0)
+            and (cfg.filter_base_count > _TRAIN_MAX_C
+                 or cfg.out_channels > _TRAIN_MAX_OC)):
         return False
     if len(x_shape) != 5:
         return False
@@ -127,10 +164,21 @@ def double_conv_args(dcs: Sequence[DoubleConv]):
     return tuple(torch.stack(t) for t in (w1, s1, sh1, w2, s2, sh2))
 
 
+def _site_scale(drops: Drops, names: Sequence[str], dim: int = 0):
+    """The Dropout2d masks of ``names`` joined on ``dim`` (0: the S-major
+    image fold; 1: the subnetwork channel blocks) as f32 scales, or None
+    where the sites are not live."""
+    if names[0] not in drops:
+        return None
+    return keep_scale([drops[k][0] for k in names], drops[names[0]][1], dim)
+
+
 @torch.no_grad()
-def mimo_unet_apply_fast(model, x: torch.Tensor) -> torch.Tensor:
+def mimo_unet_apply_fast(model, x: torch.Tensor,
+                         drops: Drops = NO_DROPOUT) -> torch.Tensor:
     """Eval forward through the kernels: [B, S, H, W, C_in] ->
-    [B, S, H, W, C_out] float32 (``mimo_unet_apply_ct``)."""
+    [B, S, H, W, C_out] float32 (``mimo_unet_apply_ct``), with the live
+    MC-dropout sites of ``drops``."""
     b, s, h, w, cin = x.shape
     n = s * b
     enc, core, dec = model.encoder, model.core, model.decoder
@@ -140,30 +188,51 @@ def mimo_unet_apply_fast(model, x: torch.Tensor) -> torch.Tensor:
     xin = x.to(bf16).transpose(0, 1).reshape(n, h, w, cin).contiguous()
     conv_in = fused_double_conv9 if cin <= 8 else fused_double_conv
     x1s, hp1 = conv_in(xin, *double_conv_args(enc.in_convs), emit_hpool=True)
+    sc = _site_scale(drops, [f"encoder.{i}.in_conv" for i in range(s)])
+    if sc is not None:
+        x1s, hp1 = scale_channels(x1s, sc), scale_channels(hp1, sc)
 
     # ---- down1: writes the subnetwork channel concat [B, H/2, W/2, 2FS]
     # and the H half of the core's down2 pool
     x2cat, hp2 = fused_double_conv(
         pool_w(hp1), *double_conv_args([d.conv for d in enc.down1s]),
         emit_hpool=True, group_rows_out=True)
+    sc = _site_scale(drops, [f"encoder.{i}.down1" for i in range(s)], dim=1)
+    if sc is not None:
+        x2cat, hp2 = scale_channels(x2cat, sc), scale_channels(hp2, sc)
 
     # ---- shared core, down2 .. up2 (plain modules on an NCHW view of the
     # channels-last tensor)
-    xu2 = core.mid(pool_w(hp2).permute(0, 3, 1, 2))
+    xu2 = core.mid(pool_w(hp2).permute(0, 3, 1, 2), drops)
     xu2 = xu2.permute(0, 2, 3, 1).contiguous()
 
     # ---- up3: skip x2cat + upsampled up2 output (W half here, H in-kernel)
     xup = fused_double_conv(
         x2cat, *double_conv_args([core.up3.conv]),
         x2=upsample_w2x(xu2), x2_half_h=True)
+    sc = _site_scale(drops, ["core.up3"])
+    if sc is not None:
+        xup = scale_channels(xup, sc)
 
     # ---- decoder up4 + out-conv per subnetwork; the upsampled core output
     # (period B) is shared by the S subnetworks
     wo = torch.stack([oc.conv.weight[:, :, 0, 0].t() for oc in dec.outcs])
     bo = torch.stack([oc.conv.bias for oc in dec.outcs])
-    logits = fused_double_conv(
-        x1s, *double_conv_args([u.conv for u in dec.up4s]),
-        x2=upsample_w2x(xup), x2_half_h=True, wo=wo, bo=bo)
+    up4_args = double_conv_args([u.conv for u in dec.up4s])
+    xupw = upsample_w2x(xup)
+    sc = _site_scale(drops, [f"decoder.{i}.up4" for i in range(s)])
+    finals = [f"decoder.{i}.final" for i in range(s)]
+    if sc is None and finals[0] not in drops:
+        logits = fused_double_conv(x1s, *up4_args, x2=xupw, x2_half_h=True,
+                                   wo=wo, bo=bo)
+    else:
+        y = fused_double_conv(x1s, *up4_args, x2=xupw, x2_half_h=True)
+        if sc is not None:
+            y = scale_channels(y, sc)
+        else:
+            y = dropout(y, torch.cat([drops[k][0] for k in finals]),
+                        drops[finals[0]][1])
+        logits = conv1x1(y, wo, bo)
     # [S*B, H, W, C] -> [B, S, H, W, C] float32 at the loss boundary
     return logits.view(s, b, h, w, -1).transpose(0, 1).float().contiguous()
 
@@ -178,20 +247,19 @@ def train_path_supported(cfg: MimoUNetConfig, x_shape: Tuple[int, ...],
     """True when the train kernel path applies (``ct_train_path_supported``,
     mimo_unet_tpu/models/fast_path.py:866-961, on what these kernels need):
     train mode, no MC dropout, bf16, bilinear, "auto" only for CUDA inputs,
-    H and W multiples of 16, channel counts the kernels take, every
-    dropout rate 0 and ``remat == "none"`` (not ported yet), and a half
-    width that is not a multiple of 128: the 640x480 route, on which the
-    JAX package runs neither its pool nor its x2-upsample kernel.  Other
-    shapes (256x256 among them) take the plain modules."""
+    H and W multiples of 16, channel counts the kernels take,
+    ``remat == "none"`` (not ported yet), and a half width that is not a
+    multiple of 128: the 640x480 route, on which the JAX package runs
+    neither its pool nor its x2-upsample kernel.  Every dropout site is
+    supported.  Other shapes (256x256 among them) take the plain
+    modules."""
     if cfg.ct_kernels == "off" or not training or mc_dropout:
         return False
     if cfg.ct_kernels == "auto" and torch.device(device).type != "cuda":
         return False
     if cfg.compute_dtype != "bfloat16" or cfg.mode != "bilinear":
         return False
-    if any(r > 0 for r in (cfg.center_dropout_rate, cfg.final_dropout_rate,
-                           cfg.encoder_dropout_rate, cfg.core_dropout_rate,
-                           cfg.decoder_dropout_rate)) or cfg.remat != "none":
+    if cfg.remat != "none":
         return False
     f = cfg.filter_base_count
     c_up = 2 * f * cfg.num_subnetworks // cfg.factor
@@ -249,10 +317,28 @@ def _conv_bn(x1, dcs, idx, count, *, x2=None, prologue=None):
     return y, scale, shift
 
 
-def mimo_unet_apply_train(model, x: torch.Tensor) -> torch.Tensor:
+def _per_image_affine(sc: torch.Tensor, sh: torch.Tensor, m: torch.Tensor):
+    """Fold Dropout2d scales m [S*B, C] (0 or 1/keep) into the per-group
+    BN affine sc/sh [S, C] (``_per_image_affine``, fast_path.py:1069-1079):
+    with m >= 0, ``relu(y*sc + sh) * m == relu(y*(sc*m) + sh*m)``.  Returns
+    per-image [S*B, C]; the gradients of sc and sh sum over the images."""
+    return _expand_groups(sc, m.shape[0]) * m, _expand_groups(sh, m.shape[0]) * m
+
+
+def _expand_groups(t: torch.Tensor, n: int) -> torch.Tensor:
+    """[G, ...] per-group values -> [N, ...], image n taking group
+    n // (N / G), differentiable (an expand, so gradients sum over each
+    group's images)."""
+    g = t.shape[0]
+    return t[:, None].expand(g, n // g, *t.shape[1:]).reshape(n, *t.shape[1:])
+
+
+def mimo_unet_apply_train(model, x: torch.Tensor,
+                          drops: Drops = NO_DROPOUT) -> torch.Tensor:
     """Train forward through the kernels (``mimo_unet_apply_ct_train``):
-    [B, S, H, W, C_in] -> [B, S, H, W, C_out] float32 logits; every
-    BatchNorm's running statistics update in place."""
+    [B, S, H, W, C_in] -> [B, S, H, W, C_out] float32 logits, with the
+    live dropout sites of ``drops``; every BatchNorm's running statistics
+    update in place."""
     b, s, h, w, cin = x.shape
     n = s * b
     enc, core, dec = model.encoder, model.core, model.decoder
@@ -262,22 +348,41 @@ def mimo_unet_apply_train(model, x: torch.Tensor) -> torch.Tensor:
     xin = x.to(torch.bfloat16).transpose(0, 1).reshape(n, h, w, cin).contiguous()
     y1, sc1, sh1 = _conv_bn(xin, enc.in_convs, 0, cnt_full)
     y2, sc2, sh2 = _conv_bn(y1, enc.in_convs, 1, cnt_full, prologue=(sc1, sh1))
+    m = _site_scale(drops, [f"encoder.{i}.in_conv" for i in range(s)])
+    if m is not None:
+        sc2, sh2 = _per_image_affine(sc2, sh2, m)
     x1s = AffineRelu.apply(y2, sc2, sh2)  # [n, h, w, F]: skip and down1 input
 
     # ---- down1 (plain NHWC Down per subnetwork, fast_path.py:1215-1240)
     x1n = x1s.permute(0, 3, 1, 2)
-    x2s = [d1(x1n[i * b:(i + 1) * b]) for i, d1 in enumerate(enc.down1s)]
+    x2s = [d1(x1n[i * b:(i + 1) * b], drop=drops.get(f"encoder.{i}.down1"))
+           for i, d1 in enumerate(enc.down1s)]
 
     # ---- shared core (plain modules, train mode)
-    x_up = core(torch.cat(x2s, dim=1))
+    x_up = core(torch.cat(x2s, dim=1), drops)
 
     # ---- decoder: plain x2 upsample to channels-last (period B: image n
-    # reads upsampled image n % B), two kernel convs, fused out-conv
+    # reads upsampled image n % B), two kernel convs, the out-conv
     up = upsample_x2_nchw_to_nhwc(x_up)
     up4 = [u.conv for u in dec.up4s]
     y5, sc5, sh5 = _conv_bn(x1s, up4, 0, cnt_full, x2=up)
     y6, sc6, sh6 = _conv_bn(y5, up4, 1, cnt_full, prologue=(sc5, sh5))
     wo = torch.stack([oc.conv.weight[:, :, 0, 0].t() for oc in dec.outcs])
     bo = torch.stack([oc.conv.bias for oc in dec.outcs])
-    logits = Conv1x1Prelu.apply(y6, sc6, sh6, wo, bo)
+    m = _site_scale(drops, [f"decoder.{i}.up4" for i in range(s)])
+    finals = [f"decoder.{i}.final" for i in range(s)]
+    if m is not None:
+        # up4's Dropout2d folds into per-image bn2 parameters; the out-conv
+        # runs with groups = N on per-image copies of wo and bo
+        sc6, sh6 = _per_image_affine(sc6, sh6, m)
+        logits = Conv1x1Prelu.apply(y6, sc6, sh6, _expand_groups(wo, n),
+                                    _expand_groups(bo, n))
+    elif finals[0] in drops:
+        # the elementwise final dropout sits between the ReLU and the 1x1
+        z6 = AffineRelu.apply(y6, sc6, sh6)
+        z6 = dropout(z6, torch.cat([drops[k][0] for k in finals]),
+                     drops[finals[0]][1])
+        logits = Conv1x1.apply(z6, wo, bo)
+    else:
+        logits = Conv1x1Prelu.apply(y6, sc6, sh6, wo, bo)
     return logits.view(s, b, h, w, -1).transpose(0, 1).float()

@@ -16,20 +16,29 @@ does: eligible inputs take a kernel path of ``models/fast_path.py`` (the
 eval one, or in train mode the train one), everything else the plain
 modules below.  In train mode BatchNorm normalizes with batch statistics
 and updates its running statistics in place (the JAX package returns them
-as new state).  Dropout and ``remat`` are not ported yet: a train forward
-that would need them raises ``NotImplementedError``.
+as new state).  Dropout is live in train mode and under ``mc_dropout``
+(BatchNorm then stays in eval mode); its masks come from an explicit
+``DropoutSource`` (``ops/dropout.py``), drawn for every live site of
+``dropout_sites`` before the forward routes.  ``remat`` is not ported yet:
+a train forward that would need it raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
 
 from mimo_unet_torch.models.blocks import DoubleConv, Down, OutConv, Up
 from mimo_unet_torch.ops import max_pool_2x2_skip
+from mimo_unet_torch.ops.dropout import (
+    NO_DROPOUT,
+    DropoutSource,
+    Drops,
+    dropout as apply_dropout,
+)
 
 CT_KERNEL_MODES = ("auto", "off", "force")
 
@@ -94,17 +103,46 @@ class MimoUNetConfig:
 
     def check_train_ported(self) -> None:
         """Raise for what the train forward does not port yet."""
-        rates = {k: getattr(self, k) for k in (
-            "center_dropout_rate", "final_dropout_rate",
-            "encoder_dropout_rate", "core_dropout_rate",
-            "decoder_dropout_rate")}
-        live = [k for k, v in rates.items() if v > 0]
-        if live:
-            raise NotImplementedError(
-                f"train-mode dropout is not ported yet: {live}")
         if self.remat != "none":
             raise NotImplementedError(
                 f"remat={self.remat!r} is not ported yet (only 'none')")
+
+
+def dropout_sites(cfg: MimoUNetConfig, b: int, h: int, w: int
+                  ) -> Dict[str, Tuple[Tuple[int, ...], float]]:
+    """Every dropout site with a nonzero rate in one forward of a
+    [b, S, h, w, C] input: name -> (keep-mask shape, rate), in the order of
+    the JAX package's key tree (mimo_unet_tpu/models/mimo_unet.py:218,
+    ``split(rng, 3)`` into encoder, core and decoder keys).  Per
+    subnetwork i the encoder splits into (in_conv, down1) (:222-241) and
+    the decoder into (up4, final) (:260-277); the core's seven keys
+    (:314) go to down2, down3, down4, center, up1, up2, up3.  Dropout2d
+    masks are [b, C]; the elementwise center and final masks are
+    channels-last [b, H, W, C]."""
+    f, s, fac = cfg.filter_base_count, cfg.num_subnetworks, cfg.factor
+    fs = f * s
+    sites = {}
+
+    def add(name, shape, rate):
+        if rate > 0:
+            sites[name] = (shape, rate)
+
+    for i in range(s):
+        add(f"encoder.{i}.in_conv", (b, f), cfg.encoder_dropout_rate)
+        add(f"encoder.{i}.down1", (b, 2 * f), cfg.encoder_dropout_rate)
+    rate = cfg.core_dropout_rate
+    add("core.down2", (b, 4 * fs), rate)
+    add("core.down3", (b, 8 * fs), rate)
+    add("core.down4", (b, 16 * fs // fac), rate)
+    add("core.center", (b, h // 16, w // 16, 16 * fs // fac),
+        cfg.center_dropout_rate)
+    add("core.up1", (b, 8 * fs // fac), rate)
+    add("core.up2", (b, 4 * fs // fac), rate)
+    add("core.up3", (b, 2 * fs // fac), rate)
+    for i in range(s):
+        add(f"decoder.{i}.up4", (b, f), cfg.decoder_dropout_rate)
+        add(f"decoder.{i}.final", (b, h, w, f), cfg.final_dropout_rate)
+    return sites
 
 
 def resolve_device(device) -> torch.device:
@@ -139,22 +177,30 @@ class Core(nn.Module):
         self.up2 = Up(8 * fs, 4 * fs // factor)
         self.up3 = Up(4 * fs, 2 * fs // factor)
 
-    def mid(self, pooled: torch.Tensor) -> torch.Tensor:
-        """down2 (its pool already applied to ``pooled``) .. up2.  Each
-        Down input that also feeds an Up skip is pooled through
-        ``max_pool_2x2_skip`` and the skip reads its identity output, as
-        ``core_apply`` routes them (mimo_unet_tpu/models/mimo_unet.py:
-        293-373): the two cotangents meet inside the pool backward."""
-        x3 = self.down2.conv(pooled)
+    def mid(self, pooled: torch.Tensor, drops: Drops = NO_DROPOUT
+            ) -> torch.Tensor:
+        """down2 (its pool already applied to ``pooled``) .. up2, with the
+        live dropout sites of ``drops``.  Each Down input that also feeds
+        an Up skip is pooled through ``max_pool_2x2_skip`` and the skip
+        reads its identity output, as ``core_apply`` routes them
+        (mimo_unet_tpu/models/mimo_unet.py:293-373): the two cotangents
+        meet inside the pool backward."""
+        x3 = self.down2.conv(pooled, drops.get("core.down2"))
         p3, x3 = max_pool_2x2_skip(x3)
-        x4 = self.down3(p3, pre_pooled=True)
+        x4 = self.down3(p3, pre_pooled=True, drop=drops.get("core.down3"))
         p4, x4 = max_pool_2x2_skip(x4)
-        x5 = self.down4(p4, pre_pooled=True)
-        return self.up2(self.up1(x5, x4), x3)
+        x5 = self.down4(p4, pre_pooled=True, drop=drops.get("core.down4"))
+        if "core.center" in drops:
+            mask, keep = drops["core.center"]
+            x5 = apply_dropout(x5, mask.permute(0, 3, 1, 2), keep)
+        x_up = self.up1(x5, x4, drops.get("core.up1"))
+        return self.up2(x_up, x3, drops.get("core.up2"))
 
-    def forward(self, x2_concat: torch.Tensor) -> torch.Tensor:
+    def forward(self, x2_concat: torch.Tensor, drops: Drops = NO_DROPOUT
+                ) -> torch.Tensor:
         pooled, x2_concat = max_pool_2x2_skip(x2_concat)
-        return self.up3(self.mid(pooled), x2_concat)
+        return self.up3(self.mid(pooled, drops), x2_concat,
+                        drops.get("core.up3"))
 
 
 class Decoder(nn.Module):
@@ -196,8 +242,15 @@ class MimoUNet(nn.Module):
                 module.reset_parameters(generator)
         self.to(device)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """[B, S, H, W, C_in] -> [B, S, H, W, C_out] float32."""
+    def forward(self, x: torch.Tensor, *, mc_dropout: bool = False,
+                dropout: Optional[DropoutSource] = None) -> torch.Tensor:
+        """[B, S, H, W, C_in] -> [B, S, H, W, C_out] float32.
+
+        Dropout is live in train mode and, in eval mode, with
+        ``mc_dropout`` (BatchNorm stays in eval mode, as in the
+        reference's MC dropout); ``dropout`` then gives the masks and is
+        required when a site has a nonzero rate (``mimo_unet_apply``,
+        mimo_unet_tpu/models/mimo_unet.py:201)."""
         from mimo_unet_torch.models.fast_path import (
             fast_path_supported, mimo_unet_apply_fast,
             mimo_unet_apply_train, train_path_supported)
@@ -208,29 +261,47 @@ class MimoUNet(nn.Module):
                              f"{cfg.num_subnetworks}, got {tuple(x.shape)}")
         if x.shape[-1] != cfg.in_channels:
             raise ValueError(f"channel dim must be {cfg.in_channels}")
+        drops = NO_DROPOUT
+        if self.training or mc_dropout:
+            sites = dropout_sites(cfg, x.shape[0], x.shape[2], x.shape[3])
+            if sites and dropout is None:
+                raise ValueError("a DropoutSource is required when dropout "
+                                 "is live")
+            if sites:
+                drops = dropout.draw(sites, x.device)
         if self.training:
             cfg.check_train_ported()
             if train_path_supported(cfg, x.shape, x.device, training=True):
-                return mimo_unet_apply_train(self, x)
-        elif fast_path_supported(cfg, x.shape, x.device, training=False):
-            return mimo_unet_apply_fast(self, x)
-        return self.forward_plain(x)
+                return mimo_unet_apply_train(self, x, drops)
+        elif fast_path_supported(cfg, x.shape, x.device, training=False,
+                                 mc_dropout=mc_dropout):
+            return mimo_unet_apply_fast(self, x, drops)
+        return self.forward_plain(x, drops)
 
-    def forward_plain(self, x: torch.Tensor) -> torch.Tensor:
+    def forward_plain(self, x: torch.Tensor, drops: Drops = NO_DROPOUT
+                      ) -> torch.Tensor:
         """The plain modules, one subnetwork at a time (reference
-        model.py:167-173, :292-295), in the modules' mode: in train mode
-        each subnetwork's BatchNorms see that subnetwork's batch."""
+        model.py:167-173, :292-295), in the modules' mode, with the live
+        dropout sites of ``drops``: in train mode each subnetwork's
+        BatchNorms see that subnetwork's batch."""
         x = x.to(self.config.torch_dtype)
         x1s, x2s = [], []
         for i, (in_conv, down1) in enumerate(
                 zip(self.encoder.in_convs, self.encoder.down1s)):
-            x1 = in_conv(x[:, i].permute(0, 3, 1, 2))
+            x1 = in_conv(x[:, i].permute(0, 3, 1, 2),
+                         drops.get(f"encoder.{i}.in_conv"))
             x1s.append(x1)
-            x2s.append(down1(x1))
+            x2s.append(down1(x1, drop=drops.get(f"encoder.{i}.down1")))
         # subnetwork-major channel concat (reference model.py:113)
-        x_up = self.core(torch.cat(x2s, dim=1))
-        logits = [outc(up4(x_up, x1)) for up4, outc, x1 in
-                  zip(self.decoder.up4s, self.decoder.outcs, x1s)]
+        x_up = self.core(torch.cat(x2s, dim=1), drops)
+        logits = []
+        for i, (up4, outc, x1) in enumerate(
+                zip(self.decoder.up4s, self.decoder.outcs, x1s)):
+            y = up4(x_up, x1, drops.get(f"decoder.{i}.up4"))
+            if f"decoder.{i}.final" in drops:
+                mask, keep = drops[f"decoder.{i}.final"]
+                y = apply_dropout(y, mask.permute(0, 3, 1, 2), keep)
+            logits.append(outc(y))
         # [B, S, C, H, W] -> [B, S, H, W, C]; the loss boundary is float32
         return torch.stack(logits, dim=1).permute(0, 1, 3, 4, 2).float()
 

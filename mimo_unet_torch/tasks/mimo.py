@@ -11,8 +11,10 @@ row weighting.
 Where the JAX package threads a ``TrainState`` pytree through a pure step,
 the port's ``TrainState`` holds the model (parameters and BatchNorm
 statistics), the optimizer and its schedule, and the loss buffer, and
-``train_step`` updates them in place.  Entry points build on the card
-unless the caller passes ``device="cpu"``.
+``train_step`` updates them in place.  Dropout masks come from the
+state's generator on the model's device (the JAX step's ``k_dropout``,
+mimo_unet_tpu/tasks/mimo.py:189), or from masks the caller passes.  Entry
+points build on the card unless the caller passes ``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ from mimo_unet_torch.loss_buffer import (
 from mimo_unet_torch.losses import UncertaintyLoss
 from mimo_unet_torch.metrics import compute_regression_metrics
 from mimo_unet_torch.models.mimo_unet import MimoUNet, MimoUNetConfig
+from mimo_unet_torch.ops.dropout import DropoutSource
 from mimo_unet_torch.train.optim import adam_with_steplr
 from mimo_unet_torch.transforms import (
     apply_input_transform,
@@ -66,6 +69,8 @@ class TrainState:
     scheduler: torch.optim.lr_scheduler.LambdaLR
     loss_buffer: LossBufferState
     generator: torch.Generator  # CPU: the input transform's permutations
+    # on the model's device: the dropout masks (needed with a dropout rate)
+    dropout_generator: Optional[torch.Generator] = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -136,7 +141,8 @@ class MimoUnetTask:
                    generator: Optional[torch.Generator] = None) -> TrainState:
         """A fresh ``TrainState`` on ``device`` (the card when None): weights
         from ``generator`` (seeded from ``seed`` when None), the model in
-        train mode, Adam moments at zero, an empty loss buffer."""
+        train mode, Adam moments at zero, an empty loss buffer, and the
+        input-transform and dropout generators seeded from ``seed``."""
         if generator is None:
             generator = torch.Generator().manual_seed(self.seed)
         model = self.build_model(device, generator).train()
@@ -146,22 +152,27 @@ class MimoUnetTask:
             step=0, model=model, optimizer=opt, scheduler=sched,
             loss_buffer=loss_buffer_init(self.num_subnetworks,
                                          self.loss_buffer_size, dev),
-            generator=torch.Generator().manual_seed(self.seed + 1))
+            generator=torch.Generator().manual_seed(self.seed + 1),
+            dropout_generator=torch.Generator(dev).manual_seed(self.seed + 2))
 
-    def forward(self, model: MimoUNet, x: torch.Tensor
+    def forward(self, model: MimoUNet, x: torch.Tensor, *,
+                mc_dropout: bool = False,
+                dropout: Optional[DropoutSource] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """x [B,S,H,W,C_in] -> (p1, p2) each [B,S,H,W,C_out/2]."""
-        out = model(x)
+        """x [B,S,H,W,C_in] -> (p1, p2) each [B,S,H,W,C_out/2];
+        ``mc_dropout`` and ``dropout`` as in ``MimoUNet.forward``."""
+        out = model(x, mc_dropout=mc_dropout, dropout=dropout)
         c = self.out_channels // 2
         return out[..., :c], out[..., c:]
 
     def objective(self, model: MimoUNet, image_t: torch.Tensor,
                   label_t: torch.Tensor, mask_t: Optional[torch.Tensor],
-                  loss_buffer: LossBufferState):
+                  loss_buffer: LossBufferState,
+                  dropout: Optional[DropoutSource] = None):
         """The train loss of transformed inputs [B, S, ...]: the
         per-subnetwork NLL mean over (batch, H, W, channel), weighted by the
         loss buffer.  Returns (loss, loss_vec [S], weights [S], p1, p2)."""
-        p1, p2 = self.forward(model, image_t)
+        p1, p2 = self.forward(model, image_t, dropout=dropout)
         per_px = self.loss_fn(p1, p2, label_t, mask=mask_t, reduce_mean=False)
         loss_vec = per_px.mean(dim=(0, 2, 3, 4))
         weights = loss_buffer_weights(loss_buffer, self.loss_buffer_temperature,
@@ -169,11 +180,16 @@ class MimoUnetTask:
         return (loss_vec * weights).mean(), loss_vec, weights, p1, p2
 
     def train_step(self, state: TrainState, batch: Dict[str, torch.Tensor],
-                   with_outputs: bool = False):
+                   with_outputs: bool = False,
+                   dropout: Optional[DropoutSource] = None):
         """One optimization step, in place.  ``batch``: image/label
         [B,H,W,C], optional mask [B,H,W,1], on any device (moved to the
-        model's).  Returns (state, logs, outputs-or-None)."""
+        model's).  Dropout masks come from ``dropout`` when given, else
+        from ``state.dropout_generator``.  Returns (state, logs,
+        outputs-or-None)."""
         model = state.model.train()
+        if dropout is None and state.dropout_generator is not None:
+            dropout = DropoutSource(generator=state.dropout_generator)
         dev = next(model.parameters()).device
         batch = device_normalize({k: v.to(dev) for k, v in batch.items()})
         image_t, label_t, mask_t = apply_input_transform(
@@ -184,7 +200,7 @@ class MimoUnetTask:
 
         state.optimizer.zero_grad(set_to_none=True)
         loss, loss_vec, weights, p1, p2 = self.objective(
-            model, image_t, label_t, mask_t, state.loss_buffer)
+            model, image_t, label_t, mask_t, state.loss_buffer, dropout)
         loss.backward()
         # a parameter outside the graph (a conv bias that train-mode
         # BatchNorm cancels) has a zero gradient, as in the JAX package, so

@@ -165,6 +165,7 @@ PORT_MODULES = [
     "mimo_unet_torch",
     "mimo_unet_torch.ops",
     "mimo_unet_torch.ops.conv",
+    "mimo_unet_torch.ops.dropout",
     "mimo_unet_torch.ops.norm",
     "mimo_unet_torch.ops.pooling",
     "mimo_unet_torch.ops.resize",

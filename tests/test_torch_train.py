@@ -294,7 +294,7 @@ def test_input_transform_semantics():
     (dict(ct_kernels="auto"), SHAPE, False),       # CPU: auto never takes it
     (dict(ct_kernels="off"), SHAPE, False),
     (dict(compute_dtype=None), SHAPE, False),      # bf16 only
-    (dict(decoder_dropout_rate=0.1), SHAPE, False),
+    (dict(decoder_dropout_rate=0.1), SHAPE, True),   # dropout sites
     (dict(remat="enc"), SHAPE, False),
     (dict(filter_base_count=48), SHAPE, False),    # decoder C_in > 128
 ])
@@ -307,8 +307,7 @@ def test_train_path_routing(kw, shape, want):
                                     training=False)
 
 
-@pytest.mark.parametrize("kw", [dict(encoder_dropout_rate=0.1),
-                                dict(remat="all")])
+@pytest.mark.parametrize("kw", [dict(remat="all")])
 def test_train_forward_raises_for_unported_options(kw):
     for ct in ("force", "off"):
         model = MimoUNet(MimoUNetConfig(**dict(BASE, ct_kernels=ct, **kw)),

@@ -208,15 +208,17 @@ def test_g_eff_matches_pallas():
     np.testing.assert_array_equal(_np(got), _nhwc(want, o, N))
 
 
-def test_affine_relu_fwd_and_vjp_match_pallas():
+def affine_relu_case(groups):
+    """K8's plain version against the Pallas kernel, forward and VJP, with
+    [groups, C] parameters (per group or, at groups = N, per image)."""
     rng = np.random.default_rng(8)
     c = 6
     y = _bf16(rng, (N, H, W, c))
-    sc = rng.uniform(0.5, 1.5, (G, c)).astype(np.float32)
-    sh = rng.normal(0.0, 0.3, (G, c)).astype(np.float32)
+    sc = rng.uniform(0.5, 1.5, (groups, c)).astype(np.float32)
+    sh = rng.normal(0.0, 0.3, (groups, c)).astype(np.float32)
     dz = _bf16(rng, (N, H, W, c))
     ca = align8(c)
-    z_j, vjp = jax.vjp(lambda a, s_, h_: affine_relu_ct(a, s_, h_, c, G, True),
+    z_j, vjp = jax.vjp(lambda a, s_, h_: affine_relu_ct(a, s_, h_, c, groups, True),
                        _ct(y, ca).astype(jnp.bfloat16),
                        jnp.asarray(sc)[..., None], jnp.asarray(sh)[..., None])
     dy_j, dsc_j, dsh_j = vjp(_ct(dz, ca).astype(jnp.bfloat16))
@@ -231,20 +233,27 @@ def test_affine_relu_fwd_and_vjp_match_pallas():
     _sums_close(_np(dsh), np.asarray(dsh_j)[..., 0])
 
 
-def test_conv1x1_prelu_fwd_and_vjp_match_pallas():
+def test_affine_relu_fwd_and_vjp_match_pallas():
+    affine_relu_case(G)
+
+
+def conv1x1_prelu_case(groups):
+    """K12's plain version against the Pallas kernel, forward and VJP, with
+    [groups, ...] parameters (per group or, at groups = N, per image)."""
     rng = np.random.default_rng(9)
     c, oc = 6, 2
     y = _bf16(rng, (N, H, W, c))
-    sc = rng.uniform(0.5, 1.5, (G, c)).astype(np.float32)
-    sh = rng.normal(0.0, 0.3, (G, c)).astype(np.float32)
-    wo = rng.uniform(-1, 1, (G, c, oc)).astype(np.float32) / np.sqrt(c)
-    bo = rng.normal(0.0, 0.1, (G, oc)).astype(np.float32)
+    sc = rng.uniform(0.5, 1.5, (groups, c)).astype(np.float32)
+    sh = rng.normal(0.0, 0.3, (groups, c)).astype(np.float32)
+    wo = rng.uniform(-1, 1, (groups, c, oc)).astype(np.float32) / np.sqrt(c)
+    bo = rng.normal(0.0, 0.1, (groups, oc)).astype(np.float32)
     gout = _bf16(rng, (N, H, W, oc))
     ca, oca = align8(c), align8(oc)
-    wop = jnp.zeros((G, c, oca)).at[:, :, :oc].set(wo)
-    bop = jnp.zeros((G, oca, 1)).at[:, :oc, 0].set(bo)
+    wop = jnp.zeros((groups, c, oca)).at[:, :, :oc].set(wo)
+    bop = jnp.zeros((groups, oca, 1)).at[:, :oc, 0].set(bo)
     out_j, vjp = jax.vjp(
-        lambda a, s_, h_, w_, b_: conv1x1_prelu_ct(a, s_, h_, w_, b_, c, G, True),
+        lambda a, s_, h_, w_, b_: conv1x1_prelu_ct(a, s_, h_, w_, b_, c, groups,
+                                                   True),
         _ct(y, ca).astype(jnp.bfloat16), jnp.asarray(sc)[..., None],
         jnp.asarray(sh)[..., None], wop, bop)
     dy_j, dsc_j, dsh_j, dwo_j, dbo_j = vjp(_ct(gout, oca).astype(jnp.bfloat16))
@@ -261,6 +270,10 @@ def test_conv1x1_prelu_fwd_and_vjp_match_pallas():
     _sums_close(_np(dsh), np.asarray(dsh_j)[:, :c, 0])
     _sums_close(_np(dwo), np.asarray(dwo_j)[:, :, :oc])
     _sums_close(_np(dbo), np.asarray(dbo_j)[:, :oc, 0])
+
+
+def test_conv1x1_prelu_fwd_and_vjp_match_pallas():
+    conv1x1_prelu_case(G)
 
 
 def test_train_wrappers_reject_bad_shapes():
