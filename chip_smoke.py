@@ -20,15 +20,16 @@ Run from the root of the repository.  Phases, each raising on failure:
    outputs must be finite with variances >= 0, and they must match the
    plain model (ct_kernels="off") within 3e-2 * max|ref|.
 5. Train kernels: every train kernel at its 640x480 call sites (NYUv2
-   frames, S=2, fbc=21, B=4), each output and gradient against its plain
-   version at the same tolerance as phase 3.
+   frames, S=2, fbc=21, B=4; down1's at 320x240), each output and
+   gradient against its plain version at the same tolerance as phase 3.
 6. Train: the NYUv2-depth task (S=2, fbc=21, bf16, Laplace NLL, lr 1e-3,
    loss buffer 10) at 640x480: ``init_state`` on the card, one step's loss
    and gradients against the plain model (ct_kernels="off", same weights:
    loss within 2e-2 relative, gradient cosine >= 0.99 per leaf above the
    noise threshold of tests/test_ct_train.py:228), then 3 ``train_step``s
    of B=16 seeded random uint8 frames whose launch counters must show
-   every train kernel ran and whose loss and parameters stay finite; then
+   every train kernel (K10 and K13 included) ran and whose loss and
+   parameters stay finite; then
    a profile of one B=16 step (device time by phase and the top device
    operations) and step times at B=16 and B=64.
 7. Dropout kernels: the grouped 1x1 (K11) forward at the MC-serving
@@ -52,8 +53,28 @@ Run from the root of the repository.  Phases, each raising on failure:
    (kernels vs plain); then one B=4 ``train_step`` of the final-dropout
    route whose counters show K11's forward and backward, and its
    gradient check against the plain model.
-10. Print the kernels' JSON line, then the result line
-   ``{"ok": true, "device": {...}}`` last.
+10. Pool and upsample kernels: K10 (forward; backward with the skip
+   cotangent, and once without) and K13 (forward, backward) at their
+   256x256 B=64 (N = 128) and 640x480 B=4 train sites, against their
+   plain versions: bitwise, but K13's backward at phase 3's tolerance;
+   library calls ``F.max_pool2d`` and ``F.interpolate`` (bilinear,
+   align_corners) on the channels-last tensor, and their backward.
+11. Flagship train at 256x256 patches: the NYUv2-depth task of phase 6 on
+   the train kernel route (``init_state`` on the card; one B=16 step's
+   loss and gradients against the plain and f32 models as in phase 9),
+   3 ``train_step``s at B=64 whose counters must show every train kernel
+   and exactly 2 K10 forward, 2 K10 backward, 1 K13 forward and 1 K13
+   backward launch per step, a profile of one B=64 step, and step times
+   at B=16 and B=64 (kernels vs plain).
+12. Partial tiles: the train kernels where their blocks do not divide the
+   pixels (down1 of a 48x48 step at B=3: 4.5 conv tiles per 24x24 image,
+   6.75 reducing blocks per group, 2.25 per image) and at fbc 40's
+   channel counts, each against its plain version at phase 3's
+   tolerance; then one B=3 48x48 step of the fbc-40 task on the kernel
+   route (every train kernel and K10/K13 launched) with its loss and
+   gradients against the plain and f32 models as in phase 9.
+13. Print the kernels' JSON line (K10/K13 launches from phase 11), then
+   the result line ``{"ok": true, "device": {...}}`` last.
 
 Every time carries the card's name and power limit.  Exits non-zero,
 printing no result, without CUDA or outside the repo.
@@ -73,6 +94,7 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 B, S, F, HW = 32, 2, 21, 256           # eval flagship
 TB, TH, TW = 4, 480, 640               # train kernel call sites (NYUv2)
 TRAIN_B, BIG_B = 16, 64                # train steps; the documented batch
+NYU, PATCH = (TH, TW), (HW, HW)        # train frame sizes: NYUv2, flagship
 PEAK_FLOPS, PEAK_BYTES = 989e12, 3.35e12  # H100 SXM bf16 dense, HBM3
 _E = "mimo_unet_tpu/ops/pallas/"
 KERNEL_INFO = {
@@ -91,6 +113,10 @@ KERNEL_INFO = {
     "conv1x1_prelu_bwd": ("mimo_unet_torch/csrc/train_elem.cu", _E + "ct_elem.py:560"),
     "conv1x1": ("mimo_unet_torch/csrc/train_elem.cu", _E + "ct_elem.py:437"),
     "conv1x1_bwd": ("mimo_unet_torch/csrc/train_elem.cu", _E + "ct_elem.py:464"),
+    "max_pool2x2": ("mimo_unet_torch/csrc/pool2x2.cu", _E + "ct_elem.py:282"),
+    "max_pool2x2_bwd": ("mimo_unet_torch/csrc/pool2x2.cu", _E + "ct_elem.py:336"),
+    "upsample2x": ("mimo_unet_torch/csrc/upsample2x.cu", _E + "ct_resize.py:59"),
+    "upsample2x_bwd": ("mimo_unet_torch/csrc/upsample2x.cu", _E + "ct_resize.py:124"),
 }
 # the documented MC-dropout recipe (reference Readme.md:82)
 MC_RECIPE = dict(encoder_dropout_rate=0.1, core_dropout_rate=0.1,
@@ -272,13 +298,13 @@ def eval_sites(dev, gen):
 def train_sites(dev, gen):
     """The train kernels at their call sites of
     mimo_unet_torch/models/fast_path.py ``mimo_unet_apply_train`` at
-    640x480, B=4 (n = S*B images, S-major)."""
+    640x480, B=4 (n = S*B images, S-major); down1's at half resolution."""
     import torch
     import torch.nn.functional as Fn
     from mimo_unet_torch import kernels as K
 
-    bf, f32 = torch.bfloat16, torch.float32
-    n, hw, px = S * TB, TH * TW, S * TB * TH * TW
+    bf = torch.bfloat16
+    n, px = S * TB, S * TB * TH * TW
     c_up = F * S
     mid = (F + c_up) // 2
 
@@ -296,10 +322,11 @@ def train_sites(dev, gen):
     def lib_in(x1, x2=None):
         """The site's inputs as one NCHW (channels-last) tensor with the S
         groups on channels, reflect-padded: [B, S*C, H+2, W+2]."""
-        z = x1.view(S, TB, TH, TW, -1)
+        hh, ww = x1.shape[1:3]
+        z = x1.view(S, TB, hh, ww, -1)
         if x2 is not None:
             z = torch.cat([z, x2.unsqueeze(0).expand(S, *x2.shape)], dim=-1)
-        z = z.permute(1, 0, 4, 2, 3).reshape(TB, -1, TH, TW)
+        z = z.permute(1, 0, 4, 2, 3).reshape(TB, -1, hh, ww)
         return Fn.pad(z, (1, 1, 1, 1), mode="reflect").contiguous(
             memory_format=torch.channels_last)
 
@@ -307,28 +334,38 @@ def train_sites(dev, gen):
         return w.permute(0, 4, 3, 1, 2).reshape(-1, w.shape[3], 3, 3).to(bf)
 
     def lib_g(g):  # [S*B, H, W, O] -> [B, S*O, H, W]
-        return g.view(S, TB, TH, TW, -1).permute(1, 0, 4, 2, 3).reshape(
-            TB, -1, TH, TW).contiguous(memory_format=torch.channels_last)
+        hh, ww = g.shape[1:3]
+        return g.view(S, TB, hh, ww, -1).permute(1, 0, 4, 2, 3).reshape(
+            TB, -1, hh, ww).contiguous(memory_format=torch.channels_last)
 
     sites = []
-    # (label, x1, x2, w, prologue) per conv of the path
+    # (label, x1, x2, w, prologue) per conv of the path; down1's conv1 is
+    # the one without a prologue whose input needs a gradient (plain dx)
+    h2, w2 = TH // 2, TW // 2
     x = act(n, TH, TW, 3)
     y1, x1s, y5 = act(n, TH, TW, F), act(n, TH, TW, F), act(n, TH, TW, mid)
+    p1, y3 = act(n, h2, w2, F), act(n, h2, w2, 2 * F)
     up = act(TB, TH, TW, c_up)
     convs = [
         ("in_conv.conv1 3->21", x, None, weight(3, F), None),
         ("in_conv.conv2 21->21 +prologue", y1, None, weight(F, F), affine(F)),
+        (f"down1.conv1 21->42 @{w2}x{h2}", p1, None, weight(F, 2 * F), None),
+        (f"down1.conv2 42->42 +prologue @{w2}x{h2}", y3, None, weight(2 * F, 2 * F),
+         affine(2 * F)),
         ("decoder conv1 (21+42)->31 x2 period 4", x1s, up, weight(F + c_up, mid), None),
         ("decoder conv2 31->21 +prologue", y5, None, weight(mid, F), affine(mid)),
     ]
     for label, a1, a2, w, pro in convs:
         sc, sh = pro if pro is not None else (None, None)
         c1, cin, o = a1.shape[-1], w.shape[3], w.shape[4]
+        hh, ww = a1.shape[1:3]
+        cpx = n * hh * ww
         n2 = 0 if a2 is None else a2.shape[0]
-        conv_flops = 2.0 * px * 9 * cin * o
+        conv_flops = 2.0 * cpx * 9 * cin * o
         in_bytes = _nbytes((a1.shape, 2)) + (0 if a2 is None else _nbytes((a2.shape, 2)))
         w_bytes = _nbytes((w.shape, 2))
-        g = act(n, TH, TW, o, scale=0.01)
+        y_bytes = _nbytes(((n, hh, ww, o), 2))
+        g = act(n, hh, ww, o, scale=0.01)
         ds = torch.randn((S, o), device=dev, generator=gen) * 1e-4
         dq = torch.randn((S, o), device=dev, generator=gen) * 1e-6
         xl, wl = lib_in(a1, a2), lib_w(w)
@@ -337,31 +374,30 @@ def train_sites(dev, gen):
             "conv3x3_fwd", label,
             lambda a1=a1, a2=a2, w=w, sc=sc, sh=sh: K.conv3x3_fwd(a1, w, x2=a2, scale=sc, shift=sh),
             lambda a1=a1, a2=a2, w=w, sc=sc, sh=sh: K.conv3x3_fwd_plain(a1, w, x2=a2, scale=sc, shift=sh),
-            False, conv_flops, in_bytes + w_bytes + _nbytes(((n, TH, TW, o), 2)),
+            False, conv_flops, in_bytes + w_bytes + y_bytes,
             lambda xl=xl, wl=wl: Fn.conv2d(xl, wl, groups=S)))
         yk = K.conv3x3_fwd(a1, w, x2=a2, scale=sc, shift=sh)[0]
         sites.append(Site(
             "g_eff", f"{label}: y {o} ch",
             lambda g=g, yk=yk, ds=ds, dq=dq: K.g_eff(g, yk, ds, dq),
             lambda g=g, yk=yk, ds=ds, dq=dq: K.g_eff_plain(g, yk, ds, dq),
-            False, 3.0 * px * o, 3 * _nbytes(((n, TH, TW, o), 2))))
-        dx_shape = (TB, S * cin, TH, TW)
+            False, 3.0 * cpx * o, 3 * y_bytes))
+        dx_shape = (TB, S * cin, hh, ww)
         if a2 is not None:
             sites.append(Site(
                 "conv3x3_dx_fold", label,
                 lambda g=g, w=w, c1=c1, n2=n2: K.conv3x3_dx_fold(g, w, c1, n2),
                 lambda g=g, w=w, c1=c1, n2=n2: K.conv3x3_dx_fold_plain(g, w, c1, n2),
-                False, 2.0 * px * 9 * o * cin,
-                _nbytes(((n, TH, TW, o), 2)) + w_bytes + in_bytes,
+                False, conv_flops, y_bytes + w_bytes + in_bytes,
                 lambda gl=gl, wl=wl, dx_shape=dx_shape: torch.nn.grad.conv2d_input(
                     dx_shape, wl, gl, padding=1, groups=S)))
-        elif sc is not None:
+        elif sc is not None or a1 is p1:  # down1's input needs its gradient
             sites.append(Site(
                 "conv3x3_dx", label,
                 lambda g=g, w=w, a1=a1, sc=sc, sh=sh: K.conv3x3_dx(g, w, x1=a1, scale=sc, shift=sh),
                 lambda g=g, w=w, a1=a1, sc=sc, sh=sh: K.conv3x3_dx_plain(g, w, x1=a1, scale=sc, shift=sh),
-                False, 2.0 * px * 9 * o * cin,
-                _nbytes(((n, TH, TW, o), 2)) + w_bytes + 2 * in_bytes,
+                False, conv_flops,
+                y_bytes + w_bytes + (1 if sc is None else 2) * in_bytes,
                 lambda gl=gl, wl=wl, dx_shape=dx_shape: torch.nn.grad.conv2d_input(
                     dx_shape, wl, gl, padding=1, groups=S)))
         sites.append(Site(
@@ -369,22 +405,25 @@ def train_sites(dev, gen):
             lambda g=g, a1=a1, a2=a2, sc=sc, sh=sh: K.conv3x3_dw(g, a1, S, x2=a2, scale=sc, shift=sh),
             lambda g=g, a1=a1, a2=a2, sc=sc, sh=sh: K.conv3x3_dw_plain(g, a1, S, x2=a2, scale=sc, shift=sh),
             False, conv_flops,
-            in_bytes + _nbytes(((n, TH, TW, o), 2)) + _nbytes((w.shape, 4)),
+            in_bytes + y_bytes + _nbytes((w.shape, 4)),
             lambda xl=xl, wl=wl, gl=gl: torch.nn.grad.conv2d_weight(
                 xl, wl.shape, gl, groups=S)))
 
-    y2 = act(n, TH, TW, F, scale=3.0)
-    sc2, sh2 = affine(F)
-    dz = act(n, TH, TW, F, scale=0.01)
+    for label, hh, ww, c in (("in_conv output x1s 21 ch", TH, TW, F),
+                             (f"down1 output 42 ch @{w2}x{h2}", h2, w2, 2 * F)):
+        y2 = act(n, hh, ww, c, scale=3.0)
+        sc2, sh2 = affine(c)
+        dz = act(n, hh, ww, c, scale=0.01)
+        elem = _nbytes(((n, hh, ww, c), 2))
+        sites.append(Site("affine_relu", label,
+                          lambda y2=y2, sc2=sc2, sh2=sh2: K.affine_relu(y2, sc2, sh2),
+                          lambda y2=y2, sc2=sc2, sh2=sh2: K.affine_relu_plain(y2, sc2, sh2),
+                          False, 3.0 * n * hh * ww * c, 2 * elem))
+        sites.append(Site("affine_relu_bwd", label,
+                          lambda dz=dz, y2=y2, sc2=sc2, sh2=sh2: K.affine_relu_bwd(dz, y2, sc2, sh2),
+                          lambda dz=dz, y2=y2, sc2=sc2, sh2=sh2: K.affine_relu_bwd_plain(dz, y2, sc2, sh2),
+                          False, 6.0 * n * hh * ww * c, 3 * elem))
     elem = _nbytes(((n, TH, TW, F), 2))
-    sites.append(Site("affine_relu", "in_conv output x1s 21 ch",
-                      lambda: K.affine_relu(y2, sc2, sh2),
-                      lambda: K.affine_relu_plain(y2, sc2, sh2),
-                      False, 3.0 * px * F, 2 * elem))
-    sites.append(Site("affine_relu_bwd", "in_conv output x1s 21 ch",
-                      lambda: K.affine_relu_bwd(dz, y2, sc2, sh2),
-                      lambda: K.affine_relu_bwd_plain(dz, y2, sc2, sh2),
-                      False, 6.0 * px * F, 3 * elem))
     y6 = act(n, TH, TW, F, scale=3.0)
     sc6, sh6 = affine(F)
     wo = (torch.rand((S, F, 2), device=dev, generator=gen) * 2 - 1) / F ** 0.5
@@ -473,6 +512,155 @@ def dropout_kernel_sites(dev, gen):
                       lambda: K.conv1x1_prelu_bwd(gt, y, sc, sh, wo_i),
                       lambda: K.conv1x1_prelu_bwd_plain(gt, y, sc, sh, wo_i),
                       False, px * (4.0 * F + 4.0 * F * 2), 2 * elem + logits))
+    return sites
+
+
+def resample_sites(dev, gen):
+    """K10 and K13 at their train call sites (models/fast_path.py
+    ``mimo_unet_apply_train``): the flagship 256x256 step at B=64 (N = S*B
+    = 128 images) and the 640x480 step at B=4.  The pool's input is a ReLU
+    output, so all-zero windows tie; the pool's backward runs with the
+    skip cotangent, as both sites run it, and once without at 640x480.
+    Library calls: ``F.max_pool2d`` and ``F.interpolate`` (bilinear,
+    align_corners) on the channels-last tensor, and their autograd
+    backward."""
+    import torch
+    import torch.nn.functional as Fn
+    from mimo_unet_torch import kernels as K
+
+    bf = torch.bfloat16
+
+    def act(*shape, relu=False):
+        t = torch.randn(shape, device=dev, generator=gen)
+        return (t.clamp_min(0) if relu else t).to(bf)
+
+    def nchw(t):  # an NCHW view of a channels-last tensor
+        return t.permute(0, 3, 1, 2)
+
+    def backward_of(fn, x, g):
+        """One library backward: autograd of ``fn`` at x against g."""
+        xl = nchw(x).detach().requires_grad_()
+        out, gl = fn(xl), nchw(g)
+        return lambda: torch.autograd.grad(out, xl, gl, retain_graph=True)
+
+    def pool(t):
+        return Fn.max_pool2d(t, 2)
+
+    def interp(t):
+        return Fn.interpolate(t, scale_factor=2, mode="bilinear", align_corners=True)
+
+    sites = []
+    for b, (h, w) in ((BIG_B, PATCH), (TB, NYU)):
+        n, tag = S * b, f"{h}x{w} B={b}"
+        for label, c, hh, ww in (("in_conv -> down1", F, h, w),
+                                 ("down1 -> core", 2 * F, h // 2, w // 2)):
+            x = act(n, hh, ww, c, relu=True)
+            y, g, gs = K.max_pool2x2(x), act(n, hh // 2, ww // 2, c), act(n, hh, ww, c)
+            full = _nbytes(((n, hh, ww, c), 2))
+            half = full / 4
+            sites.append(Site(
+                "max_pool2x2", f"{label} {tag} [{n},{hh},{ww},{c}]",
+                lambda x=x: K.max_pool2x2(x), lambda x=x: K.max_pool2x2_plain(x),
+                True, 0.75 * x.numel(), full + half, lambda x=x: pool(nchw(x))))
+            sites.append(Site(
+                "max_pool2x2_bwd", f"{label} {tag} +skip",
+                lambda g=g, x=x, y=y, gs=gs: K.max_pool2x2_bwd(g, x, y, gs),
+                lambda g=g, x=x, y=y, gs=gs: K.max_pool2x2_bwd_plain(g, x, y, gs),
+                True, 2.0 * x.numel(), 3 * full + 2 * half, backward_of(pool, x, g)))
+            if b == TB and c == 2 * F:
+                sites.append(Site(
+                    "max_pool2x2_bwd", f"{label} {tag} no skip",
+                    lambda g=g, x=x, y=y: K.max_pool2x2_bwd(g, x, y),
+                    lambda g=g, x=x, y=y: K.max_pool2x2_bwd_plain(g, x, y),
+                    True, 1.0 * x.numel(), 2 * full + 2 * half, backward_of(pool, x, g)))
+        c_up = F * S  # the core's output channels
+        xu, gu = act(b, h // 2, w // 2, c_up), act(b, h, w, c_up)
+        big = _nbytes((gu.shape, 2))
+        sites.append(Site(
+            "upsample2x", f"decoder input {tag} [{b},{h // 2},{w // 2},{c_up}]",
+            lambda xu=xu: K.upsample2x(xu), lambda xu=xu: K.upsample2x_plain(xu),
+            True, 9.0 * gu.numel(), 1.25 * big, lambda xu=xu: interp(nchw(xu))))
+        sites.append(Site(
+            "upsample2x_bwd", f"decoder input {tag}",
+            lambda gu=gu: K.upsample2x_bwd(gu), lambda gu=gu: K.upsample2x_bwd_plain(gu),
+            False, 7.5 * gu.numel(), 1.25 * big, backward_of(interp, xu, gu)))
+    return sites
+
+
+def tail_sites(dev, gen):
+    """The train kernels at shapes their blocks do not divide: down1 of a
+    48x48 step at B=3 (N = 6 images of 24x24 = 576 pixels: 4.5 of the conv
+    kernels' 128-pixel tiles per image, 6.75 of the reducing passes'
+    256-pixel blocks per group, 2.25 per image at groups = N) with fbc
+    40's 40 -> 80 channels, and the 1x1 kernels at that pixel count."""
+    import torch
+    from mimo_unet_torch import kernels as K
+
+    bf = torch.bfloat16
+    n, hh, ww, f = S * 3, 24, 24, 40
+
+    def act(*shape, scale=1.0):
+        return (torch.randn(shape, device=dev, generator=gen) * scale).to(bf)
+
+    def weight(cin, o):
+        return ((torch.rand((S, 3, 3, cin, o), device=dev, generator=gen) * 2 - 1)
+                / (9 * cin) ** 0.5).to(bf).float()
+
+    def affine(groups, c):
+        return (torch.rand((groups, c), device=dev, generator=gen) + 0.5,
+                torch.randn((groups, c), device=dev, generator=gen) * 0.1)
+
+    sites = []
+
+    def add(name, label, kern, plain):
+        sites.append(Site(name, label, kern, plain, False, 0.0, 0.0))
+
+    p1, y3, x1s = act(n, hh, ww, f), act(n, hh, ww, 2 * f), act(n, hh, ww, 8)
+    up = act(n // S, hh, ww, 16)
+    w1, w2, wd = weight(f, 2 * f), weight(2 * f, 2 * f), weight(24, 12)
+    sc, sh = affine(S, 2 * f)
+    g1, gd = act(n, hh, ww, 2 * f, scale=0.01), act(n, hh, ww, 12, scale=0.01)
+    tag = f"[{n},{hh},{ww}]"
+    add("conv3x3_fwd", f"down1.conv1 40->80 {tag}",
+        lambda: K.conv3x3_fwd(p1, w1), lambda: K.conv3x3_fwd_plain(p1, w1))
+    add("conv3x3_fwd", f"down1.conv2 80->80 +prologue {tag}",
+        lambda: K.conv3x3_fwd(y3, w2, scale=sc, shift=sh),
+        lambda: K.conv3x3_fwd_plain(y3, w2, scale=sc, shift=sh))
+    add("conv3x3_dx", f"down1.conv1 {tag}",
+        lambda: K.conv3x3_dx(g1, w1), lambda: K.conv3x3_dx_plain(g1, w1))
+    add("conv3x3_dx", f"down1.conv2 +prologue {tag}",
+        lambda: K.conv3x3_dx(g1, w2, x1=y3, scale=sc, shift=sh),
+        lambda: K.conv3x3_dx_plain(g1, w2, x1=y3, scale=sc, shift=sh))
+    add("conv3x3_dx_fold", f"(8+16)->12 x2 period {n // S} {tag}",
+        lambda: K.conv3x3_dx_fold(gd, wd, 8, n // S),
+        lambda: K.conv3x3_dx_fold_plain(gd, wd, 8, n // S))
+    add("conv3x3_dw", f"down1.conv1 {tag}",
+        lambda: K.conv3x3_dw(g1, p1, S), lambda: K.conv3x3_dw_plain(g1, p1, S))
+    add("conv3x3_dw", f"down1.conv2 +prologue {tag}",
+        lambda: K.conv3x3_dw(g1, y3, S, scale=sc, shift=sh),
+        lambda: K.conv3x3_dw_plain(g1, y3, S, scale=sc, shift=sh))
+    y4, dz = act(n, hh, ww, 2 * f, scale=3.0), act(n, hh, ww, 2 * f, scale=0.01)
+    z, gl = act(n, hh, ww, f, scale=3.0), act(n, hh, ww, 2, scale=0.01)
+    for groups in (S, n):
+        sc4, sh4 = affine(groups, 2 * f)
+        add("affine_relu_bwd", f"down1 80 ch, groups={groups} {tag}",
+            lambda sc4=sc4, sh4=sh4: K.affine_relu_bwd(dz, y4, sc4, sh4),
+            lambda sc4=sc4, sh4=sh4: K.affine_relu_bwd_plain(dz, y4, sc4, sh4))
+        sc6, sh6 = affine(groups, f)
+        wo = (torch.rand((groups, f, 2), device=dev, generator=gen) * 2 - 1) / f ** 0.5
+        bo = torch.randn((groups, 2), device=dev, generator=gen) * 0.1
+        add("conv1x1_prelu", f"40->2, groups={groups} {tag}",
+            lambda sc6=sc6, sh6=sh6, wo=wo, bo=bo: K.conv1x1_prelu(z, sc6, sh6, wo, bo),
+            lambda sc6=sc6, sh6=sh6, wo=wo, bo=bo: K.conv1x1_prelu_plain(z, sc6, sh6, wo, bo))
+        add("conv1x1_prelu_bwd", f"40->2, groups={groups} {tag}",
+            lambda sc6=sc6, sh6=sh6, wo=wo: K.conv1x1_prelu_bwd(gl, z, sc6, sh6, wo),
+            lambda sc6=sc6, sh6=sh6, wo=wo: K.conv1x1_prelu_bwd_plain(gl, z, sc6, sh6, wo))
+        add("conv1x1", f"40->2, groups={groups} {tag}",
+            lambda wo=wo, bo=bo: K.conv1x1(z, wo, bo),
+            lambda wo=wo, bo=bo: K.conv1x1_plain(z, wo, bo))
+        add("conv1x1_bwd", f"40->2, groups={groups} {tag}",
+            lambda wo=wo: K.conv1x1_bwd(gl, z, wo),
+            lambda wo=wo: K.conv1x1_bwd_plain(gl, z, wo))
     return sites
 
 
@@ -666,13 +854,13 @@ def serve_mc(dev, card):
     return launches
 
 
-def _frames(gen, b):
-    """Seeded random NYUv2-shaped uint8 frames and depth labels."""
+def _frames(gen, b, hw=NYU):
+    """Seeded random uint8 frames and depth labels of size ``hw``."""
     import torch
 
-    return {"image": torch.randint(0, 256, (b, TH, TW, 3), generator=gen,
+    return {"image": torch.randint(0, 256, (b, *hw, 3), generator=gen,
                                    dtype=torch.uint8),
-            "label": torch.randint(0, 256, (b, TH, TW, 1), generator=gen,
+            "label": torch.randint(0, 256, (b, *hw, 1), generator=gen,
                                    dtype=torch.uint8)}
 
 
@@ -680,7 +868,8 @@ def _cos(a, b):
     return float((a * b).sum() / (a.norm() * b.norm() + 1e-12))
 
 
-def _grad_check(task, state, dev, card, b=TRAIN_B, min_cos=0.99, f32_ref=False):
+def _grad_check(task, state, dev, card, b=TRAIN_B, min_cos=0.99, f32_ref=False,
+                hw=NYU):
     """One step's loss and gradients: the kernel path against the plain
     model (ct_kernels="off") with the same weights, inputs and dropout
     masks, on copies of the train state's model: cosine >= ``min_cos`` on
@@ -698,10 +887,10 @@ def _grad_check(task, state, dev, card, b=TRAIN_B, min_cos=0.99, f32_ref=False):
     from mimo_unet_torch.transforms import apply_input_transform
 
     batch = device_normalize({k: v.to(dev) for k, v in
-                              _frames(torch.Generator().manual_seed(5), b).items()})
+                              _frames(torch.Generator().manual_seed(5), b, hw).items()})
     image_t, label_t, _ = apply_input_transform(
         torch.Generator().manual_seed(6), batch["image"], batch["label"], None, S)
-    sites = dropout_sites(task.model_config, image_t.shape[0], TH, TW)
+    sites = dropout_sites(task.model_config, image_t.shape[0], *hw)
     source = None
     if sites:  # one draw, given to every run
         drawn = DropoutSource(torch.Generator(dev).manual_seed(8)).draw(sites, dev)
@@ -723,7 +912,8 @@ def _grad_check(task, state, dev, card, b=TRAIN_B, min_cos=0.99, f32_ref=False):
         del model
     (lk, gk), (lp, gp) = results["kernels"], results["plain"]
     rel = abs(lk - lp) / abs(lp)
-    print(f"grad check: loss kernels {lk} vs plain {lp} (rel {rel:.3e}) ({card})")
+    print(f"grad check {hw[0]}x{hw[1]} B={b}: loss kernels {lk} vs plain {lp} "
+          f"(rel {rel:.3e}) ({card})")
     if not rel <= 2e-2:
         raise AssertionError(f"train loss: kernel path {lk} vs plain {lp}")
     if gk.keys() != gp.keys():
@@ -762,14 +952,15 @@ def _grad_check(task, state, dev, card, b=TRAIN_B, min_cos=0.99, f32_ref=False):
     return cos
 
 
-def _profile_step(task, state, batch, card):
+def _profile_step(task, state, batch, card, label):
     """Device time of one train step by phase, from torch.profiler's
     kernel events: the port's kernels, the optimizer, everything else."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     names = ("conv_fwd_kernel", "conv_dx_kernel", "conv_dw_kernel",
-             "g_eff_kernel", "affine_relu", "conv1x1_prelu", "reduce_groups")
+             "g_eff_kernel", "affine_relu", "conv1x1", "reduce_groups",
+             "pool2x2_kernel", "pool2x2_bwd", "up2_fwd_kernel", "up2_bwd_kernel")
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -794,7 +985,7 @@ def _profile_step(task, state, batch, card):
         else:
             phases["other (core, glue)"] += us
     busy = sum(phases.values()) / 1e3
-    print(f"profile B={TRAIN_B} step (profiled wall {wall:.1f} ms, device busy "
+    print(f"profile {label} step (profiled wall {wall:.1f} ms, device busy "
           f"{busy:.1f} ms): " + ", ".join(f"{k} {v / 1e3:.2f} ms"
                                           for k, v in phases.items()) + f" ({card})")
     for k, v in sorted(per_kernel.items(), key=lambda kv: -kv[1]):
@@ -804,10 +995,10 @@ def _profile_step(task, state, batch, card):
     return phases
 
 
-def _time_steps(task, state, gen, b, steps, card, label):
+def _time_steps(task, state, gen, b, steps, card, label, hw=NYU):
     import torch
 
-    batches = [_frames(gen, b) for _ in range(2)]
+    batches = [_frames(gen, b, hw) for _ in range(2)]
     torch.cuda.reset_peak_memory_stats()
     task.train_step(state, batches[0])  # warm-up (cuDNN plans, allocator)
     torch.cuda.synchronize()
@@ -819,7 +1010,7 @@ def _time_steps(task, state, gen, b, steps, card, label):
         times.append(time.perf_counter() - t0)
     times.sort()
     med = times[len(times) // 2]
-    print(f"train step {label} B={b}: median {med * 1e3:.2f} ms over {steps} "
+    print(f"train step {hw[0]}x{hw[1]} {label} B={b}: median {med * 1e3:.2f} ms over {steps} "
           f"(min {times[0] * 1e3:.2f}), {b / med:.2f} images/s, peak memory "
           f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB ({card})",
           flush=True)
@@ -830,12 +1021,8 @@ def train(dev, card):
     """Phase 6; returns the train kernels' launch counts over 3 steps."""
     import torch
     from mimo_unet_torch import kernels as K
-    from mimo_unet_torch.tasks.mimo import MimoUnetTask
 
-    task = MimoUnetTask(in_channels=3, out_channels=2, num_subnetworks=S,
-                        filter_base_count=F, loss="laplace_nll",
-                        learning_rate=1e-3, loss_buffer_size=10,
-                        compute_dtype="bfloat16")
+    task = _train_task()
     spe = -(-795 // TRAIN_B)  # NYUv2's 795 training frames
     state = task.init_state(spe, dev)
     _grad_check(task, state, dev, card)
@@ -855,7 +1042,8 @@ def train(dev, card):
     torch.cuda.synchronize()
     launches = K.launch_counts()
     print(f"train launches: {launches}")
-    missing = [k.__name__ for k in K.TRAIN_KERNELS if launches[k.__name__] <= 0]
+    missing = [k.__name__ for k in K.TRAIN_KERNELS + K.RESAMPLE_KERNELS
+               if launches[k.__name__] <= 0]
     if missing:
         raise AssertionError(f"kernels not launched on the train path: {missing}")
     bad = [k for k, p in state.model.named_parameters()
@@ -865,7 +1053,7 @@ def train(dev, card):
     if state.step != 3:
         raise AssertionError(f"train state step {state.step}")
 
-    _profile_step(task, state, _frames(gen, TRAIN_B), card)
+    _profile_step(task, state, _frames(gen, TRAIN_B), card, f"640x480 B={TRAIN_B}")
     _time_steps(task, state, gen, TRAIN_B, 5, card, "kernels")
     plain = dataclasses.replace(task, ct_kernels="off")
     pstate = plain.init_state(spe, dev)
@@ -878,6 +1066,94 @@ def train(dev, card):
     pstate = plain.init_state(spe, dev)
     _time_steps(plain, pstate, gen, BIG_B, 3, card, "plain (cuDNN bf16)")
     return launches
+
+
+def _train_task(**rates):
+    """The NYUv2-depth train task: S=2, fbc=21, bf16, Laplace NLL, lr 1e-3,
+    loss buffer 10, with dropout ``rates``."""
+    from mimo_unet_torch.tasks.mimo import MimoUnetTask
+
+    return MimoUnetTask(in_channels=3, out_channels=2, num_subnetworks=S,
+                        filter_base_count=F, loss="laplace_nll",
+                        learning_rate=1e-3, loss_buffer_size=10,
+                        compute_dtype="bfloat16", **rates)
+
+
+def train_patch(dev, card):
+    """Phase 11: the flagship step at 256x256 patches; returns the launch
+    counts over 3 B=64 steps."""
+    import torch
+    from mimo_unet_torch import kernels as K
+    from mimo_unet_torch.models.fast_path import train_path_supported
+
+    task = _train_task()
+    if not train_path_supported(task.model_config, (BIG_B, S, *PATCH, 3), dev,
+                                training=True):
+        raise AssertionError("256x256 does not take the train kernel route")
+    spe = -(-795 // BIG_B)
+    state = task.init_state(spe, dev)
+    _grad_check(task, state, dev, card, f32_ref=True, hw=PATCH)
+    torch.cuda.empty_cache()
+
+    gen = torch.Generator().manual_seed(10)
+    batches = [_frames(gen, BIG_B, PATCH) for _ in range(3)]
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    for i, batch in enumerate(batches):
+        state, logs, _ = task.train_step(state, batch)
+        loss = float(logs["train_loss"])
+        print(f"256x256 train step {i} B={BIG_B}: loss {loss:.5f}")
+        if not torch.isfinite(torch.tensor(loss)):
+            raise AssertionError(f"256x256 step {i}: non-finite loss")
+    torch.cuda.synchronize()
+    launches = K.launch_counts()
+    print(f"256x256 train launches: {launches}")
+    missing = [k.__name__ for k in K.TRAIN_KERNELS if launches[k.__name__] <= 0]
+    # per step: two pools (in_conv -> down1, down1 -> core), one upsample
+    per_step = {"max_pool2x2": 2, "max_pool2x2_bwd": 2, "upsample2x": 1,
+                "upsample2x_bwd": 1}
+    wrong = {k: launches[k] for k, v in per_step.items() if launches[k] != 3 * v}
+    if missing or wrong:
+        raise AssertionError(f"256x256 train launches: missing {missing}, "
+                             f"K10/K13 counts {wrong} (want {per_step} per step)")
+    if not all(bool(torch.isfinite(p).all()) for p in state.model.parameters()):
+        raise AssertionError("non-finite parameters after 3 256x256 steps")
+
+    _profile_step(task, state, _frames(gen, BIG_B, PATCH), card, f"256x256 B={BIG_B}")
+    plain = dataclasses.replace(task, ct_kernels="off")
+    for b, steps in ((TRAIN_B, 5), (BIG_B, 3)):
+        _time_steps(task, state, gen, b, steps, card, "kernels", PATCH)
+        pstate = plain.init_state(spe, dev)
+        _time_steps(plain, pstate, gen, b, steps, card, "plain (cuDNN bf16)", PATCH)
+        del pstate
+        torch.cuda.empty_cache()
+    return launches
+
+
+def train_tail(dev, card):
+    """Phase 12: the tail sites against their plain versions, then one
+    48x48 B=3 step of the fbc-40 task on the kernel route."""
+    import torch
+    from mimo_unet_torch import kernels as K
+    from mimo_unet_torch.models.fast_path import train_path_supported
+
+    for st in tail_sites(dev, torch.Generator(device=dev).manual_seed(4)):
+        err = compare(f"{st.name} [{st.site}]", st.kern(), st.plain(), False)
+        print(f"tail {st.name} [{st.site}]: max_abs_err {err} (tolerance)")
+    task = dataclasses.replace(_train_task(), filter_base_count=40)
+    b, hw = 3, (48, 48)
+    if not train_path_supported(task.model_config, (b, S, *hw, 3), dev,
+                                training=True):
+        raise AssertionError("48x48 fbc 40 does not take the train kernel route")
+    state = task.init_state(1, dev)
+    K.reset_launch_counts()
+    _grad_check(task, state, dev, card, b=b, f32_ref=True, hw=hw)
+    launches = K.launch_counts()
+    missing = [k.__name__ for k in K.TRAIN_KERNELS + K.RESAMPLE_KERNELS
+               if launches[k.__name__] <= 0]
+    print(f"48x48 fbc 40 B={b} step launches: {launches}")
+    if missing:
+        raise AssertionError(f"kernels not launched at 48x48 fbc 40: {missing}")
 
 
 @contextlib.contextmanager
@@ -906,12 +1182,8 @@ def train_mc(dev, card):
     final-dropout step."""
     import torch
     from mimo_unet_torch import kernels as K
-    from mimo_unet_torch.tasks.mimo import MimoUnetTask
 
-    task = MimoUnetTask(in_channels=3, out_channels=2, num_subnetworks=S,
-                        filter_base_count=F, loss="laplace_nll",
-                        learning_rate=1e-3, loss_buffer_size=10,
-                        compute_dtype="bfloat16", **MC_RECIPE)
+    task = _train_task(**MC_RECIPE)
     spe = -(-795 // TRAIN_B)
     state = task.init_state(spe, dev)
     _grad_check(task, state, dev, card, min_cos=0.999, f32_ref=True)
@@ -933,7 +1205,8 @@ def train_mc(dev, card):
         torch.cuda.synchronize()
     launches = K.launch_counts()
     print(f"MC-recipe train launches: {launches}; K8/K12 groups: {groups}")
-    missing = [k.__name__ for k in K.TRAIN_KERNELS if launches[k.__name__] <= 0]
+    missing = [k.__name__ for k in K.TRAIN_KERNELS + K.RESAMPLE_KERNELS
+               if launches[k.__name__] <= 0]
     if missing:
         raise AssertionError(f"kernels not launched on the MC train path: {missing}")
     not_per_image = [k for k, g in groups.items() if S * TRAIN_B not in g]
@@ -998,7 +1271,7 @@ def main() -> int:
           f"({'nvcc ' + format(built, '.2f') + ' s' if built else 'cached'})",
           flush=True)
 
-    # ---- 3-9 ----------------------------------------------------------------
+    # ---- 3-12 ---------------------------------------------------------------
     from mimo_unet_torch import kernels as K
 
     stats = check_kernels(
@@ -1017,12 +1290,20 @@ def main() -> int:
     served_mc = serve_mc(dev, card)
     torch.cuda.empty_cache()
     trained_mc, final = train_mc(dev, card)
+    torch.cuda.empty_cache()
+    stats.update(check_kernels(
+        resample_sites(dev, torch.Generator(device=dev).manual_seed(3)), card))
+    torch.cuda.empty_cache()
+    patch = train_patch(dev, card)
+    torch.cuda.empty_cache()
+    train_tail(dev, card)
     launches = {k.__name__: served[k.__name__] for k in K.EVAL_KERNELS}
     launches.update({k.__name__: trained[k.__name__] for k in K.TRAIN_KERNELS})
     launches["conv1x1"] = served_mc["conv1x1"]
     launches["conv1x1_bwd"] = final["conv1x1_bwd"]
+    launches.update({k.__name__: patch[k.__name__] for k in K.RESAMPLE_KERNELS})
 
-    # ---- 10. results -------------------------------------------------------
+    # ---- 13. results -------------------------------------------------------
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": KERNEL_INFO[k][0],
          "replaces": KERNEL_INFO[k][1], "launches": launches[k], **stats[k]}

@@ -35,7 +35,9 @@
 // are 9*Cin*O multiply-adds (Cin, O = 3..63), against a few hundred bytes
 // in and out, so at these channel counts the work sits above the memory
 // roofline.  This first version runs the products on the f32 CUDA cores:
-// a 128 x 32 output tile per block, 256 threads, each holding a 4 x 4
+// a 128 x 32 output tile per block, within one image (an image's last
+// tile is partial when 128 does not divide h*w: its missing rows repeat
+// the last pixel), 256 threads, each holding a 4 x 4
 // register tile fed by two 16-byte shared-memory loads per 16 FMAs; the
 // A operand is gathered from device memory into shared memory in f32, 32
 // columns at a time.  Reductions across blocks (statistics, dscale,
@@ -175,14 +177,21 @@ __device__ __forceinline__ void load_tiles(const Conv& p, int img, int g, int k0
   }
 }
 
-// the block's BM pixels [rem, rem + BM) of one image as rows and columns
+// the block's BM pixels [rem, rem + BM) of one image as rows and columns;
+// past the image's last pixel (the tail tile of an image whose pixel count
+// BM does not divide) the rows repeat that pixel: they compute its values
+// again, write the same values to it, and the statistics weigh them 0
 __device__ __forceinline__ void fill_pixels(int* prow, int* pcol, int rem, int w,
-                                            int tid) {
+                                            int hw, int tid) {
   for (int m = tid; m < BM; m += NT) {
-    prow[m] = (rem + m) / w;
-    pcol[m] = (rem + m) % w;
+    const int q = min(rem + m, hw - 1);
+    prow[m] = q / w;
+    pcol[m] = q % w;
   }
 }
+
+// tiles per image: ceil(h*w / BM); block b covers image b / tiles
+__device__ __forceinline__ int tiles_per_image(int hw) { return (hw + BM - 1) / BM; }
 
 __device__ __forceinline__ void fill_ktab(int* ktab, int K, int div, int tid) {
   for (int k = tid; k < K; k += NT) {
@@ -191,7 +200,7 @@ __device__ __forceinline__ void fill_ktab(int* ktab, int K, int div, int tid) {
   }
 }
 
-// grid (n*h*w / BM, ceil(o / BN))
+// grid (n * ceil(h*w / BM), ceil(o / BN))
 __global__ void __launch_bounds__(NT) conv_fwd_kernel(Conv p) {
   __shared__ __align__(16) float As[BK * AS];
   __shared__ __align__(16) float Bs[BK * BN];
@@ -199,11 +208,11 @@ __global__ void __launch_bounds__(NT) conv_fwd_kernel(Conv p) {
   __shared__ int prow[BM], pcol[BM];
   const int tid = threadIdx.x, tm = tid / 8, tn = tid % 8;
   const int HW = p.h * p.w, cin = p.c1 + p.c2, K = 9 * cin;
-  const int64_t pix0 = (int64_t)blockIdx.x * BM;
-  const int img = (int)(pix0 / HW), rem = (int)(pix0 - (int64_t)img * HW);
+  const int tpi = tiles_per_image(HW);
+  const int img = blockIdx.x / tpi, rem = (blockIdx.x % tpi) * BM;
   const int g = img / (p.n / p.groups), nb = blockIdx.y * BN;
   fill_ktab(ktab, K, cin, tid);
-  fill_pixels(prow, pcol, rem, p.w, tid);
+  fill_pixels(prow, pcol, rem, p.w, HW, tid);
   __syncthreads();
 
   float acc[4][4] = {};
@@ -217,14 +226,16 @@ __global__ void __launch_bounds__(NT) conv_fwd_kernel(Conv p) {
   float s[4] = {}, q[4] = {};
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
-    const int64_t pix = pix0 + tm * 4 + i;
+    const int m = rem + tm * 4 + i;
+    const int64_t pix = (int64_t)img * HW + min(m, HW - 1);
+    const float live = m < HW ? 1.f : 0.f;  // a repeated pixel counts nothing
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const int n = nb + tn * 4 + j;
       if (n < p.o) {
         const bf16 v = f2bf(acc[i][j]);
         p.y[pix * p.o + n] = v;
-        const float f = bf2f(v);
+        const float f = bf2f(v) * live;
         s[j] += f;
         q[j] = fmaf(f, f, q[j]);
       }
@@ -238,21 +249,22 @@ __global__ void __launch_bounds__(NT) conv_fwd_kernel(Conv p) {
   }
 }
 
-// plain form (c2 == 0): grid (n*h*w / BM, ceil(c1 / BN));
-// fold form (c2 > 0, n == groups * n2): grid (n2*h*w / BM, ceil(cin / BN))
-__global__ void __launch_bounds__(NT) conv_dx_kernel(Conv p) {
+// plain form (c2 == 0): grid (n * ceil(h*w / BM), ceil(c1 / BN));
+// fold form (c2 > 0, n == groups * n2): grid (n2 * ceil(h*w / BM),
+// ceil(cin / BN))
+__global__ void __launch_bounds__(NT, 3) conv_dx_kernel(Conv p) {
   __shared__ __align__(16) float As[BK * AS];
   __shared__ __align__(16) float Bs[BK * BN];
   __shared__ int ktab[KMAX];
   __shared__ int prow[BM], pcol[BM];
   const int tid = threadIdx.x, tm = tid / 8, tn = tid % 8;
   const int HW = p.h * p.w, K = 9 * p.o, per = p.n / p.groups;
-  const int64_t pix0 = (int64_t)blockIdx.x * BM;
-  const int img0 = (int)(pix0 / HW), rem = (int)(pix0 - (int64_t)img0 * HW);
+  const int tpi = tiles_per_image(HW);
+  const int img0 = blockIdx.x / tpi, rem = (blockIdx.x % tpi) * BM;
   const int nb = blockIdx.y * BN;
   const bool fold = p.c2 > 0;
   fill_ktab(ktab, K, p.o, tid);
-  fill_pixels(prow, pcol, rem, p.w, tid);
+  fill_pixels(prow, pcol, rem, p.w, HW, tid);
   __syncthreads();
 
   float acc2[4][4] = {};  // fold: the x2 cotangent summed over the S images
@@ -270,7 +282,9 @@ __global__ void __launch_bounds__(NT) conv_dx_kernel(Conv p) {
     }
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-      const int64_t pix = (int64_t)img * HW + rem + tm * 4 + i;
+      const int m = rem + tm * 4 + i;
+      const int64_t pix = (int64_t)img * HW + min(m, HW - 1);
+      const float live = m < HW ? 1.f : 0.f;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int c = nb + tn * 4 + j;
@@ -281,8 +295,8 @@ __global__ void __launch_bounds__(NT) conv_dx_kernel(Conv p) {
             const float xv = bf2f(p.x1[pix * p.c1 + c]);
             const float da = __fadd_rn(__fmul_rn(xv, sc), sh) > 0.f ? d : 0.f;
             p.y[pix * p.c1 + c] = f2bf(__fmul_rn(da, sc));
-            s[j] = fmaf(da, xv, s[j]);
-            q[j] += da;
+            s[j] = fmaf(da * live, xv, s[j]);
+            q[j] += da * live;
           } else {
             p.y[pix * p.c1 + c] = f2bf(d);
           }
@@ -295,7 +309,7 @@ __global__ void __launch_bounds__(NT) conv_dx_kernel(Conv p) {
   if (fold) {
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-      const int64_t pix2 = pix0 + tm * 4 + i;
+      const int64_t pix2 = (int64_t)img0 * HW + min(rem + tm * 4 + i, HW - 1);
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int c = nb + tn * 4 + j;
@@ -385,7 +399,7 @@ inline bool small(int64_t v) { return v >= 0 && v <= 0x3fffffff; }
 int check(int64_t n, int64_t h, int64_t w, int64_t c1, int64_t c2, int64_t n2,
           int64_t o, int64_t groups) {
   if (n <= 0 || h < 3 || w < 3 || c1 <= 0 || c2 < 0 || o <= 0 || groups <= 0 ||
-      n % groups || (h * w) % BM || !small(h * w) || !small(n * h * w / BM) ||
+      n % groups || !small(h * w) || !small(n * ((h * w + BM - 1) / BM)) ||
       c1 + c2 > 0xffff)
     return (int)cudaErrorInvalidValue;
   if (c2 > 0 && (n2 <= 0 || n % n2)) return (int)cudaErrorInvalidValue;
@@ -415,7 +429,8 @@ extern "C" int mimo_conv3x3_fwd(const void* x1, const void* x2, const void* w,
   p.n2 = c2 > 0 ? (int)n2 : 1; p.o = (int)o; p.groups = (int)groups;
   p.prologue = prologue != 0;
   p.np = (int)((o + BN - 1) / BN * BN);
-  const dim3 grid((unsigned)(n * h * wd / BM), (unsigned)((o + BN - 1) / BN));
+  const dim3 grid((unsigned)(n * ((h * wd + BM - 1) / BM)),
+                  (unsigned)((o + BN - 1) / BN));
   conv_fwd_kernel<<<grid, NT, 0, (cudaStream_t)stream>>>(p);
   return (int)cudaGetLastError();
 }
@@ -444,7 +459,7 @@ extern "C" int mimo_conv3x3_dx(const void* g, const void* wt, const void* x1,
   p.prologue = prologue != 0;
   p.np = (int)((c1 + c2 + BN - 1) / BN * BN);
   const int64_t images = c2 > 0 ? n2 : n;
-  const dim3 grid((unsigned)(images * h * wd / BM),
+  const dim3 grid((unsigned)(images * ((h * wd + BM - 1) / BM)),
                   (unsigned)((c1 + c2 + BN - 1) / BN));
   conv_dx_kernel<<<grid, NT, 0, (cudaStream_t)stream>>>(p);
   return (int)cudaGetLastError();

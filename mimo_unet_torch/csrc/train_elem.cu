@@ -28,8 +28,9 @@
 // What bounds them on the H100: device-memory bytes.  Each element takes a
 // few flops against 2-6 bytes read and 2 written.  Design: the pure maps
 // are one grid-stride pass; the passes with channel reductions give each
-// block 256 pixels of one group (h*w is a multiple of 256 on every path
-// that calls them) and a 32 x 8 thread layout, channel x pixel lane, so a warp reads
+// block 256 pixels of one group (a group's last block takes what is left
+// when 256 does not divide its pixel count) and a 32 x 8 thread layout,
+// channel x pixel lane, so a warp reads
 // a pixel's channels contiguously and each thread keeps its channel's sums
 // in registers; the eight lanes then combine in shared memory in a fixed
 // order and the block writes one partial per channel.  No atomics: results
@@ -39,11 +40,26 @@
 namespace {
 
 constexpr int PB = 256;   // pixels per block of the reducing passes
-constexpr int CMAX = 64;  // channels a reducing pass takes (two per lane)
+constexpr int CMAX = 64;  // channels the 1x1 convs take (their shared tables)
 constexpr int OCMAX = 8;  // out-conv channels
 
 __device__ __forceinline__ float affine(float y, float s, float b) {
   return __fadd_rn(__fmul_rn(y, s), b);
+}
+
+// A reducing block's pixels: group g's block b of ceil(group_pixels / PB),
+// pixels [pix0, pix0 + count) of the flattened [n*hw] index.
+struct Span {
+  int g;
+  int64_t pix0;
+  int count;
+};
+
+__device__ __forceinline__ Span block_span(int64_t group_pixels) {
+  const int64_t per = (group_pixels + PB - 1) / PB;
+  const int g = (int)(blockIdx.x / per);
+  const int64_t local = (blockIdx.x - g * per) * PB;
+  return {g, g * group_pixels + local, (int)min((int64_t)PB, group_pixels - local)};
 }
 
 __global__ void g_eff_kernel(const bf16* __restrict__ dy, const bf16* __restrict__ y,
@@ -86,22 +102,22 @@ __device__ __forceinline__ float lane_sum(float* red, float v) {
   return s;
 }
 
-// block (32, 8): channel lane x pixel lane; grid n*hw / PB
+// block (32, 8): channel lane x pixel lane; grid groups * ceil(group pixels / PB)
 __global__ void __launch_bounds__(256) affine_relu_bwd_kernel(
     const bf16* __restrict__ dz, const bf16* __restrict__ y,
     const float* __restrict__ sc, const float* __restrict__ sh,
     bf16* __restrict__ dy, float* __restrict__ pdsc, float* __restrict__ pdsh,
     int64_t group_pixels, int c) {
   __shared__ float red[8 * 32];
-  const int64_t pix0 = (int64_t)blockIdx.x * PB;
-  const int g = (int)(pix0 / group_pixels);
+  const Span sp = block_span(group_pixels);
+  const int g = sp.g;
   for (int c0 = 0; c0 < c; c0 += 32) {
     const int ch = c0 + threadIdx.x;
     float s = 0.f, q = 0.f;
     if (ch < c) {
       const float scv = sc[g * c + ch], shv = sh[g * c + ch];
-      for (int pp = threadIdx.y; pp < PB; pp += 8) {
-        const int64_t e = (pix0 + pp) * c + ch;
+      for (int pp = threadIdx.y; pp < sp.count; pp += 8) {
+        const int64_t e = (sp.pix0 + pp) * c + ch;
         const float yv = bf2f(y[e]);
         const float da = affine(yv, scv, shv) > 0.f ? bf2f(dz[e]) : 0.f;
         dy[e] = f2bf(__fmul_rn(da, scv));
@@ -118,7 +134,7 @@ __global__ void __launch_bounds__(256) affine_relu_bwd_kernel(
   }
 }
 
-// one thread per pixel; block PB pixels of one group.  PRO: z is the
+// one thread per pixel; block up to PB pixels of one group.  PRO: z is the
 // affine + ReLU of y rounded to bf16 (K12); else z = y (K11).
 template <bool PRO>
 __global__ void __launch_bounds__(PB) conv1x1_kernel(
@@ -127,8 +143,8 @@ __global__ void __launch_bounds__(PB) conv1x1_kernel(
     const float* __restrict__ bo, bf16* __restrict__ out, int64_t group_pixels,
     int c, int oc) {
   __shared__ float s_sc[CMAX], s_sh[CMAX], s_wo[CMAX * OCMAX], s_bo[OCMAX];
-  const int64_t pix0 = (int64_t)blockIdx.x * PB;
-  const int g = (int)(pix0 / group_pixels);
+  const Span sp = block_span(group_pixels);
+  const int g = sp.g;
   if constexpr (PRO)
     for (int i = threadIdx.x; i < c; i += PB) {
       s_sc[i] = sc[g * c + i];
@@ -137,7 +153,8 @@ __global__ void __launch_bounds__(PB) conv1x1_kernel(
   for (int i = threadIdx.x; i < c * oc; i += PB) s_wo[i] = bf2f(wo[(int64_t)g * c * oc + i]);
   for (int i = threadIdx.x; i < oc; i += PB) s_bo[i] = bo[g * oc + i];
   __syncthreads();
-  const int64_t pix = pix0 + threadIdx.x;
+  if ((int)threadIdx.x >= sp.count) return;
+  const int64_t pix = sp.pix0 + threadIdx.x;
   float acc[OCMAX] = {};
   for (int ch = 0; ch < c; ++ch) {
     float z = bf2f(y[pix * c + ch]);
@@ -154,7 +171,8 @@ __global__ void __launch_bounds__(PB) conv1x1_kernel(
     if (k < oc) out[pix * oc + k] = f2bf(__fadd_rn(acc[k], s_bo[k]));
 }
 
-// block (32, 8): channel lane x pixel lane; grid n*hw / PB.  Partial row of
+// block (32, 8): channel lane x pixel lane; grid groups * ceil(group pixels
+// / PB).  Partial row of
 // a block: [dwo (c*oc), dbo (oc)] and with PRO [dscale (c), dshift (c)].
 template <bool PRO>
 __global__ void __launch_bounds__(256) conv1x1_bwd_kernel(
@@ -163,8 +181,8 @@ __global__ void __launch_bounds__(256) conv1x1_bwd_kernel(
     const bf16* __restrict__ wo, bf16* __restrict__ dy,
     float* __restrict__ partial, int64_t group_pixels, int c, int oc) {
   __shared__ float red[8 * 32];
-  const int64_t pix0 = (int64_t)blockIdx.x * PB;
-  const int g = (int)(pix0 / group_pixels);
+  const Span sp = block_span(group_pixels);
+  const int g = sp.g;
   const int L = c * oc + oc + (PRO ? 2 * c : 0);
   float* prow = partial + blockIdx.x * (int64_t)L;
   for (int c0 = 0; c0 < c; c0 += 32) {
@@ -179,8 +197,8 @@ __global__ void __launch_bounds__(256) conv1x1_bwd_kernel(
       }
       for (int k = 0; k < oc; ++k) w[k] = bf2f(wo[((int64_t)g * c + ch) * oc + k]);
     }
-    for (int pp = threadIdx.y; pp < PB; pp += 8) {
-      const int64_t pix = pix0 + pp;
+    for (int pp = threadIdx.y; pp < sp.count; pp += 8) {
+      const int64_t pix = sp.pix0 + pp;
       float gk[OCMAX];
 #pragma unroll
       for (int k = 0; k < OCMAX; ++k) gk[k] = k < oc ? bf2f(gout[pix * oc + k]) : 0.f;
@@ -250,6 +268,11 @@ __global__ void reduce_groups_kernel(const float* __restrict__ partial,
 
 int bad() { return (int)cudaErrorInvalidValue; }
 
+// blocks of a reducing pass: ceil(group pixels / PB) per group
+unsigned reducing_blocks(int64_t n, int64_t hw, int64_t groups) {
+  return (unsigned)(groups * ((n / groups * hw + PB - 1) / PB));
+}
+
 }  // namespace
 
 extern "C" int mimo_g_eff(const void* dy, const void* y, const void* dsum,
@@ -278,9 +301,8 @@ extern "C" int mimo_affine_relu_bwd(const void* dz, const void* y, const void* s
                                     const void* sh, void* dy, void* pdsc,
                                     void* pdsh, int64_t n, int64_t hw, int64_t c,
                                     int64_t groups, void* stream) {
-  if (n <= 0 || hw % PB || c <= 0 || c > CMAX || groups <= 0 || n % groups)
-    return bad();
-  affine_relu_bwd_kernel<<<(unsigned)(n * hw / PB), dim3(32, 8), 0,
+  if (n <= 0 || hw <= 0 || c <= 0 || groups <= 0 || n % groups) return bad();
+  affine_relu_bwd_kernel<<<reducing_blocks(n, hw, groups), dim3(32, 8), 0,
                            (cudaStream_t)stream>>>(
       (const bf16*)dz, (const bf16*)y, (const float*)sc, (const float*)sh,
       (bf16*)dy, (float*)pdsc, (float*)pdsh, n / groups * hw, (int)c);
@@ -290,7 +312,7 @@ extern "C" int mimo_affine_relu_bwd(const void* dz, const void* y, const void* s
 namespace {
 
 bool bad_1x1(int64_t n, int64_t hw, int64_t c, int64_t oc, int64_t groups) {
-  return n <= 0 || hw % PB || c <= 0 || c > CMAX || oc <= 0 || oc > OCMAX ||
+  return n <= 0 || hw <= 0 || c <= 0 || c > CMAX || oc <= 0 || oc > OCMAX ||
          groups <= 0 || n % groups;
 }
 
@@ -299,7 +321,8 @@ int conv1x1_launch(const void* y, const void* sc, const void* sh, const void* wo
                    const void* bo, void* out, int64_t n, int64_t hw, int64_t c,
                    int64_t oc, int64_t groups, void* stream) {
   if (bad_1x1(n, hw, c, oc, groups)) return bad();
-  conv1x1_kernel<PRO><<<(unsigned)(n * hw / PB), PB, 0, (cudaStream_t)stream>>>(
+  conv1x1_kernel<PRO><<<reducing_blocks(n, hw, groups), PB, 0,
+                       (cudaStream_t)stream>>>(
       (const bf16*)y, (const float*)sc, (const float*)sh, (const bf16*)wo,
       (const float*)bo, (bf16*)out, n / groups * hw, (int)c, (int)oc);
   return (int)cudaGetLastError();
@@ -311,7 +334,7 @@ int conv1x1_bwd_launch(const void* g, const void* y, const void* sc,
                        int64_t n, int64_t hw, int64_t c, int64_t oc,
                        int64_t groups, void* stream) {
   if (bad_1x1(n, hw, c, oc, groups)) return bad();
-  conv1x1_bwd_kernel<PRO><<<(unsigned)(n * hw / PB), dim3(32, 8), 0,
+  conv1x1_bwd_kernel<PRO><<<reducing_blocks(n, hw, groups), dim3(32, 8), 0,
                             (cudaStream_t)stream>>>(
       (const bf16*)g, (const bf16*)y, (const float*)sc, (const float*)sh,
       (const bf16*)wo, (bf16*)dy, (float*)partial, n / groups * hw, (int)c,

@@ -23,6 +23,14 @@ from mimo_unet_torch.kernels.fused_double_conv import (
     fused_double_conv9_plain,
     fused_double_conv_plain,
 )
+from mimo_unet_torch.kernels.pool2x2 import (
+    MaxPool2x2,
+    MaxPool2x2Skip,
+    max_pool2x2,
+    max_pool2x2_bwd,
+    max_pool2x2_bwd_plain,
+    max_pool2x2_plain,
+)
 from mimo_unet_torch.kernels.pool_w import pool_w, pool_w_plain
 from mimo_unet_torch.kernels.train_elem import (
     AffineRelu,
@@ -43,6 +51,13 @@ from mimo_unet_torch.kernels.train_elem import (
     g_eff,
     g_eff_plain,
 )
+from mimo_unet_torch.kernels.upsample2x import (
+    Upsample2x,
+    upsample2x,
+    upsample2x_bwd,
+    upsample2x_bwd_plain,
+    upsample2x_plain,
+)
 from mimo_unet_torch.kernels.upsample_w2x import upsample_w2x, upsample_w2x_plain
 
 EVAL_KERNELS = (fused_double_conv, fused_double_conv9, pool_w, upsample_w2x)
@@ -52,7 +67,10 @@ TRAIN_KERNELS = (conv3x3_fwd, conv3x3_dx, conv3x3_dx_fold, conv3x3_dw, g_eff,
 # K11: the out-conv of the dropout routes (MC-dropout eval: forward; train
 # with the elementwise final dropout: forward and backward)
 DROPOUT_KERNELS = (conv1x1, conv1x1_bwd)
-KERNELS = EVAL_KERNELS + TRAIN_KERNELS + DROPOUT_KERNELS
+# K10 and K13: the train route's 2x2 pools (in_conv -> down1, down1 ->
+# core) and the decoder's x2 upsample, forward and backward
+RESAMPLE_KERNELS = (max_pool2x2, max_pool2x2_bwd, upsample2x, upsample2x_bwd)
+KERNELS = EVAL_KERNELS + TRAIN_KERNELS + DROPOUT_KERNELS + RESAMPLE_KERNELS
 
 
 def reset_launch_counts() -> None:
@@ -72,7 +90,11 @@ __all__ = [
     "DROPOUT_KERNELS",
     "EVAL_KERNELS",
     "KERNELS",
+    "MaxPool2x2",
+    "MaxPool2x2Skip",
+    "RESAMPLE_KERNELS",
     "TRAIN_KERNELS",
+    "Upsample2x",
     "affine_relu",
     "affine_relu_bwd",
     "affine_relu_bwd_plain",
@@ -100,9 +122,17 @@ __all__ = [
     "g_eff",
     "g_eff_plain",
     "launch_counts",
+    "max_pool2x2",
+    "max_pool2x2_bwd",
+    "max_pool2x2_bwd_plain",
+    "max_pool2x2_plain",
     "pool_w",
     "pool_w_plain",
     "reset_launch_counts",
+    "upsample2x",
+    "upsample2x_bwd",
+    "upsample2x_bwd_plain",
+    "upsample2x_plain",
     "upsample_w2x",
     "upsample_w2x_plain",
 ]

@@ -70,6 +70,14 @@ _SIGNATURES = {
     "mimo_conv1x1_bwd": [_P] * 5 + [_I] * 5 + [_P],
     # partial, out, groups, p, l, stream
     "mimo_reduce_groups": [_P] * 2 + [_I] * 3 + [_P],
+    # x, y, n, h, w, c, stream
+    "mimo_pool2x2": [_P] * 2 + [_I] * 4 + [_P],
+    # g, x, y, g_skip (or null), gx, n, h, w, c, stream
+    "mimo_pool2x2_bwd": [_P] * 5 + [_I] * 4 + [_P],
+    # x, lo_w, w0, w1, lo_h, fa, fb, y, n, h2, w2, c, stream
+    "mimo_upsample2x": [_P] * 8 + [_I] * 4 + [_P],
+    # g, wh, ww, dx, n, h2, w2, c, stream
+    "mimo_upsample2x_bwd": [_P] * 4 + [_I] * 4 + [_P],
 }
 
 _lock = threading.Lock()

@@ -24,7 +24,8 @@ Layouts on the card (the CT layout, align8 padding and tile ladders are TPU
 constraints and are not ported): activations channels-last bf16
 ``[N, H, W, C]`` with the groups folded S-major into N (image n uses group
 n // (N / G)); weights HWIO per group ``[G, 3, 3, C_in, O]``; prologue
-scale/shift f32 ``[G, C_in]``.  The kernels take H*W a multiple of 128.
+scale/shift f32 ``[G, C_in]``.  The kernels take any H, W >= 3: an
+image's last 128-pixel tile may be partial.
 
 Rounding points (both versions): bf16 operands, f32 accumulation; z
 computed in f32 and rounded to bf16 (ct_train.py:151-156); y rounded to
@@ -89,10 +90,9 @@ def _check(x1, w, x2, scale, shift) -> Tuple[int, int, int]:
     return g, c1 + c2, o
 
 
-def _kernel_ok(x1: torch.Tensor) -> None:
-    n, h, w, _ = x1.shape
-    if (h * w) % BM:
-        raise ValueError(f"the conv kernels need H*W % {BM} == 0, got {h}x{w}")
+def _tiles(n: int, h: int, w: int) -> int:
+    """Blocks of the fwd and dx kernels: ceil(H*W / BM) per image."""
+    return n * -(-(h * w) // BM)
 
 
 def _ptr(t: Optional[torch.Tensor]):
@@ -209,15 +209,13 @@ def conv3x3_fwd(x1: torch.Tensor, w: torch.Tensor, *,
     groups, cin, o = _check(x1, w, x2, scale, shift)
     if x1.device.type == "cpu":
         return conv3x3_fwd_plain(x1, w, x2=x2, scale=scale, shift=shift)
-    _kernel_ok(x1)
     n, h, wd, c1 = x1.shape
     wk = _pad_to(w.reshape(groups, 9 * cin, o).to(BF16), _cols(o))
     sc, sh = _prologue_args(scale, shift)
     _build.require_cuda(*[t for t in (x1, x2, wk, sc, sh) if t is not None])
     _build.require_cuda(*[t for t in (x1, x2) if t is not None], dtype=BF16)
     y = torch.empty((n, h, wd, o), device=x1.device, dtype=BF16)
-    tiles = n * h * wd // BM
-    psum = torch.empty((tiles, o), device=x1.device, dtype=torch.float32)
+    psum = torch.empty((_tiles(n, h, wd), o), device=x1.device, dtype=torch.float32)
     psq = torch.empty_like(psum)
     _build.launch("mimo_conv3x3_fwd", x1.device, _ptr(x1), _ptr(x2), _ptr(wk),
                   _ptr(sc), _ptr(sh), _ptr(y), _ptr(psum), _ptr(psq), n, h,
@@ -250,7 +248,6 @@ def conv3x3_dx(g: torch.Tensor, w: torch.Tensor, *,
         raise ValueError("the prologue backward needs x1 [N, H, W, C]")
     if g.device.type == "cpu":
         return conv3x3_dx_plain(g, w, x1=x1, scale=scale, shift=shift)
-    _kernel_ok(g)
     n, h, wd, _ = g.shape
     wt = _wt(w)
     sc, sh = _prologue_args(scale, shift)
@@ -260,7 +257,7 @@ def conv3x3_dx(g: torch.Tensor, w: torch.Tensor, *,
     dx = torch.empty((n, h, wd, cin), device=g.device, dtype=BF16)
     pdsc = pdsh = None
     if sc is not None:
-        pdsc = torch.empty((n * h * wd // BM, cin), device=g.device,
+        pdsc = torch.empty((_tiles(n, h, wd), cin), device=g.device,
                            dtype=torch.float32)
         pdsh = torch.empty_like(pdsc)
     _build.launch("mimo_conv3x3_dx", g.device, _ptr(g), _ptr(wt), _ptr(xk),
@@ -286,7 +283,6 @@ def conv3x3_dx_fold(g: torch.Tensor, w: torch.Tensor, c1: int, n2: int):
                          f"N={n}, N2={n2}")
     if g.device.type == "cpu":
         return conv3x3_dx_fold_plain(g, w, c1, n2)
-    _kernel_ok(g)
     wt = _wt(w)
     _build.require_cuda(g, wt)
     _build.require_cuda(g, dtype=BF16)
@@ -313,7 +309,6 @@ def conv3x3_dw(g: torch.Tensor, x1: torch.Tensor, groups: int, *,
         raise ValueError("g and x1 differ in N, H, W")
     if g.device.type == "cpu":
         return conv3x3_dw_plain(g, x1, groups, x2=x2, scale=scale, shift=shift)
-    _kernel_ok(g)
     n, h, wd, _ = g.shape
     sc, sh = _prologue_args(scale, shift)
     _build.require_cuda(*[t for t in (g, x1, x2, sc, sh) if t is not None])

@@ -85,13 +85,16 @@ def _check_act(y: torch.Tensor, params, c: Optional[int] = None) -> int:
     return g
 
 
-def _reducing_ok(y: torch.Tensor) -> None:
-    """What the reducing kernels take: H*W a multiple of their 256-pixel
-    blocks, at most 64 channels."""
-    n, h, w, c = y.shape
-    if (h * w) % PB or c > 64:
-        raise ValueError(f"kernel needs H*W % {PB} == 0 and C <= 64, got "
-                         f"{tuple(y.shape)}")
+def _conv1x1_ok(y: torch.Tensor) -> None:
+    """What the 1x1 kernels take: at most 64 input channels."""
+    if y.shape[-1] > 64:
+        raise ValueError(f"the 1x1 kernels take C <= 64, got {tuple(y.shape)}")
+
+
+def _blocks(n: int, hw: int, groups: int) -> int:
+    """Blocks of a reducing pass: ceil(group pixels / PB) per group (a
+    group's last block takes what is left)."""
+    return groups * -(-(n // groups * hw) // PB)
 
 
 def _f32(*ts):
@@ -177,13 +180,12 @@ def affine_relu_bwd(dz: torch.Tensor, y: torch.Tensor, scale: torch.Tensor,
         raise ValueError("dz and y differ in shape")
     if y.device.type == "cpu":
         return affine_relu_bwd_plain(dz, y, scale, shift)
-    _reducing_ok(y)
     sc, sh = _f32(scale, shift)
     _build.require_cuda(dz, y, sc, sh)
     _build.require_cuda(dz, y, dtype=BF16)
     n, h, w, c = y.shape
     dy = torch.empty_like(y)
-    blocks = n * h * w // PB
+    blocks = _blocks(n, h * w, groups)
     pdsc = torch.empty((blocks, c), device=y.device, dtype=torch.float32)
     pdsh = torch.empty_like(pdsc)
     _build.launch("mimo_affine_relu_bwd", y.device, dz.data_ptr(), y.data_ptr(),
@@ -237,7 +239,7 @@ def conv1x1_prelu(y: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor,
     groups = _check_1x1(y, scale, shift, wo, bo)
     if y.device.type == "cpu":
         return conv1x1_prelu_plain(y, scale, shift, wo, bo)
-    _reducing_ok(y)
+    _conv1x1_ok(y)
     sc, sh, bof = _f32(scale, shift, bo)
     wob = wo.to(BF16).contiguous()
     _build.require_cuda(y, sc, sh, bof, wob)
@@ -275,7 +277,7 @@ def conv1x1_prelu_bwd(g: torch.Tensor, y: torch.Tensor, scale: torch.Tensor,
         raise ValueError(f"g must be [N, H, W, {wo.shape[2]}], got {tuple(g.shape)}")
     if y.device.type == "cpu":
         return conv1x1_prelu_bwd_plain(g, y, scale, shift, wo)
-    _reducing_ok(y)
+    _conv1x1_ok(y)
     sc, sh = _f32(scale, shift)
     wob = wo.to(BF16).contiguous()
     _build.require_cuda(g, y, sc, sh, wob)
@@ -283,9 +285,8 @@ def conv1x1_prelu_bwd(g: torch.Tensor, y: torch.Tensor, scale: torch.Tensor,
     n, h, w, c = y.shape
     oc = wo.shape[2]
     dy = torch.empty_like(y)
-    blocks = n * h * w // PB
-    partial = torch.empty((blocks, c * oc + oc + 2 * c), device=y.device,
-                          dtype=torch.float32)
+    partial = torch.empty((_blocks(n, h * w, groups), c * oc + oc + 2 * c),
+                          device=y.device, dtype=torch.float32)
     _build.launch("mimo_conv1x1_prelu_bwd", y.device, g.data_ptr(),
                   y.data_ptr(), sc.data_ptr(), sh.data_ptr(), wob.data_ptr(),
                   dy.data_ptr(), partial.data_ptr(), n, h * w, c, oc, groups)
@@ -345,7 +346,7 @@ def conv1x1(z: torch.Tensor, wo: torch.Tensor, bo: torch.Tensor) -> torch.Tensor
     groups = _check_z(z, wo, bo)
     if z.device.type == "cpu":
         return conv1x1_plain(z, wo, bo)
-    _reducing_ok(z)
+    _conv1x1_ok(z)
     bof = bo.float().contiguous()
     wob = wo.to(BF16).contiguous()
     _build.require_cuda(z, wob, bof)
@@ -385,15 +386,15 @@ def conv1x1_bwd(g: torch.Tensor, z: torch.Tensor, wo: torch.Tensor):
         raise ValueError(f"g must be [N, H, W, {wo.shape[2]}], got {tuple(g.shape)}")
     if z.device.type == "cpu":
         return conv1x1_bwd_plain(g, z, wo)
-    _reducing_ok(z)
+    _conv1x1_ok(z)
     wob = wo.to(BF16).contiguous()
     _build.require_cuda(g, z, wob)
     _build.require_cuda(g, z, dtype=BF16)
     n, h, w, c = z.shape
     oc = wo.shape[2]
     dz = torch.empty_like(z)
-    partial = torch.empty((n * h * w // PB, c * oc + oc), device=z.device,
-                          dtype=torch.float32)
+    partial = torch.empty((_blocks(n, h * w, groups), c * oc + oc),
+                          device=z.device, dtype=torch.float32)
     _build.launch("mimo_conv1x1_bwd", z.device, g.data_ptr(), z.data_ptr(),
                   wob.data_ptr(), dz.data_ptr(), partial.data_ptr(), n, h * w,
                   c, oc, groups)

@@ -41,30 +41,38 @@ Not ported for eval, being TPU-only: the NHWC down1 fallback for
 
 The train half (``train_path_supported`` / ``mimo_unet_apply_train``) is
 the counterpart of ``ct_train_path_supported`` / ``mimo_unet_apply_ct_train``
-(:866-1510) on the route where the half width is not a multiple of 128
-(640x480 NYUv2 frames): no pool or x2-upsample kernel runs there.
+(:866-1510) on its aligned route (``_ct_train_down1_aligned``, the
+``bpool`` encoder and the ``upsample2x_ct`` decoder), the port's one train
+route: the TPU's lane conditions are not ported, so 256x256 patches and
+640x480 NYUv2 frames take the same kernels.
 
   in_conv   conv3x3_fwd 3->F, then conv3x3_fwd F->F with bn1's affine as
             its prologue; BN affines from the kernels' sums; affine_relu
-            gives x1s, the skip and down1's input        [S*B, H, W, F]
-  down1     the plain Down module per subnetwork (cuDNN, train BN)
-  core      the plain modules, train mode               [B, H/2, W/2, FS]
-  decoder   plain x2 upsample (bf16 interpolation matrices) to channels-
-            last, conv3x3_fwd over [x1s, up] (x2 period B), conv3x3_fwd
-            with bn1's prologue, conv1x1_prelu: bn2 + ReLU + out-conv
-                                                        [S*B, H, W, C_out]
+            gives x1s; MaxPool2x2Skip (K10) pools it for down1, and the
+            decoder reads its identity output, so the skip's cotangent
+            joins the pool's backward (:1162-1179)     [S*B, H, W, F]
+  down1     conv3x3_fwd F->2F, conv3x3_fwd 2F->2F with bn1's prologue,
+            BN counts B*(H/2)*(W/2), affine_relu; MaxPool2x2Skip pools the
+            core boundary (:1180-1214)                 [S*B, H/2, W/2, 2F]
+  core      the plain modules, train mode, on the subnetwork channel
+            concat of the identity (up3's skip) and of the pooled tensor
+            (down2's input, ``Core.forward(x2_pooled=)``)
+                                                        [B, H/2, W/2, FS]
+  decoder   Upsample2x (K13) to channels-last, conv3x3_fwd over [x1s, up]
+            (x2 period B), conv3x3_fwd with bn1's prologue, conv1x1_prelu:
+            bn2 + ReLU + out-conv                     [S*B, H, W, C_out]
 
 Every conv is a ``Conv3x3Train`` (forward K5; backward g_eff K9, dx K6 in
 plain or fold form, dw K7).  BatchNorm running statistics update in place,
 from the raw conv output before any dropout site.
 
 Dropout (``_enc_train_local`` / ``_dec_train_local``, :1082-1380): the
-in_conv and up4 Dropout2d sites fold into a per-image BN affine,
+in_conv, down1 and up4 Dropout2d sites fold into a per-image BN affine,
 ``relu(y*sc + sh)*m == relu(y*(sc*m) + sh*m)`` for m >= 0, so affine_relu
 (K8) and conv1x1_prelu (K12, with wo and bo broadcast per image) run with
-one parameter row per image; down1 and the core run their sites in the
-plain modules; the elementwise final dropout takes affine_relu, the
-dropout, then the grouped 1x1 (K11) forward and backward.
+one parameter row per image; the core runs its sites in the plain
+modules; the elementwise final dropout takes affine_relu, the dropout,
+then the grouped 1x1 (K11) forward and backward.
 """
 
 from __future__ import annotations
@@ -78,6 +86,8 @@ from mimo_unet_torch.kernels import (
     Conv1x1,
     Conv1x1Prelu,
     Conv3x3Train,
+    MaxPool2x2Skip,
+    Upsample2x,
     conv1x1,
     fused_double_conv,
     fused_double_conv9,
@@ -86,7 +96,6 @@ from mimo_unet_torch.kernels import (
 )
 from mimo_unet_torch.models.blocks import DoubleConv
 from mimo_unet_torch.models.mimo_unet import MimoUNetConfig
-from mimo_unet_torch.ops import upsample_x2_nchw_to_nhwc
 from mimo_unet_torch.ops.dropout import (
     NO_DROPOUT,
     Drops,
@@ -247,12 +256,11 @@ def train_path_supported(cfg: MimoUNetConfig, x_shape: Tuple[int, ...],
     """True when the train kernel path applies (``ct_train_path_supported``,
     mimo_unet_tpu/models/fast_path.py:866-961, on what these kernels need):
     train mode, no MC dropout, bf16, bilinear, "auto" only for CUDA inputs,
-    H and W multiples of 16, channel counts the kernels take,
-    ``remat == "none"`` (not ported yet), and a half width that is not a
-    multiple of 128: the 640x480 route, on which the JAX package runs
-    neither its pool nor its x2-upsample kernel.  Every dropout site is
-    supported.  Other shapes (256x256 among them) take the plain
-    modules."""
+    H and W multiples of 16, channel counts the kernels take, and
+    ``remat == "none"`` (not ported yet).  Every dropout site is supported.
+    The TPU's lane conditions are not: 256x256 patches, 640x480 frames and
+    any other such shape take the same route (the kernels tile any pixel
+    count), and on it a kernel that cannot take its shape raises."""
     if cfg.ct_kernels == "off" or not training or mc_dropout:
         return False
     if cfg.ct_kernels == "auto" and torch.device(device).type != "cuda":
@@ -270,9 +278,7 @@ def train_path_supported(cfg: MimoUNetConfig, x_shape: Tuple[int, ...],
     if len(x_shape) != 5:
         return False
     h, w = x_shape[2], x_shape[3]
-    if not (h >= 16 and w >= 16 and h % 16 == 0 and w % 16 == 0):
-        return False
-    return (w // 2) % 128 != 0
+    return h >= 16 and w >= 16 and h % 16 == 0 and w % 16 == 0
 
 
 def _bn_affine_from_stats(s: torch.Tensor, q: torch.Tensor, count: int,
@@ -333,6 +339,45 @@ def _expand_groups(t: torch.Tensor, n: int) -> torch.Tensor:
     return t[:, None].expand(g, n // g, *t.shape[1:]).reshape(n, *t.shape[1:])
 
 
+def _group_concat(t: torch.Tensor, s: int) -> torch.Tensor:
+    """[S*B, H, W, C] S-major -> the subnetwork channel concat [B, S*C, H,
+    W] as an NCHW view of a channels-last tensor."""
+    n, h, w, c = t.shape
+    t = t.view(s, n // s, h, w, c).permute(1, 2, 3, 0, 4)
+    return t.reshape(n // s, h, w, s * c).permute(0, 3, 1, 2)
+
+
+def encoder_train(enc, xin: torch.Tensor, b: int, drops: Drops = NO_DROPOUT):
+    """in_conv and down1 on the kernels (``_enc_train_local(bpool=True)``,
+    mimo_unet_tpu/models/fast_path.py:1082-1214) for the S-major image
+    fold ``xin`` [S*B, H, W, C_in] bf16 of a batch of B: returns x1s
+    [S*B, H, W, F] (the decoder's skip) and down1's output pooled and
+    whole, x2p [S*B, H/4, W/4, 2F] and x2s [S*B, H/2, W/2, 2F]."""
+    n, h, w, _ = xin.shape
+    s = n // b
+    # per group: the whole batch normalizes each group
+    cnt_full, cnt_half = b * h * w, b * (h // 2) * (w // 2)
+    y1, sc1, sh1 = _conv_bn(xin, enc.in_convs, 0, cnt_full)
+    y2, sc2, sh2 = _conv_bn(y1, enc.in_convs, 1, cnt_full, prologue=(sc1, sh1))
+    m = _site_scale(drops, [f"encoder.{i}.in_conv" for i in range(s)])
+    if m is not None:
+        sc2, sh2 = _per_image_affine(sc2, sh2, m)
+    x1s = AffineRelu.apply(y2, sc2, sh2)
+    # the decoder reads the pool's identity output: the skip's cotangent
+    # joins the pool's in one backward pass
+    pooled, x1s = MaxPool2x2Skip.apply(x1s)  # [n, h/2, w/2, F]; [n, h, w, F]
+
+    # down1, BatchNorm over each group's half-res pixels
+    d1 = [d.conv for d in enc.down1s]
+    y3, sc3, sh3 = _conv_bn(pooled, d1, 0, cnt_half)
+    y4, sc4, sh4 = _conv_bn(y3, d1, 1, cnt_half, prologue=(sc3, sh3))
+    m = _site_scale(drops, [f"encoder.{i}.down1" for i in range(s)])
+    if m is not None:
+        sc4, sh4 = _per_image_affine(sc4, sh4, m)
+    x2p, x2s = MaxPool2x2Skip.apply(AffineRelu.apply(y4, sc4, sh4))
+    return x1s, x2p, x2s
+
+
 def mimo_unet_apply_train(model, x: torch.Tensor,
                           drops: Drops = NO_DROPOUT) -> torch.Tensor:
     """Train forward through the kernels (``mimo_unet_apply_ct_train``):
@@ -344,26 +389,18 @@ def mimo_unet_apply_train(model, x: torch.Tensor,
     enc, core, dec = model.encoder, model.core, model.decoder
     cnt_full = b * h * w  # per group: the whole batch normalizes each group
 
-    # ---- encoder in_conv (kernels), S-major fold
+    # ---- encoder (kernels), S-major fold
     xin = x.to(torch.bfloat16).transpose(0, 1).reshape(n, h, w, cin).contiguous()
-    y1, sc1, sh1 = _conv_bn(xin, enc.in_convs, 0, cnt_full)
-    y2, sc2, sh2 = _conv_bn(y1, enc.in_convs, 1, cnt_full, prologue=(sc1, sh1))
-    m = _site_scale(drops, [f"encoder.{i}.in_conv" for i in range(s)])
-    if m is not None:
-        sc2, sh2 = _per_image_affine(sc2, sh2, m)
-    x1s = AffineRelu.apply(y2, sc2, sh2)  # [n, h, w, F]: skip and down1 input
+    x1s, x2p, x2s = encoder_train(enc, xin, b, drops)
 
-    # ---- down1 (plain NHWC Down per subnetwork, fast_path.py:1215-1240)
-    x1n = x1s.permute(0, 3, 1, 2)
-    x2s = [d1(x1n[i * b:(i + 1) * b], drop=drops.get(f"encoder.{i}.down1"))
-           for i, d1 in enumerate(enc.down1s)]
+    # ---- shared core (plain modules, train mode) on the subnetwork
+    # channel concat, channels-last under an NCHW view: the identity is
+    # up3's skip, the pooled tensor down2's input
+    x_up = core(_group_concat(x2s, s), drops, x2_pooled=_group_concat(x2p, s))
 
-    # ---- shared core (plain modules, train mode)
-    x_up = core(torch.cat(x2s, dim=1), drops)
-
-    # ---- decoder: plain x2 upsample to channels-last (period B: image n
-    # reads upsampled image n % B), two kernel convs, the out-conv
-    up = upsample_x2_nchw_to_nhwc(x_up)
+    # ---- decoder: x2 upsample to channels-last (period B: image n reads
+    # upsampled image n % B), two kernel convs, the out-conv
+    up = Upsample2x.apply(x_up.permute(0, 2, 3, 1).contiguous())
     up4 = [u.conv for u in dec.up4s]
     y5, sc5, sh5 = _conv_bn(x1s, up4, 0, cnt_full, x2=up)
     y6, sc6, sh6 = _conv_bn(y5, up4, 1, cnt_full, prologue=(sc5, sh5))

@@ -196,10 +196,16 @@ class Core(nn.Module):
         x_up = self.up1(x5, x4, drops.get("core.up1"))
         return self.up2(x_up, x3, drops.get("core.up2"))
 
-    def forward(self, x2_concat: torch.Tensor, drops: Drops = NO_DROPOUT
-                ) -> torch.Tensor:
-        pooled, x2_concat = max_pool_2x2_skip(x2_concat)
-        return self.up3(self.mid(pooled, drops), x2_concat,
+    def forward(self, x2_concat: torch.Tensor, drops: Drops = NO_DROPOUT,
+                x2_pooled: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """``x2_pooled``: down2's input already pooled by the caller (the
+        train kernel route pools the core boundary with K10, the up3 skip
+        cotangent fused into its backward); ``x2_concat`` is then only
+        up3's skip (``core_apply(x2_pooled=)``,
+        mimo_unet_tpu/models/mimo_unet.py:292-325)."""
+        if x2_pooled is None:
+            x2_pooled, x2_concat = max_pool_2x2_skip(x2_concat)
+        return self.up3(self.mid(x2_pooled, drops), x2_concat,
                         drops.get("core.up3"))
 
 

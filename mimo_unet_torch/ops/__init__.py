@@ -6,7 +6,6 @@ from mimo_unet_torch.ops.pooling import max_pool_2x2, max_pool_2x2_skip
 from mimo_unet_torch.ops.resize import (
     pad_to_match,
     upsample_bilinear_x2_align_corners,
-    upsample_x2_nchw_to_nhwc,
 )
 
 __all__ = [
@@ -18,5 +17,4 @@ __all__ = [
     "max_pool_2x2_skip",
     "pad_to_match",
     "upsample_bilinear_x2_align_corners",
-    "upsample_x2_nchw_to_nhwc",
 ]

@@ -56,18 +56,6 @@ def upsample_bilinear_x2_align_corners(x: torch.Tensor) -> torch.Tensor:
     return torch.einsum("pw,ncow->ncop", mw, y)
 
 
-def upsample_x2_nchw_to_nhwc(x: torch.Tensor) -> torch.Tensor:
-    """The same upsample from NCHW [N, C, H, W] to a contiguous
-    channels-last [N, 2H, 2W, C]: the decoder's input on the train kernel
-    path (``mimo_unet_tpu/models/fast_path.py:270`` ``_upsample_ct_x2``,
-    the H pass then the W pass, each rounded to the activation dtype).
-    Differentiable through autograd: the backward is the same contraction
-    against the same matrices."""
-    mh, mw = _matrices(x)
-    y = torch.einsum("oh,nchw->nowc", mh, x)
-    return torch.einsum("pw,nowc->nopc", mw, y).contiguous()
-
-
 def pad_to_match(x: torch.Tensor, target_h: int, target_w: int) -> torch.Tensor:
     """Zero-pad NCHW spatial dims to (target_h, target_w), torch F.pad split
     (reference components.py:112-115)."""

@@ -15,8 +15,9 @@ S=2, B=2.
   input transform's permutations, which the packages draw differently,
   change nothing).
 * The train kernel route (``ct_kernels="force"``) with the MC recipe
-  against ``mimo_unet_apply_ct_train(interpret=True)`` at 32x128, by the
-  measures of tests/test_torch_train.py.
+  against ``mimo_unet_apply_ct_train(interpret=True)`` at 32x256, where
+  the JAX package takes its aligned route (the port's one train route),
+  by the measures of tests/test_torch_train.py.
 * MC-dropout eval through the kernel route against
   ``mimo_unet_apply_ct(mc_dropout=True, interpret=True)`` at 32x256 within
   3e-2 * max|ref| (the JAX package's own bound for its CT path).
@@ -56,7 +57,13 @@ from mimo_unet_torch.ops.dropout import DropoutSource, dropout, keep_scale
 from mimo_unet_torch.tasks.mimo import MimoUnetTask, TrainState
 
 from test_torch_slice import BASE, jax_weights, torch_model
-from test_torch_train import _cosines, _param_dict, _running_stats
+from test_torch_train import (
+    _cosines,
+    _param_dict,
+    _running_stats,
+    assert_jax_aligned_route,
+    refuse_plain_down1_and_up4,
+)
 from test_torch_train_kernels import (
     G, H, N, W, _bf16, _close, _ct, _nhwc, _np, _sums_close, _t,
     affine_relu_case, conv1x1_prelu_case,
@@ -196,7 +203,8 @@ def test_mc_train_kernel_route_matches_jax_kernels():
     cfg16, params, state = jax_weights(compute_dtype="bfloat16")
     cfg16 = dataclasses.replace(cfg16, **MC)
     cfg32 = dataclasses.replace(cfg16, compute_dtype=None)
-    shape = (2, 2, 32, 128, 3)
+    shape = (2, 2, 32, 256, 3)
+    assert_jax_aligned_route(shape)
     rng = np.random.default_rng(14)
     x = rng.uniform(0, 1, shape).astype(np.float32)
     y = rng.uniform(0, 1, shape[:4] + (2,)).astype(np.float32)
@@ -221,7 +229,8 @@ def test_mc_train_kernel_route_matches_jax_kernels():
     reset_launch_counts()
     model = torch_model(dict(BASE, compute_dtype="bfloat16", ct_kernels="force",
                              **MC), params, state).train()
-    masks = jax_masks(cfg16, key, 2, 32, 128)
+    refuse_plain_down1_and_up4(model)
+    masks = jax_masks(cfg16, key, 2, 32, 256)
     out = model(torch.from_numpy(x), dropout=DropoutSource(masks=masks))
     torch.mean((out - torch.from_numpy(y)) ** 2).backward()
     assert set(launch_counts().values()) == {0}  # CPU: no kernel launches

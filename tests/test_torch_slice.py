@@ -177,6 +177,8 @@ PORT_MODULES = [
     "mimo_unet_torch.kernels._build",
     "mimo_unet_torch.kernels.fused_double_conv",
     "mimo_unet_torch.kernels.pool_w",
+    "mimo_unet_torch.kernels.pool2x2",
+    "mimo_unet_torch.kernels.upsample2x",
     "mimo_unet_torch.kernels.upsample_w2x",
     "mimo_unet_torch.kernels.conv3x3_train",
     "mimo_unet_torch.kernels.train_elem",

@@ -2,10 +2,12 @@
 
 * The train kernel path (``ct_kernels="force"``: on the CPU every kernel
   wrapper runs its plain version) against ``mimo_unet_apply_ct_train`` with
-  the Pallas kernels in interpret mode, at (B, S, H, W) = (2, 2, 32, 128),
-  fbc 6: there ``(w // 2) % 128 != 0``, so the JAX package takes the route
-  of 640x480 frames (down1 as the plain Down block, no pool or x2-upsample
-  kernel), as in tests/test_ct_train.py:243-297.  Logits by mean abs error
+  the Pallas kernels in interpret mode, at (B, S, H, W) = (2, 2, 32, 256),
+  fbc 6: there the JAX package takes its aligned route (K10 pools at the
+  in_conv -> down1 and down1 -> core boundaries, down1 on the train conv
+  kernels, the K13 upsample), the counterpart of the port's one train
+  route; at 32x128 it would take the route of 640x480 frames (down1 as
+  the plain Down block), which the port no longer has.  Logits by mean abs error
   (see the test), BatchNorm state within 5e-3; bf16 gradients held by
   cosine against the f32 XLA gradients (ROADMAP C), no worse than the JAX
   package's own kernel path up to the slack test_ct_train.py:240-241 uses.
@@ -37,8 +39,13 @@ from mimo_unet_tpu.loss_buffer import (
     loss_buffer_add as jax_lb_add,
     loss_buffer_weights as jax_lb_weights,
 )
-from mimo_unet_tpu.models.fast_path import mimo_unet_apply_ct_train
+from mimo_unet_tpu.models.fast_path import (
+    _ct_train_down1_aligned,
+    mimo_unet_apply_ct_train,
+)
 from mimo_unet_tpu.models.mimo_unet import mimo_unet_apply
+from mimo_unet_tpu.ops.pallas.ct_elem import pool_skip_ct_supported
+from mimo_unet_tpu.ops.pallas.ct_resize import upsample2x_ct_supported
 from mimo_unet_tpu.tasks.mimo import MimoUnetTask as JaxTask, TrainState as JaxState
 from mimo_unet_tpu.train.optim import step_lr_schedule
 
@@ -57,7 +64,7 @@ from mimo_unet_torch.transforms import apply_input_transform
 
 from test_torch_slice import BASE, jax_weights, torch_model
 
-SHAPE = (2, 2, 32, 128, 3)  # B, S, H, W, C: the half width is 64
+SHAPE = (2, 2, 32, 256, 3)  # B, S, H, W, C: the JAX package's aligned route
 TASK = dict(in_channels=3, out_channels=2, num_subnetworks=2,
             filter_base_count=6, loss="laplace_nll")
 
@@ -89,10 +96,31 @@ def _cosines(ref, other):
     return np.array(out)
 
 
+def assert_jax_aligned_route(shape):
+    """The JAX package's train kernel path takes its aligned route at
+    ``shape`` for fbc 6, S=2: K10 at both pools, K13 in the decoder."""
+    b, s, h, w, _ = shape
+    assert _ct_train_down1_aligned(h, w)
+    assert pool_skip_ct_supported(8, s * b, h, w)             # align8(fbc)
+    assert pool_skip_ct_supported(16, s * b, h // 2, w // 2)  # align8(2 fbc)
+    assert upsample2x_ct_supported(16, b, h // 2, w // 2)     # align8(c_up)
+
+
+def refuse_plain_down1_and_up4(model):
+    """Make the encoder's plain down1 and the decoder's plain Up modules
+    raise if called: the train route runs kernels there."""
+    def refuse(*_, **__):
+        raise AssertionError("the train route reached a plain module")
+
+    for mod in list(model.encoder.down1s) + list(model.decoder.up4s):
+        mod.forward = refuse
+
+
 @pytest.fixture(scope="module")
 def slice_run():
     """One forward + backward of the JAX kernel path (interpret), the JAX
     f32 XLA path, and the port's kernel path, on the same weights."""
+    assert_jax_aligned_route(SHAPE)
     cfg16, params, state = jax_weights(compute_dtype="bfloat16")
     cfg32 = dataclasses.replace(cfg16, compute_dtype=None)
     rng = np.random.default_rng(11)
@@ -118,6 +146,7 @@ def slice_run():
     reset_launch_counts()
     model = torch_model(dict(BASE, compute_dtype="bfloat16",
                              ct_kernels="force"), params, state).train()
+    refuse_plain_down1_and_up4(model)
     out = model(torch.from_numpy(x))
     torch.mean((out - torch.from_numpy(y)) ** 2).backward()
     assert set(launch_counts().values()) == {0}  # CPU: no kernel launches
@@ -289,14 +318,17 @@ def test_input_transform_semantics():
 @pytest.mark.parametrize("kw,shape,want", [
     (dict(), SHAPE, True),
     (dict(), (2, 2, 480, 640, 3), True),           # NYUv2 frames
-    (dict(), (2, 2, 256, 256, 3), False),          # half width 128: plain
+    (dict(), (2, 2, 32, 128, 3), True),            # half width 64: same route
+    (dict(), (2, 2, 256, 256, 3), True),           # flagship patches: one route
     (dict(), (2, 2, 40, 128, 3), False),           # H % 16
+    (dict(), (2, 2, 48, 48, 3), True),             # partial kernel tiles
     (dict(ct_kernels="auto"), SHAPE, False),       # CPU: auto never takes it
     (dict(ct_kernels="off"), SHAPE, False),
     (dict(compute_dtype=None), SHAPE, False),      # bf16 only
     (dict(decoder_dropout_rate=0.1), SHAPE, True),   # dropout sites
     (dict(remat="enc"), SHAPE, False),
     (dict(filter_base_count=48), SHAPE, False),    # decoder C_in > 128
+    (dict(filter_base_count=40), SHAPE, True),     # down1's 2F = 80 <= 128
 ])
 def test_train_path_routing(kw, shape, want):
     cfg = MimoUNetConfig(**{**BASE, "compute_dtype": "bfloat16",
