@@ -37,7 +37,8 @@ Run from the root of the repository.  Phases, each raising on failure:
    and forward and backward at the 640x480 B=4 train site; affine_relu
    (K8) and conv1x1_prelu (K12), forward and backward, with per-image
    parameters (groups = N) at their 640x480 B=4 sites; each against its
-   plain version at phase 3's tolerance.
+   plain version at phase 3's tolerance; library calls ``torch.baddbmm``
+   and, for K11's backward, its autograd backward.
 8. MC serving: the flagship with the MC-dropout recipe (encoder, core and
    decoder Dropout2d at 0.1) in an ``Ensemble(monte_carlo_steps=4)``
    answers 8-image and 1-image ``predict`` requests (median latency); the
@@ -73,8 +74,25 @@ Run from the root of the repository.  Phases, each raising on failure:
    tolerance; then one B=3 48x48 step of the fbc-40 task on the kernel
    route (every train kernel and K10/K13 launched) with its loss and
    gradients against the plain and f32 models as in phase 9.
-13. Print the kernels' JSON line (K10/K13 launches from phase 11), then
-   the result line ``{"ok": true, "device": {...}}`` last.
+13. The x2-half train decoder (``MIMO_CT_TRAIN_X2_HALF=1``): K4b
+   (``upsample_w2x_bwd``) and K14 (``lerp_h2x_transpose``) at the up4
+   sites of the 256x256 B=64 and 640x480 B=4 steps, bitwise against
+   their plain versions, beside their bounds and the autograd backward
+   of ``F.interpolate`` (bilinear, align_corners) on the channels-last
+   tensor; K5 and K7 with ``x2_half_h`` at dec.c1 (640x480 B=4) against
+   their plain versions (phase 3's tolerance) and bitwise against their
+   full-res form fed K13's output; 3 steps at 256x256 B=64 and 3 at
+   640x480 B=16 whose counters must show 1 K4, 1 K4b, 1 K14, 0 K13 each
+   way and 2 K10 each way per step, and every train kernel; one B=16
+   256x256 step against the flag-off step on the same weights and inputs
+   (logits, loss, running statistics and the decoder's gradients
+   bitwise, every other gradient bitwise or no further from the flag-off
+   one than a second flag-off run is); a profile of one B=64 step; step
+   times and peak memory, flag on and off in turns, at 256x256 B=64 and
+   640x480 B=16.
+14. Print the kernels' JSON line (K10/K13 launches from phase 11, K4b and
+   K14 from phase 13), then the result line ``{"ok": true, "device":
+   {...}}`` last.
 
 Every time carries the card's name and power limit.  Exits non-zero,
 printing no result, without CUDA or outside the repo.
@@ -117,7 +135,10 @@ KERNEL_INFO = {
     "max_pool2x2_bwd": ("mimo_unet_torch/csrc/pool2x2.cu", _E + "ct_elem.py:336"),
     "upsample2x": ("mimo_unet_torch/csrc/upsample2x.cu", _E + "ct_resize.py:59"),
     "upsample2x_bwd": ("mimo_unet_torch/csrc/upsample2x.cu", _E + "ct_resize.py:124"),
+    "upsample_w2x_bwd": ("mimo_unet_torch/csrc/upsample_w2x.cu", _E + "ct_resize.py:254"),
+    "lerp_h2x_transpose": ("mimo_unet_torch/csrc/upsample2x.cu", _E + "ct_resize.py:295"),
 }
+X2_HALF = "MIMO_CT_TRAIN_X2_HALF"  # the x2-half train decoder's switch
 # the documented MC-dropout recipe (reference Readme.md:82)
 MC_RECIPE = dict(encoder_dropout_rate=0.1, core_dropout_rate=0.1,
                  decoder_dropout_rate=0.1)
@@ -464,6 +485,12 @@ def dropout_kernel_sites(dev, gen):
         return torch.baddbmm(bo.to(bf)[:, None, :], z.view(g, -1, z.shape[-1]),
                              wo.to(bf))
 
+    def baddbmm_backward(g, z, wo, bo):  # its autograd backward, z, wo and bo
+        args = [t.detach().requires_grad_() for t in (z, wo.to(bf), bo.to(bf))]
+        out = baddbmm(*args)
+        gl = g.view(out.shape)
+        return lambda: torch.autograd.grad(out, args, gl, retain_graph=True)
+
     n_mc = S * MC_B * MC_STEPS
     z = act(n_mc, HW, HW, F)
     wo, bo = out_conv(S)
@@ -485,7 +512,8 @@ def dropout_kernel_sites(dev, gen):
     sites.append(Site("conv1x1_bwd", f"final-dropout decoder 21->2, N={n} @640x480",
                       lambda: K.conv1x1_bwd(gt, zt, wo),
                       lambda: K.conv1x1_bwd_plain(gt, zt, wo),
-                      False, px * (4.0 * F * 2 + 2), 2 * elem + logits))
+                      False, px * (4.0 * F * 2 + 2), 2 * elem + logits,
+                      baddbmm_backward(gt, zt, wo, bo)))
 
     # per-image affine: the per-group BN affine times each image's
     # Dropout2d scale (0 or 1/keep)
@@ -960,7 +988,8 @@ def _profile_step(task, state, batch, card, label):
 
     names = ("conv_fwd_kernel", "conv_dx_kernel", "conv_dw_kernel",
              "g_eff_kernel", "affine_relu", "conv1x1", "reduce_groups",
-             "pool2x2_kernel", "pool2x2_bwd", "up2_fwd_kernel", "up2_bwd_kernel")
+             "pool2x2_kernel", "pool2x2_bwd", "up2_fwd_kernel", "up2_bwd_kernel",
+             "upsample_w2x_kernel", "upsample_w2x_bwd_kernel", "lerp_h2x_t_kernel")
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -1156,6 +1185,238 @@ def train_tail(dev, card):
         raise AssertionError(f"kernels not launched at 48x48 fbc 40: {missing}")
 
 
+def x2_half_sites(dev, gen):
+    """K4b and K14 at the x2-half decoder's up4 sites (models/fast_path.py
+    ``mimo_unet_apply_train`` with the flag): the cotangent of the W-half
+    upsampled core output [B, H/2, W, C_up] and of its full-res rows
+    [B, H, W, C_up], at 256x256 B=64 and 640x480 B=4.  Library: the
+    autograd backward of ``F.interpolate`` (bilinear, align_corners) to
+    the same size on the channels-last tensor: (H/2, W) from W/2 columns
+    for K4b, (H, W) from H/2 rows for K14."""
+    import torch
+    import torch.nn.functional as Fn
+    from mimo_unet_torch import kernels as K
+
+    bf = torch.bfloat16
+    c = F * S  # the core's output channels
+
+    def act(*shape):
+        return torch.randn(shape, device=dev, generator=gen).to(bf)
+
+    def nchw(t):
+        return t.permute(0, 3, 1, 2)
+
+    def interp_backward(x, g):
+        xl = nchw(x).detach().requires_grad_()
+        out = Fn.interpolate(xl, size=tuple(g.shape[1:3]), mode="bilinear",
+                             align_corners=True)
+        gl = nchw(g)
+        return lambda: torch.autograd.grad(out, xl, gl, retain_graph=True)
+
+    sites = []
+    for b, (h, w) in ((BIG_B, PATCH), (TB, NYU)):
+        tag = f"{h}x{w} B={b}"
+        gh, gw = act(b, h // 2, w, c), act(b, h, w, c)
+        half = _nbytes((gh.shape, 2))
+        sites.append(Site(
+            "upsample_w2x_bwd", f"up4 W-half cotangent {tag} [{b},{h // 2},{w},{c}]",
+            lambda gh=gh: K.upsample_w2x_bwd(gh), lambda gh=gh: K.upsample_w2x_bwd_plain(gh),
+            True, 5.0 * gh.numel(), 1.5 * half,
+            interp_backward(act(b, h // 2, w // 2, c), gh)))
+        sites.append(Site(
+            "lerp_h2x_transpose", f"up4 H-lerp cotangent {tag} [{b},{h},{w},{c}]",
+            lambda gw=gw: K.lerp_h2x_transpose(gw),
+            lambda gw=gw: K.lerp_h2x_transpose_plain(gw),
+            True, 5.0 * gw.numel(), 3.0 * half,
+            interp_backward(act(b, h // 2, w, c), gw)))
+    return sites
+
+
+def x2_half_conv_sites(dev, gen):
+    """K5 and K7 with ``x2_half_h`` at dec.c1 (640x480 B=4): against
+    their plain versions (phase 3's tolerance), and returns the bitwise
+    checks against the full-res form fed K13's output."""
+    import torch
+    from mimo_unet_torch import kernels as K
+
+    bf = torch.bfloat16
+    n, c_up = S * TB, F * S
+    mid = (F + c_up) // 2
+
+    def act(*shape, scale=1.0):
+        return (torch.randn(shape, device=dev, generator=gen) * scale).to(bf)
+
+    x1s = act(n, TH, TW, F)
+    xh = act(TB, TH // 2, TW // 2, c_up)
+    half, full = K.upsample_w2x(xh), K.upsample2x(xh)
+    w = ((torch.rand((S, 3, 3, F + c_up, mid), device=dev, generator=gen) * 2 - 1)
+         / (9 * (F + c_up)) ** 0.5).to(bf).float()
+    g = act(n, TH, TW, mid, scale=0.01)
+    px = n * TH * TW
+    flops = 2.0 * px * 9 * (F + c_up) * mid
+    in_bytes = _nbytes((x1s.shape, 2), (half.shape, 2))
+    y_bytes = _nbytes(((n, TH, TW, mid), 2))
+    w_bytes = _nbytes((w.shape, 2))
+    label = f"decoder conv1 (21+42)->31 x2_half_h @{TW}x{TH} B={TB}"
+    sites = [
+        Site("conv3x3_fwd", label,
+             lambda: K.conv3x3_fwd(x1s, w, x2=half, x2_half_h=True),
+             lambda: K.conv3x3_fwd_plain(x1s, w, x2=half, x2_half_h=True),
+             False, flops, in_bytes + w_bytes + y_bytes),
+        Site("conv3x3_dw", label,
+             lambda: K.conv3x3_dw(g, x1s, S, x2=half, x2_half_h=True),
+             lambda: K.conv3x3_dw_plain(g, x1s, S, x2=half, x2_half_h=True),
+             False, flops, in_bytes + y_bytes + _nbytes((w.shape, 4))),
+    ]
+    same = [("conv3x3_fwd", lambda: K.conv3x3_fwd(x1s, w, x2=half, x2_half_h=True),
+             lambda: K.conv3x3_fwd(x1s, w, x2=full)),
+            ("conv3x3_dw", lambda: K.conv3x3_dw(g, x1s, S, x2=half, x2_half_h=True),
+             lambda: K.conv3x3_dw(g, x1s, S, x2=full))]
+    return sites, same
+
+
+def _objective_run(task, state, dev, image_t, label_t):
+    """One forward + backward of the train objective on a copy of the
+    state's model: (logits, loss, gradients, running statistics, the
+    cotangent of the shared core's output)."""
+    import torch
+    from mimo_unet_torch.loss_buffer import loss_buffer_init
+
+    model = task.build_model(dev)
+    model.load_state_dict(state.model.state_dict())
+    model.train()
+    core_ct = []
+
+    def keep_cotangent(mod, args, out):
+        out.register_hook(lambda g: core_ct.append(g.clone()))
+
+    hook = model.core.register_forward_hook(keep_cotangent)
+    loss, _, _, p1, p2 = task.objective(model, image_t, label_t, None,
+                                        loss_buffer_init(S, task.loss_buffer_size, dev))
+    loss.backward()
+    hook.remove()
+    grads = {k: p.grad.detach().clone() for k, p in model.named_parameters()
+             if p.grad is not None}
+    stats = {k: v.detach().clone() for k, v in model.state_dict().items()
+             if k.endswith(("running_mean", "running_var"))}
+    return (torch.cat([p1, p2], dim=-1).detach(), loss.detach(), grads, stats,
+            core_ct[0])
+
+
+def _x2_half_bitwise(task, state, dev, card):
+    """One B=16 256x256 step's forward and backward, flag on against flag
+    off (twice), on the same weights and inputs: the logits, the loss, the
+    running statistics, the core output's cotangent and the decoder's
+    gradients bitwise; every other gradient bitwise or no further from
+    the flag-off one than the second flag-off run is."""
+    import torch
+    from mimo_unet_torch.tasks.mimo import device_normalize
+    from mimo_unet_torch.transforms import apply_input_transform
+
+    batch = device_normalize({k: v.to(dev) for k, v in _frames(
+        torch.Generator().manual_seed(11), TRAIN_B, PATCH).items()})
+    image_t, label_t, _ = apply_input_transform(
+        torch.Generator().manual_seed(12), batch["image"], batch["label"], None, S)
+    runs = {}
+    for name, flag in (("off", "0"), ("on", "1"), ("off again", "0")):
+        os.environ[X2_HALF] = flag
+        runs[name] = _objective_run(task, state, dev, image_t, label_t)
+    os.environ[X2_HALF] = "0"
+    (lo, loss_off, g_off, st_off, ct_off), (lh, loss_on, g_on, st_on, ct_on) = (
+        runs["off"], runs["on"])
+    g_off2 = runs["off again"][2]
+    if not torch.equal(ct_on, ct_off):
+        raise AssertionError(f"x2-half: the core output's cotangent differs, max abs "
+                             f"{float((ct_on - ct_off).abs().max())}")
+    if not (torch.equal(lh, lo) and torch.equal(loss_on, loss_off)):
+        raise AssertionError(f"x2-half logits or loss differ: max abs "
+                             f"{float((lh - lo).abs().max())}, loss {float(loss_on)} vs "
+                             f"{float(loss_off)}")
+    bad = [k for k in st_off if not torch.equal(st_on[k], st_off[k])]
+    if bad:
+        raise AssertionError(f"x2-half running statistics differ: {bad}")
+    if g_on.keys() != g_off.keys():
+        raise AssertionError("x2-half gradient leaves differ")
+    same, spread, far = [], [], []
+    for k in g_off:
+        if torch.equal(g_on[k], g_off[k]):
+            same.append(k)
+            continue
+        if k.startswith("decoder."):
+            far.append(k)
+            continue
+        d_on = float((g_on[k] - g_off[k]).abs().max())
+        d_off = float((g_off2[k] - g_off[k]).abs().max())
+        spread.append(f"{k} {d_on:.3e} (off runs {d_off:.3e})")
+        if d_on > d_off:
+            far.append(k)
+    print(f"x2-half step 256x256 B={TRAIN_B}: logits, loss {float(loss_on)}, running "
+          f"statistics bitwise; {len(same)} of {len(g_off)} gradient leaves bitwise "
+          f"({card})")
+    for line in spread:
+        print(f"  not bitwise: {line}")
+    if far:
+        raise AssertionError(f"x2-half gradients further from flag-off than the "
+                             f"flag-off runs' spread (or a decoder leaf): {far}")
+
+
+def train_x2_half(dev, card):
+    """Phase 13's steps; returns the launch counts of the 256x256 B=64
+    steps."""
+    import torch
+    from mimo_unet_torch import kernels as K
+
+    task = _train_task()
+    per_step = {"upsample_w2x": 1, "upsample_w2x_bwd": 1, "lerp_h2x_transpose": 1,
+                "upsample2x": 0, "upsample2x_bwd": 0, "max_pool2x2": 2,
+                "max_pool2x2_bwd": 2}
+    gen = torch.Generator().manual_seed(13)
+    states, counts = {}, {}
+    os.environ[X2_HALF] = "1"
+    for b, hw in ((BIG_B, PATCH), (TRAIN_B, NYU)):
+        state = task.init_state(-(-795 // b), dev)
+        batches = [_frames(gen, b, hw) for _ in range(3)]
+        torch.cuda.synchronize()
+        K.reset_launch_counts()
+        for batch in batches:
+            state, logs, _ = task.train_step(state, batch)
+            if not torch.isfinite(logs["train_loss"]):
+                raise AssertionError(f"x2-half {hw} step: non-finite loss")
+        torch.cuda.synchronize()
+        launches = K.launch_counts()
+        print(f"x2-half {hw[0]}x{hw[1]} B={b} 3 steps: launches {launches}")
+        missing = [k.__name__ for k in K.TRAIN_KERNELS if launches[k.__name__] <= 0]
+        wrong = {k: launches[k] for k, v in per_step.items() if launches[k] != 3 * v}
+        if missing or wrong:
+            raise AssertionError(f"x2-half {hw} launches: missing {missing}, counts "
+                                 f"{wrong} (want {per_step} per step)")
+        if not all(bool(torch.isfinite(p).all()) for p in state.model.parameters()):
+            raise AssertionError(f"non-finite parameters after 3 x2-half {hw} steps")
+        states[hw], counts[hw] = state, launches
+    # deterministic algorithms for the comparison: the plain core's
+    # backward (cuDNN, atomics) otherwise differs from run to run
+    torch.backends.cudnn.deterministic = True
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        _x2_half_bitwise(task, states[PATCH], dev, card)
+    finally:
+        torch.use_deterministic_algorithms(False)
+        torch.backends.cudnn.deterministic = False
+    torch.cuda.empty_cache()
+
+    os.environ[X2_HALF] = "1"
+    _profile_step(task, states[PATCH], _frames(gen, BIG_B, PATCH), card,
+                  f"x2-half 256x256 B={BIG_B}")
+    for b, hw in ((BIG_B, PATCH), (TRAIN_B, NYU)):
+        for flag in ("1", "0", "0", "1"):
+            os.environ[X2_HALF] = flag
+            _time_steps(task, states[hw], gen, b, 3, card,
+                        f"x2-half {'on' if flag == '1' else 'off'}", hw)
+        torch.cuda.empty_cache()
+    os.environ[X2_HALF] = "0"
+    return counts[PATCH]
+
+
 @contextlib.contextmanager
 def record_groups(names):
     """Record the groups argument (the last before the stream) of every
@@ -1272,6 +1533,7 @@ def main() -> int:
           flush=True)
 
     # ---- 3-12 ---------------------------------------------------------------
+    os.environ[X2_HALF] = "0"  # the default decoder until phase 13
     from mimo_unet_torch import kernels as K
 
     stats = check_kernels(
@@ -1297,13 +1559,28 @@ def main() -> int:
     patch = train_patch(dev, card)
     torch.cuda.empty_cache()
     train_tail(dev, card)
+    torch.cuda.empty_cache()
+
+    # ---- 13. the x2-half train decoder ---------------------------------------
+    stats.update(check_kernels(
+        x2_half_sites(dev, torch.Generator(device=dev).manual_seed(5)), card))
+    torch.cuda.empty_cache()
+    half_sites, same = x2_half_conv_sites(dev, torch.Generator(device=dev).manual_seed(6))
+    check_kernels(half_sites, card)  # times of these sites: printed, not summed
+    for name, half, full in same:
+        compare(f"{name} x2_half_h vs fed K13's output", half(), full(), True)
+        print(f"{name} x2_half_h: bitwise its full-res form fed K13's output")
+    del half_sites, same
+    torch.cuda.empty_cache()
+    halfed = train_x2_half(dev, card)
     launches = {k.__name__: served[k.__name__] for k in K.EVAL_KERNELS}
     launches.update({k.__name__: trained[k.__name__] for k in K.TRAIN_KERNELS})
     launches["conv1x1"] = served_mc["conv1x1"]
     launches["conv1x1_bwd"] = final["conv1x1_bwd"]
     launches.update({k.__name__: patch[k.__name__] for k in K.RESAMPLE_KERNELS})
+    launches.update({k.__name__: halfed[k.__name__] for k in K.X2_HALF_KERNELS})
 
-    # ---- 13. results -------------------------------------------------------
+    # ---- 14. results -------------------------------------------------------
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": KERNEL_INFO[k][0],
          "replaces": KERNEL_INFO[k][1], "launches": launches[k], **stats[k]}

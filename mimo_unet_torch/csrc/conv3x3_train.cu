@@ -4,7 +4,9 @@
 //     previous BatchNorm's affine as a prologue); y rounded to bf16, no
 //     bias; per-channel sum and sum of squares of the *rounded* y, per
 //     block (the wrapper reduces them per group).  Optional second concat
-//     input x2 whose image n is x2 image n % n2.
+//     input x2 whose image n is x2 image n % n2; with x2_half_h it arrives
+//     at half height, W-upsampled (upsample_w2x.cu), and the gather lerps
+//     its rows (below).
 //     Replaces mimo_unet_tpu/ops/pallas/ct_train.py:283 _conv_fwd
 //     (pallas_call :318), reached through conv3x3_ct_train :1099.
 //   * mimo_conv3x3_dx: dz = transpose of (reflect pad + conv) applied to g;
@@ -16,12 +18,19 @@
 //     _conv_dx_fold_call (:697).
 //   * mimo_conv3x3_dw: per-block partial dw over a chunk of one group's
 //     pixels, the recomputed z contracted with g (the wrapper reduces the
-//     chunks).  Replaces ct_train.py:815 _conv_dw (pallas_call :853).
+//     chunks), x2_half_h as in the forward.  Replaces ct_train.py:815
+//     _conv_dw (pallas_call :853).
 //
 // All three are implicit GEMMs with a gathered operand: the fwd is
 // [pixels x 9*Cin] . [9*Cin x O], the dx [pixels x 9*O] . [9*O x Cin] and
 // the dw [9*Cin x pixels] . [pixels x O].  The gather does the padding:
-//   * fwd and dw read x at reflect(i + dy - 1), reflect(j + dx - 1);
+//   * fwd and dw read x at reflect(i + dy - 1), reflect(j + dx - 1); with
+//     x2_half_h (ct_train.py:238 _x2_half_spec, :255 _stage_x2_half) the
+//     x2 value of full row r is bf16(a * fa[r] + b * fb[r]) from half rows
+//     a = lo[r] and b = lo[r] + 1, no FMA: the tables and the operation
+//     order of the x2 upsample's H lerp (upsample2x.cu), so y, its
+//     statistics and dw are bit for bit those of the full-res x2 that the
+//     upsample would have written;
 //   * dx reads g zero-padded at (a + 1 - dy, b + 1 - dx) plus the additive
 //     reflect folds (ct_train.py:26-31): pixel row 1 also takes g row 0
 //     through tap dy = 0 and row H-2 takes g row H-1 through dy = 2 (the
@@ -53,7 +62,9 @@ constexpr int BN = 32;       // GEMM tile columns
 constexpr int BK = 32;       // reduction depth per step
 constexpr int NT = 256;      // threads per block: 32 row groups x 8 column groups
 constexpr int AS = BM + 4;   // row stride of the A tile (16-byte aligned)
-constexpr int KMAX = 1152;   // 9 x 128: the longest gathered dimension
+// the longest gathered dimension, 9 x 256 channels; the gather's (tap,
+// channel) table ktab is dynamic shared memory of the launch's K ints
+constexpr int KMAX = 2304;
 
 __device__ __forceinline__ int reflect(int i, int n) {
   return i < 0 ? -i : (i >= n ? 2 * n - 2 - i : i);
@@ -99,7 +110,7 @@ __device__ __forceinline__ float column_sum(float* red, const float v[4],
 
 struct Conv {
   const bf16* x1;   // [n, h, w, c1]
-  const bf16* x2;   // [n2, h, w, c2] or null
+  const bf16* x2;   // [n2, h, w, c2] ([n2, h/2, w, c2] with x2_half_h) or null
   const bf16* wgt;  // fwd: [G, 9*cin, np]; dx: [G, 9*o, np]
   const bf16* g;    // [n, h, w, o] (dx, dw)
   const float* sc;  // [G, c1] prologue scale, or null
@@ -111,16 +122,34 @@ struct Conv {
   int n, h, w, c1, c2, n2, o, groups, prologue, np, chunk, chunks;
 };
 
+// x2_half_h's row tables, a kernel argument of their own: Conv stays at 128
+// bytes (at 160, with these in it, the fwd, dx and dw kernels all ran 4-10 %
+// slower: NVIDIA H100 80GB HBM3, 700 W)
+struct Lerp {
+  const int* lo;    // [h] first half row of full row r
+  const float* fa;  // [h] its weights 1 - f and f
+  const float* fb;
+};
+
 // One element of the fwd/dw gather: z at reflect(i+dy-1), reflect(j+dx-1),
-// channel c of the concat [x1, x2] of image img, group g.
-__device__ __forceinline__ float gather_z(const Conv& p, int img, int g, int i,
-                                          int j, int t, int c) {
+// channel c of the concat [x1, x2] of image img, group g.  X2H (a template
+// flag, so that the full-res instantiation carries no lerp code): x2 at
+// half height, its rows lerped.
+template <bool X2H>
+__device__ __forceinline__ float gather_z(const Conv& p, const Lerp& l, int img,
+                                          int g, int i, int j, int t, int c) {
   const int dy = t / 3, dx = t - 3 * dy;
-  const int64_t pix = ((int64_t)img * p.h + reflect(i + dy - 1, p.h)) * p.w +
-                      reflect(j + dx - 1, p.w);
+  const int r = reflect(i + dy - 1, p.h), s = reflect(j + dx - 1, p.w);
+  const int64_t pix = ((int64_t)img * p.h + r) * p.w + s;
   if (c < p.c1) {
     const float v = bf2f(p.x1[pix * p.c1 + c]);
     return p.prologue ? prologue_z(v, p.sc[g * p.c1 + c], p.sh[g * p.c1 + c]) : v;
+  }
+  if constexpr (X2H) {  // the H lerp of full row r from half rows lo[r], lo[r] + 1
+    const int64_t a =
+        (((int64_t)(img % p.n2) * (p.h / 2) + l.lo[r]) * p.w + s) * p.c2 + c - p.c1;
+    const float va = bf2f(p.x2[a]), vb = bf2f(p.x2[a + (int64_t)p.w * p.c2]);
+    return bf2f(f2bf(__fadd_rn(__fmul_rn(va, l.fa[r]), __fmul_rn(vb, l.fb[r]))));
   }
   const int64_t pix2 = pix + (int64_t)(img % p.n2 - img) * p.h * p.w;
   return bf2f(p.x2[pix2 * p.c2 + c - p.c1]);
@@ -153,8 +182,9 @@ __device__ __forceinline__ float gather_g(const Conv& p, int img, int a, int b,
 // A tile (BM output pixels x BK gathered columns) of the fwd or dx GEMM for
 // the block's pixels (rows prow, columns pcol of image img); B tile from the
 // packed weights [G, K, np].
-template <bool DX>
-__device__ __forceinline__ void load_tiles(const Conv& p, int img, int g, int k0,
+template <bool DX, bool X2H = false>
+__device__ __forceinline__ void load_tiles(const Conv& p, const Lerp& l, int img,
+                                           int g, int k0,
                                            int K, int nb, const int* ktab,
                                            const int* prow, const int* pcol,
                                            float* As, float* Bs, int tid) {
@@ -165,7 +195,7 @@ __device__ __forceinline__ void load_tiles(const Conv& p, int img, int g, int k0
     if (k < K) {
       const int code = ktab[k], t = code >> 16, c = code & 0xffff;
       v = DX ? gather_g(p, img, prow[mm], pcol[mm], t, c)
-             : gather_z(p, img, g, prow[mm], pcol[mm], t, c);
+             : gather_z<X2H>(p, l, img, g, prow[mm], pcol[mm], t, c);
     }
     As[kk * AS + mm] = v;
   }
@@ -201,10 +231,11 @@ __device__ __forceinline__ void fill_ktab(int* ktab, int K, int div, int tid) {
 }
 
 // grid (n * ceil(h*w / BM), ceil(o / BN))
-__global__ void __launch_bounds__(NT) conv_fwd_kernel(Conv p) {
+template <bool X2H>
+__global__ void __launch_bounds__(NT) conv_fwd_kernel(Conv p, Lerp l) {
   __shared__ __align__(16) float As[BK * AS];
   __shared__ __align__(16) float Bs[BK * BN];
-  __shared__ int ktab[KMAX];
+  extern __shared__ int ktab[];  // [K]: dynamic, sized at launch
   __shared__ int prow[BM], pcol[BM];
   const int tid = threadIdx.x, tm = tid / 8, tn = tid % 8;
   const int HW = p.h * p.w, cin = p.c1 + p.c2, K = 9 * cin;
@@ -217,7 +248,7 @@ __global__ void __launch_bounds__(NT) conv_fwd_kernel(Conv p) {
 
   float acc[4][4] = {};
   for (int k0 = 0; k0 < K; k0 += BK) {
-    load_tiles<false>(p, img, g, k0, K, nb, ktab, prow, pcol, As, Bs, tid);
+    load_tiles<false, X2H>(p, l, img, g, k0, K, nb, ktab, prow, pcol, As, Bs, tid);
     __syncthreads();
     tile_fma(As, Bs, tm, tn, acc);
     __syncthreads();
@@ -255,7 +286,7 @@ __global__ void __launch_bounds__(NT) conv_fwd_kernel(Conv p) {
 __global__ void __launch_bounds__(NT, 3) conv_dx_kernel(Conv p) {
   __shared__ __align__(16) float As[BK * AS];
   __shared__ __align__(16) float Bs[BK * BN];
-  __shared__ int ktab[KMAX];
+  extern __shared__ int ktab[];  // [K]: dynamic, sized at launch
   __shared__ int prow[BM], pcol[BM];
   const int tid = threadIdx.x, tm = tid / 8, tn = tid % 8;
   const int HW = p.h * p.w, K = 9 * p.o, per = p.n / p.groups;
@@ -275,7 +306,7 @@ __global__ void __launch_bounds__(NT, 3) conv_dx_kernel(Conv p) {
     const int g = img / per;
     float acc[4][4] = {};
     for (int k0 = 0; k0 < K; k0 += BK) {
-      load_tiles<true>(p, img, g, k0, K, nb, ktab, prow, pcol, As, Bs, tid);
+      load_tiles<true>(p, Lerp{}, img, g, k0, K, nb, ktab, prow, pcol, As, Bs, tid);
       __syncthreads();
       tile_fma(As, Bs, tm, tn, acc);
       __syncthreads();
@@ -330,10 +361,11 @@ __global__ void __launch_bounds__(NT, 3) conv_dx_kernel(Conv p) {
 
 // grid (chunks, ceil(9*cin / BM) * ceil(o / BN), groups): block (chunk, tile,
 // g) sums its chunk of group g's pixels into p0[g][chunk][9*cin][o]
-__global__ void __launch_bounds__(NT) conv_dw_kernel(Conv p) {
+template <bool X2H>
+__global__ void __launch_bounds__(NT) conv_dw_kernel(Conv p, Lerp l) {
   __shared__ __align__(16) float As[BK * AS];
   __shared__ __align__(16) float Bs[BK * BN];
-  __shared__ int ktab[KMAX];
+  extern __shared__ int ktab[];  // [K]: dynamic, sized at launch
   __shared__ int pimg[BK], prow[BK], pcol[BK];
   const int tid = threadIdx.x, tm = tid / 8, tn = tid % 8;
   const int cin = p.c1 + p.c2, M = 9 * cin, HW = p.h * p.w;
@@ -367,7 +399,8 @@ __global__ void __launch_bounds__(NT) conv_dw_kernel(Conv p) {
       float v = 0.f;
       if (m < M && pimg[kk] >= 0) {
         const int code = ktab[m];
-        v = gather_z(p, pimg[kk], g, prow[kk], pcol[kk], code >> 16, code & 0xffff);
+        v = gather_z<X2H>(p, l, pimg[kk], g, prow[kk], pcol[kk], code >> 16,
+                          code & 0xffff);
       }
       As[kk * AS + mm] = v;
     }
@@ -406,16 +439,32 @@ int check(int64_t n, int64_t h, int64_t w, int64_t c1, int64_t c2, int64_t n2,
   return 0;
 }
 
+// x2_half_h needs x2, no prologue, an even h >= 4 and the lerp tables
+bool bad_half(int64_t x2h, int64_t c2, int64_t h, int64_t prologue,
+              const void* lo_h, const void* fa, const void* fb) {
+  return x2h && (c2 <= 0 || prologue || h % 2 || h < 4 || !lo_h || !fa || !fb);
+}
+
+// dynamic shared memory of the ktab of a 9 x ``c`` gathered dimension
+size_t ktab_bytes(int64_t c) { return (size_t)(9 * c) * sizeof(int); }
+
+Lerp lerp_tables(const void* lo_h, const void* fa, const void* fb) {
+  return Lerp{(const int*)lo_h, (const float*)fa, (const float*)fb};
+}
+
 }  // namespace
 
 extern "C" int mimo_conv3x3_fwd(const void* x1, const void* x2, const void* w,
-                                const void* sc, const void* sh, void* y,
+                                const void* sc, const void* sh, const void* lo_h,
+                                const void* fa, const void* fb, void* y,
                                 void* psum, void* psq, int64_t n, int64_t h,
                                 int64_t wd, int64_t c1, int64_t c2, int64_t n2,
                                 int64_t o, int64_t groups, int64_t prologue,
-                                void* stream) {
+                                int64_t x2_half_h, void* stream) {
   if (int e = check(n, h, wd, c1, c2, n2, o, groups)) return e;
-  if (9 * (c1 + c2) > KMAX || (prologue && c2 > 0)) return (int)cudaErrorInvalidValue;
+  if (9 * (c1 + c2) > KMAX || (prologue && c2 > 0) ||
+      bad_half(x2_half_h, c2, h, prologue, lo_h, fa, fb))
+    return (int)cudaErrorInvalidValue;
   Conv p = {};
   p.x1 = (const bf16*)x1;
   p.x2 = (const bf16*)x2;
@@ -431,7 +480,11 @@ extern "C" int mimo_conv3x3_fwd(const void* x1, const void* x2, const void* w,
   p.np = (int)((o + BN - 1) / BN * BN);
   const dim3 grid((unsigned)(n * ((h * wd + BM - 1) / BM)),
                   (unsigned)((o + BN - 1) / BN));
-  conv_fwd_kernel<<<grid, NT, 0, (cudaStream_t)stream>>>(p);
+  const Lerp l = lerp_tables(lo_h, fa, fb);
+  if (x2_half_h)
+    conv_fwd_kernel<true><<<grid, NT, ktab_bytes(c1 + c2), (cudaStream_t)stream>>>(p, l);
+  else
+    conv_fwd_kernel<false><<<grid, NT, ktab_bytes(c1 + c2), (cudaStream_t)stream>>>(p, l);
   return (int)cudaGetLastError();
 }
 
@@ -461,18 +514,20 @@ extern "C" int mimo_conv3x3_dx(const void* g, const void* wt, const void* x1,
   const int64_t images = c2 > 0 ? n2 : n;
   const dim3 grid((unsigned)(images * ((h * wd + BM - 1) / BM)),
                   (unsigned)((c1 + c2 + BN - 1) / BN));
-  conv_dx_kernel<<<grid, NT, 0, (cudaStream_t)stream>>>(p);
+  conv_dx_kernel<<<grid, NT, ktab_bytes(o), (cudaStream_t)stream>>>(p);
   return (int)cudaGetLastError();
 }
 
 extern "C" int mimo_conv3x3_dw(const void* x1, const void* x2, const void* g,
-                               const void* sc, const void* sh, void* partial,
+                               const void* sc, const void* sh, const void* lo_h,
+                               const void* fa, const void* fb, void* partial,
                                int64_t n, int64_t h, int64_t wd, int64_t c1,
                                int64_t c2, int64_t n2, int64_t o,
-                               int64_t groups, int64_t prologue, int64_t chunk,
-                               void* stream) {
+                               int64_t groups, int64_t prologue,
+                               int64_t x2_half_h, int64_t chunk, void* stream) {
   if (int e = check(n, h, wd, c1, c2, n2, o, groups)) return e;
-  if (9 * (c1 + c2) > KMAX || (prologue && c2 > 0) || chunk <= 0 || !small(chunk))
+  if (9 * (c1 + c2) > KMAX || (prologue && c2 > 0) || chunk <= 0 || !small(chunk) ||
+      bad_half(x2_half_h, c2, h, prologue, lo_h, fa, fb))
     return (int)cudaErrorInvalidValue;
   const int64_t gsize = n / groups * h * wd;
   const int64_t chunks = (gsize + chunk - 1) / chunk;
@@ -492,6 +547,10 @@ extern "C" int mimo_conv3x3_dw(const void* x1, const void* x2, const void* g,
   if (chunks > 0x7fffffff || tiles > 65535 || groups > 65535)
     return (int)cudaErrorInvalidValue;
   const dim3 grid((unsigned)chunks, (unsigned)tiles, (unsigned)groups);
-  conv_dw_kernel<<<grid, NT, 0, (cudaStream_t)stream>>>(p);
+  const Lerp l = lerp_tables(lo_h, fa, fb);
+  if (x2_half_h)
+    conv_dw_kernel<true><<<grid, NT, ktab_bytes(c1 + c2), (cudaStream_t)stream>>>(p, l);
+  else
+    conv_dw_kernel<false><<<grid, NT, ktab_bytes(c1 + c2), (cudaStream_t)stream>>>(p, l);
   return (int)cudaGetLastError();
 }

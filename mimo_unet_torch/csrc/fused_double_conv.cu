@@ -14,8 +14,11 @@
 //     image n % n2: the S-major fold n = s*B + b shares the decoder's
 //     upsampled core output across subnetworks);
 //   * x2_half_h: x2 arrives at half height after the W half of the bilinear
-//     x2 upsample; the align-corners H lerp runs here from integer
-//     arithmetic, in f32, rounded to bf16 (ct_conv.py:215-231);
+//     x2 upsample; the align-corners H lerp runs here in f32, rounded to
+//     bf16 (ct_conv.py:215-231), with the row tables of the x2 upsample
+//     (kernels/upsample2x.py _h_tables: lo and f, the reference's
+//     division by H-1 as the multiply by its f32 reciprocal that XLA
+//     compiles it to);
 //   * wo/bo: the fused 1x1 out-conv, logits rounded to bf16
 //     (ct_conv.py:294-299);
 //   * hpool: the row-pair max of the output (emit_hpool), the H half of the
@@ -70,6 +73,8 @@ struct Params {
   const float* bo;  // [G, oc]
   bf16* out;
   bf16* hpool;      // null unless emitted
+  const int* lo_h;  // x2_half_h: [h] first half row of full row r
+  const float* fb;  // x2_half_h: [h] its lerp weight f
   int n, h, w, c1, c2, n2, x2_half_h, m, o, oc, groups, group_rows_out;
   int mp, op;       // m, o rounded up to CB
   int region_a;     // bytes of the slab / output-tile region
@@ -165,11 +170,8 @@ __global__ void __launch_bounds__(NT) fused_double_conv_kernel(Params p) {
       // align-corners H lerp from the half-height rows (ct_conv.py:215-231)
       const int H2 = H / 2;
       if (tid < sh) {
-        const int r = sr0 + tid;
-        const int num = r * (H2 - 1);
-        const int lo = min(num / (H - 1), H2 - 2);
-        lerp_lo[tid] = lo;
-        lerp_f[tid] = (float)(num - lo * (H - 1)) / (float)(H - 1);
+        lerp_lo[tid] = p.lo_h[sr0 + tid];
+        lerp_f[tid] = p.fb[sr0 + tid];
       }
       __syncthreads();
       const bf16* x2i = p.x2 + (int64_t)img2 * H2 * W * c2;
@@ -329,7 +331,8 @@ inline bool fits_int(int64_t v) { return v >= 0 && v <= 0x3fffffff; }
 extern "C" int mimo_fused_double_conv(
     const void* x1, const void* x2, const void* w1, const void* s1,
     const void* sh1, const void* w2, const void* s2, const void* sh2,
-    const void* wo, const void* bo, void* out, void* hpool, int64_t n,
+    const void* wo, const void* bo, void* out, void* hpool, const void* lo_h,
+    const void* fb, int64_t n,
     int64_t h, int64_t w, int64_t c1, int64_t c2, int64_t n2,
     int64_t x2_half_h, int64_t m, int64_t o, int64_t oc, int64_t groups,
     int64_t group_rows_out, int64_t fixed_cin, void* stream) {
@@ -340,7 +343,8 @@ extern "C" int mimo_fused_double_conv(
   if (!fits_int(h) || !fits_int(w) || !fits_int(c1 + c2) || !fits_int(m) ||
       !fits_int(o) || !fits_int(oc))
     return (int)bad;
-  if (c2 > 0 && (n2 <= 0 || n % n2 || (x2_half_h && (h % 2 || h < 4))))
+  if (c2 > 0 && (n2 <= 0 || n % n2 ||
+                 (x2_half_h && (h % 2 || h < 4 || !lo_h || !fb))))
     return (int)bad;
   if (hpool != nullptr && (h % 2 || wo != nullptr)) return (int)bad;
   if (wo != nullptr && (oc <= 0 || group_rows_out)) return (int)bad;
@@ -360,6 +364,8 @@ extern "C" int mimo_fused_double_conv(
   p.bo = (const float*)bo;
   p.out = (bf16*)out;
   p.hpool = (bf16*)hpool;
+  p.lo_h = (const int*)lo_h;
+  p.fb = (const float*)fb;
   p.n = (int)n;
   p.h = (int)h;
   p.w = (int)w;

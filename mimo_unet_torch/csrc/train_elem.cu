@@ -40,7 +40,7 @@
 namespace {
 
 constexpr int PB = 256;   // pixels per block of the reducing passes
-constexpr int CMAX = 64;  // channels the 1x1 convs take (their shared tables)
+constexpr int CMAX = 128;  // channels the 1x1 convs take (their shared tables)
 constexpr int OCMAX = 8;  // out-conv channels
 
 __device__ __forceinline__ float affine(float y, float s, float b) {

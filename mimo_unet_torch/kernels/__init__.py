@@ -53,12 +53,20 @@ from mimo_unet_torch.kernels.train_elem import (
 )
 from mimo_unet_torch.kernels.upsample2x import (
     Upsample2x,
+    lerp_h2x_transpose,
+    lerp_h2x_transpose_plain,
     upsample2x,
     upsample2x_bwd,
     upsample2x_bwd_plain,
     upsample2x_plain,
 )
-from mimo_unet_torch.kernels.upsample_w2x import upsample_w2x, upsample_w2x_plain
+from mimo_unet_torch.kernels.upsample_w2x import (
+    UpsampleW2x,
+    upsample_w2x,
+    upsample_w2x_bwd,
+    upsample_w2x_bwd_plain,
+    upsample_w2x_plain,
+)
 
 EVAL_KERNELS = (fused_double_conv, fused_double_conv9, pool_w, upsample_w2x)
 TRAIN_KERNELS = (conv3x3_fwd, conv3x3_dx, conv3x3_dx_fold, conv3x3_dw, g_eff,
@@ -70,7 +78,11 @@ DROPOUT_KERNELS = (conv1x1, conv1x1_bwd)
 # K10 and K13: the train route's 2x2 pools (in_conv -> down1, down1 ->
 # core) and the decoder's x2 upsample, forward and backward
 RESAMPLE_KERNELS = (max_pool2x2, max_pool2x2_bwd, upsample2x, upsample2x_bwd)
-KERNELS = EVAL_KERNELS + TRAIN_KERNELS + DROPOUT_KERNELS + RESAMPLE_KERNELS
+# K4b and K14: the backward of the x2-half train decoder (its forward is
+# K4, upsample_w2x, with the H lerp staged in the conv kernels)
+X2_HALF_KERNELS = (upsample_w2x_bwd, lerp_h2x_transpose)
+KERNELS = (EVAL_KERNELS + TRAIN_KERNELS + DROPOUT_KERNELS + RESAMPLE_KERNELS
+           + X2_HALF_KERNELS)
 
 
 def reset_launch_counts() -> None:
@@ -95,6 +107,8 @@ __all__ = [
     "RESAMPLE_KERNELS",
     "TRAIN_KERNELS",
     "Upsample2x",
+    "UpsampleW2x",
+    "X2_HALF_KERNELS",
     "affine_relu",
     "affine_relu_bwd",
     "affine_relu_bwd_plain",
@@ -122,6 +136,8 @@ __all__ = [
     "g_eff",
     "g_eff_plain",
     "launch_counts",
+    "lerp_h2x_transpose",
+    "lerp_h2x_transpose_plain",
     "max_pool2x2",
     "max_pool2x2_bwd",
     "max_pool2x2_bwd_plain",
@@ -134,5 +150,7 @@ __all__ = [
     "upsample2x_bwd_plain",
     "upsample2x_plain",
     "upsample_w2x",
+    "upsample_w2x_bwd",
+    "upsample_w2x_bwd_plain",
     "upsample_w2x_plain",
 ]

@@ -37,23 +37,23 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # flagship in_conv output alone holds 352 M elements
 _P, _I = ctypes.c_void_p, ctypes.c_int64
 _SIGNATURES = {
-    # x1, x2, w1, s1, sh1, w2, s2, sh2, wo, bo, out, hpool,
+    # x1, x2, w1, s1, sh1, w2, s2, sh2, wo, bo, out, hpool, lo_h, fb,
     # n, h, w, c1, c2, n2, x2_half_h, m, o, oc, groups, group_rows_out,
     # fixed_cin (0 = runtime channel count), stream
-    "mimo_fused_double_conv": [_P] * 12 + [_I] * 13 + [_P],
+    "mimo_fused_double_conv": [_P] * 14 + [_I] * 13 + [_P],
     # x, out, rows, w, c, stream
     "mimo_pool_w": [_P, _P, _I, _I, _I, _P],
     # x, lo, w0, w1, out, rows, w2, c, stream
     "mimo_upsample_w2x": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
-    # x1, x2, w, sc, sh, y, psum, psq,
-    # n, h, w, c1, c2, n2, o, groups, prologue, stream
-    "mimo_conv3x3_fwd": [_P] * 8 + [_I] * 9 + [_P],
+    # x1, x2, w, sc, sh, lo_h, fa, fb, y, psum, psq,
+    # n, h, w, c1, c2, n2, o, groups, prologue, x2_half_h, stream
+    "mimo_conv3x3_fwd": [_P] * 11 + [_I] * 10 + [_P],
     # g, wt, x1, sc, sh, dx1, dx2, pdsc, pdsh,
     # n, h, w, o, c1, c2, n2, groups, prologue, stream
     "mimo_conv3x3_dx": [_P] * 9 + [_I] * 9 + [_P],
-    # x1, x2, g, sc, sh, partial,
-    # n, h, w, c1, c2, n2, o, groups, prologue, chunk, stream
-    "mimo_conv3x3_dw": [_P] * 6 + [_I] * 10 + [_P],
+    # x1, x2, g, sc, sh, lo_h, fa, fb, partial,
+    # n, h, w, c1, c2, n2, o, groups, prologue, x2_half_h, chunk, stream
+    "mimo_conv3x3_dw": [_P] * 9 + [_I] * 11 + [_P],
     # dy, y, dsum, dsumsq, out, n, hw, o, groups, stream
     "mimo_g_eff": [_P] * 5 + [_I] * 4 + [_P],
     # y, sc, sh, z, n, hw, c, groups, stream
@@ -78,6 +78,10 @@ _SIGNATURES = {
     "mimo_upsample2x": [_P] * 8 + [_I] * 4 + [_P],
     # g, wh, ww, dx, n, h2, w2, c, stream
     "mimo_upsample2x_bwd": [_P] * 4 + [_I] * 4 + [_P],
+    # g, wh, dx, n, h2, w, c, stream
+    "mimo_lerp_h2x_transpose": [_P] * 3 + [_I] * 4 + [_P],
+    # g, ww, dx, rows, w2, c, stream
+    "mimo_upsample_w2x_bwd": [_P] * 3 + [_I] * 3 + [_P],
 }
 
 _lock = threading.Lock()

@@ -20,6 +20,20 @@ its custom VJP (``_train_fwd_rule`` / ``_train_bwd_rule``, :1128-1273):
   * ``Conv3x3Train``: the ``autograd.Function``; its backward folds the
     statistics' cotangents in with ``g_eff`` (K9) first.
 
+``x2_half_h`` (the forward and dw; ``_x2_half_spec`` :238,
+``_stage_x2_half`` :255): x2 arrives at half height ``[N2, H/2, W, C2]``,
+only the W half of its bilinear x2 upsample applied (``upsample_w2x``,
+K4), and the kernels lerp its rows as they gather, with the x2
+upsample's row tables and operation order (``upsample2x._h_tables``;
+``fused_double_conv.lerp_h2x_plain`` in the plain versions): y, its
+statistics and dw are bit for bit those of the full-res x2 that
+``upsample2x`` (K13) would have written, and that tensor never exists.
+``Conv3x3Train``'s backward then takes the fold dx's full-res x2
+cotangent to half height with ``lerp_h2x_transpose`` (K14), as
+``_train_bwd_rule`` does (:1236-1246); the W transpose is
+``UpsampleW2x``'s own backward (K4b).  The prologue and the plain dx form
+never take it (:1200-1201).
+
 Layouts on the card (the CT layout, align8 padding and tile ladders are TPU
 constraints and are not ported): activations channels-last bf16
 ``[N, H, W, C]`` with the groups folded S-major into N (image n uses group
@@ -43,12 +57,14 @@ import torch
 import torch.nn.functional as F
 
 from mimo_unet_torch.kernels import _build
+from mimo_unet_torch.kernels.fused_double_conv import lerp_h2x_plain
 from mimo_unet_torch.kernels.train_elem import (
     g_eff,
     group_sum,
     per_image,
     reduce_groups,
 )
+from mimo_unet_torch.kernels.upsample2x import _h_tables, lerp_h2x_transpose
 
 BF16 = torch.bfloat16
 BM, BN = 128, 32      # the kernels' GEMM tile (pixels x channels)
@@ -63,7 +79,7 @@ def _cols(c: int) -> int:
     return -(-c // BN) * BN
 
 
-def _check(x1, w, x2, scale, shift) -> Tuple[int, int, int]:
+def _check(x1, w, x2, scale, shift, x2_half_h=False) -> Tuple[int, int, int]:
     """Shape rules shared by the kernels and their plain versions; returns
     (groups, c_in, o)."""
     if x1.ndim != 4:
@@ -75,9 +91,12 @@ def _check(x1, w, x2, scale, shift) -> Tuple[int, int, int]:
     g, o = w.shape[0], w.shape[4]
     if n % g or h < 3 or w_ < 3:
         raise ValueError(f"N={n} must divide into {g} groups; H, W >= 3")
-    if x2 is not None and (x2.ndim != 4 or x2.shape[1:3] != (h, w_)
+    if x2_half_h and (x2 is None or scale is not None or h % 2 or h < 4):
+        raise ValueError("x2_half_h needs x2, no prologue and an even H >= 4")
+    h2 = h // 2 if x2_half_h else h
+    if x2 is not None and (x2.ndim != 4 or x2.shape[1:3] != (h2, w_)
                            or n % x2.shape[0]):
-        raise ValueError(f"x2 must be [N2, {h}, {w_}, C2] with N % N2 == 0, "
+        raise ValueError(f"x2 must be [N2, {h2}, {w_}, C2] with N % N2 == 0, "
                          f"got {tuple(x2.shape)}")
     if (scale is None) != (shift is None):
         raise ValueError("scale and shift come together")
@@ -101,12 +120,15 @@ def _ptr(t: Optional[torch.Tensor]):
 
 # ---------------------------------------------------------------- plain versions
 
-def _z_plain(x1, x2, scale, shift) -> torch.Tensor:
-    """The conv input as f32 NCHW: prologue z rounded to bf16, x2 tiled."""
+def _z_plain(x1, x2, scale, shift, x2_half_h=False) -> torch.Tensor:
+    """The conv input as f32 NCHW: prologue z rounded to bf16, x2 (its
+    rows lerped to full height with ``x2_half_h``) tiled."""
     n = x1.shape[0]
     z = x1.float()
     if scale is not None:
         z = torch.relu(z * per_image(scale, n) + per_image(shift, n)).to(BF16).float()
+    if x2_half_h:
+        x2 = lerp_h2x_plain(x2)
     if x2 is not None:
         z = torch.cat([z, x2.float().repeat(n // x2.shape[0], 1, 1, 1)], dim=-1)
     return z.permute(0, 3, 1, 2)
@@ -135,10 +157,11 @@ def _dz_plain(g: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return torch.cat(outs).permute(0, 2, 3, 1)
 
 
-def conv3x3_fwd_plain(x1, w, *, x2=None, scale=None, shift=None):
+def conv3x3_fwd_plain(x1, w, *, x2=None, scale=None, shift=None,
+                      x2_half_h=False):
     """Plain PyTorch version of ``conv3x3_fwd``."""
-    groups, _, _ = _check(x1, w, x2, scale, shift)
-    z = _z_plain(x1, x2, scale, shift)
+    groups, _, _ = _check(x1, w, x2, scale, shift, x2_half_h)
+    z = _z_plain(x1, x2, scale, shift, x2_half_h)
     per = x1.shape[0] // groups
     y = torch.cat([_conv_f32(z[gi * per:(gi + 1) * per], w[gi])
                    for gi in range(groups)]).permute(0, 2, 3, 1).to(BF16)
@@ -170,10 +193,11 @@ def conv3x3_dx_fold_plain(g, w, c1: int, n2: int):
     return dx1, dx2.to(BF16).contiguous()
 
 
-def conv3x3_dw_plain(g, x1, groups: int, *, x2=None, scale=None, shift=None):
+def conv3x3_dw_plain(g, x1, groups: int, *, x2=None, scale=None, shift=None,
+                     x2_half_h=False):
     """Plain PyTorch version of ``conv3x3_dw``: [G, 3, 3, C_in, O] f32."""
     n = g.shape[0]
-    z = _z_plain(x1, x2, scale, shift)
+    z = _z_plain(x1, x2, scale, shift, x2_half_h)
     cin = z.shape[1]
     per = n // groups
     outs = []
@@ -197,30 +221,42 @@ def _prologue_args(scale, shift):
     return scale.float().contiguous(), shift.float().contiguous()
 
 
+def _half_args(x2_half_h: bool, h: int, device):
+    """The H-lerp tables (lo, 1 - f, f) of ``x2_half_h``, else Nones."""
+    if not x2_half_h:
+        return None, None, None
+    return _h_tables(h // 2, device)[:3]
+
+
 def conv3x3_fwd(x1: torch.Tensor, w: torch.Tensor, *,
                 x2: Optional[torch.Tensor] = None,
                 scale: Optional[torch.Tensor] = None,
-                shift: Optional[torch.Tensor] = None):
+                shift: Optional[torch.Tensor] = None,
+                x2_half_h: bool = False):
     """K5.  x1 [N, H, W, C1] bf16; x2 optional [N2, H, W, C2] bf16 (image n
-    reads x2 image n % N2); w [G, 3, 3, C1+C2, O] (used in bf16);
+    reads x2 image n % N2), or [N2, H/2, W, C2] with ``x2_half_h`` (its
+    rows lerped in-kernel); w [G, 3, 3, C1+C2, O] (used in bf16);
     scale/shift optional [G, C1] f32 prologue.  Returns (y [N, H, W, O]
     bf16, sum [G, O] f32, sumsq [G, O] f32).  CPU tensors take the plain
     version; CUDA tensors launch the kernel or raise."""
-    groups, cin, o = _check(x1, w, x2, scale, shift)
+    groups, cin, o = _check(x1, w, x2, scale, shift, x2_half_h)
     if x1.device.type == "cpu":
-        return conv3x3_fwd_plain(x1, w, x2=x2, scale=scale, shift=shift)
+        return conv3x3_fwd_plain(x1, w, x2=x2, scale=scale, shift=shift,
+                                 x2_half_h=x2_half_h)
     n, h, wd, c1 = x1.shape
     wk = _pad_to(w.reshape(groups, 9 * cin, o).to(BF16), _cols(o))
     sc, sh = _prologue_args(scale, shift)
     _build.require_cuda(*[t for t in (x1, x2, wk, sc, sh) if t is not None])
     _build.require_cuda(*[t for t in (x1, x2) if t is not None], dtype=BF16)
+    lo_h, fa, fb = _half_args(x2_half_h, h, x1.device)
     y = torch.empty((n, h, wd, o), device=x1.device, dtype=BF16)
     psum = torch.empty((_tiles(n, h, wd), o), device=x1.device, dtype=torch.float32)
     psq = torch.empty_like(psum)
     _build.launch("mimo_conv3x3_fwd", x1.device, _ptr(x1), _ptr(x2), _ptr(wk),
-                  _ptr(sc), _ptr(sh), _ptr(y), _ptr(psum), _ptr(psq), n, h,
-                  wd, c1, cin - c1, 0 if x2 is None else x2.shape[0], o,
-                  groups, int(sc is not None))
+                  _ptr(sc), _ptr(sh), _ptr(lo_h), _ptr(fa), _ptr(fb), _ptr(y),
+                  _ptr(psum), _ptr(psq), n, h, wd, c1, cin - c1,
+                  0 if x2 is None else x2.shape[0], o, groups,
+                  int(sc is not None), int(x2_half_h))
     conv3x3_fwd.launches += 1
     return y, reduce_groups(psum, groups), reduce_groups(psq, groups)
 
@@ -298,28 +334,32 @@ def conv3x3_dx_fold(g: torch.Tensor, w: torch.Tensor, c1: int, n2: int):
 def conv3x3_dw(g: torch.Tensor, x1: torch.Tensor, groups: int, *,
                x2: Optional[torch.Tensor] = None,
                scale: Optional[torch.Tensor] = None,
-               shift: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """K7.  g [N, H, W, O] bf16 cotangent of y; x1, x2, scale, shift the
-    forward's inputs -> dw [G, 3, 3, C1+C2, O] f32."""
+               shift: Optional[torch.Tensor] = None,
+               x2_half_h: bool = False) -> torch.Tensor:
+    """K7.  g [N, H, W, O] bf16 cotangent of y; x1, x2, scale, shift,
+    x2_half_h the forward's inputs -> dw [G, 3, 3, C1+C2, O] f32."""
     c1 = x1.shape[-1]
     cin = c1 + (0 if x2 is None else x2.shape[-1])
     o = g.shape[-1]
-    _check(x1, g.new_empty((groups, 3, 3, cin, o)), x2, scale, shift)
+    _check(x1, g.new_empty((groups, 3, 3, cin, o)), x2, scale, shift, x2_half_h)
     if g.shape[:3] != x1.shape[:3]:
         raise ValueError("g and x1 differ in N, H, W")
     if g.device.type == "cpu":
-        return conv3x3_dw_plain(g, x1, groups, x2=x2, scale=scale, shift=shift)
+        return conv3x3_dw_plain(g, x1, groups, x2=x2, scale=scale, shift=shift,
+                                x2_half_h=x2_half_h)
     n, h, wd, _ = g.shape
     sc, sh = _prologue_args(scale, shift)
     _build.require_cuda(*[t for t in (g, x1, x2, sc, sh) if t is not None])
     _build.require_cuda(*[t for t in (g, x1, x2) if t is not None], dtype=BF16)
+    lo_h, fa, fb = _half_args(x2_half_h, h, g.device)
     chunks = -(-(n // groups * h * wd) // DW_CHUNK)
     partial = torch.empty((groups * chunks, 9 * cin * o), device=g.device,
                           dtype=torch.float32)
     _build.launch("mimo_conv3x3_dw", g.device, _ptr(x1), _ptr(x2), _ptr(g),
-                  _ptr(sc), _ptr(sh), _ptr(partial), n, h, wd, c1, cin - c1,
+                  _ptr(sc), _ptr(sh), _ptr(lo_h), _ptr(fa), _ptr(fb),
+                  _ptr(partial), n, h, wd, c1, cin - c1,
                   0 if x2 is None else x2.shape[0], o, groups,
-                  int(sc is not None), DW_CHUNK)
+                  int(sc is not None), int(x2_half_h), DW_CHUNK)
     conv3x3_dw.launches += 1
     return reduce_groups(partial, groups).view(groups, 3, 3, cin, o)
 
@@ -327,16 +367,20 @@ def conv3x3_dw(g: torch.Tensor, x1: torch.Tensor, groups: int, *,
 # ---------------------------------------------------------------- autograd
 
 class Conv3x3Train(torch.autograd.Function):
-    """(y, sum, sumsq) = conv3x3_fwd(x1, w, x2=x2, scale=scale, shift=shift)
-    with the gradient of ``_train_bwd_rule`` (ct_train.py:1137): the
-    statistics' cotangents fold into y's (g_eff, K9), then dx (K6, plain or
-    fold form) and dw (K7).  dw is returned in w's dtype (the fast path
-    passes bf16 weights, as the JAX package does)."""
+    """(y, sum, sumsq) = conv3x3_fwd(x1, w, x2=x2, scale=scale, shift=shift,
+    x2_half_h=x2_half_h) with the gradient of ``_train_bwd_rule``
+    (ct_train.py:1137): the statistics' cotangents fold into y's (g_eff,
+    K9), then dx (K6, plain or fold form; with ``x2_half_h`` the fold's
+    x2 cotangent goes to half height through K14) and dw (K7).  dw is
+    returned in w's dtype (the fast path passes bf16 weights, as the JAX
+    package does)."""
 
     @staticmethod
-    def forward(ctx, x1, x2, w, scale, shift):
-        y, s, q = conv3x3_fwd(x1, w, x2=x2, scale=scale, shift=shift)
+    def forward(ctx, x1, x2, w, scale, shift, x2_half_h=False):
+        y, s, q = conv3x3_fwd(x1, w, x2=x2, scale=scale, shift=shift,
+                              x2_half_h=x2_half_h)
         ctx.save_for_backward(x1, x2, w, scale, shift, y)
+        ctx.x2_half_h = x2_half_h
         return y, s, q
 
     @staticmethod
@@ -349,11 +393,13 @@ class Conv3x3Train(torch.autograd.Function):
         geff = g_eff(dy.contiguous(), y,
                      zeros if dsum is None else dsum,
                      zeros if dsumsq is None else dsumsq)
-        need_x1, need_x2, need_w, need_sc, need_sh = ctx.needs_input_grad
+        need_x1, need_x2, need_w, need_sc, need_sh = ctx.needs_input_grad[:5]
         dx1 = dx2 = dw = dsc = dsh = None
         if x2 is not None:
             if need_x1 or need_x2:
                 dx1, dx2 = conv3x3_dx_fold(geff, w, x1.shape[-1], x2.shape[0])
+                if ctx.x2_half_h:
+                    dx2 = lerp_h2x_transpose(dx2)
         elif scale is not None:
             if need_x1 or need_sc or need_sh:
                 dx1, dsc, dsh = conv3x3_dx(geff, w, x1=x1, scale=scale,
@@ -362,9 +408,9 @@ class Conv3x3Train(torch.autograd.Function):
         elif need_x1:
             dx1 = conv3x3_dx(geff, w)
         if need_w:
-            dw = conv3x3_dw(geff, x1, groups, x2=x2, scale=scale,
-                            shift=shift).to(w.dtype)
-        return dx1, dx2, dw, dsc, dsh
+            dw = conv3x3_dw(geff, x1, groups, x2=x2, scale=scale, shift=shift,
+                            x2_half_h=ctx.x2_half_h).to(w.dtype)
+        return dx1, dx2, dw, dsc, dsh, None
 
 
 conv3x3_fwd.launches = 0

@@ -24,11 +24,11 @@ from __future__ import annotations
 
 from typing import Optional
 
-import numpy as np
 import torch
 import torch.nn.functional as F
 
 from mimo_unet_torch.kernels import _build
+from mimo_unet_torch.kernels.upsample2x import _h_tables
 
 BF16 = torch.bfloat16
 
@@ -37,19 +37,21 @@ def _as_bf16_f32(t: torch.Tensor) -> torch.Tensor:
     return t.to(BF16).float()
 
 
-def lerp_h2x_plain(x: torch.Tensor, h: int) -> torch.Tensor:
+def lerp_h2x_plain(x: torch.Tensor) -> torch.Tensor:
     """H half of the bilinear x2 align-corners upsample: [N, H/2, W, C] ->
-    [N, H, W, C] bf16, from integer arithmetic in f32 as the kernel does
-    (ct_conv.py:215-231): the weight is the f32 quotient of two exact
-    integers, then ``a*(1-f) + b*f`` with each operation rounded."""
-    h2 = x.shape[1]
-    num = np.arange(h) * (h2 - 1)
-    lo = np.minimum(num // (h - 1), h2 - 2)
-    f = ((num - lo * (h - 1)).astype(np.float32) / np.float32(h - 1))
-    f = torch.from_numpy(f).to(x.device).view(1, h, 1, 1)
-    lo = torch.from_numpy(lo).to(x.device)
+    [N, H, W, C] bf16, as the kernels do it (ct_conv.py:215-231,
+    ct_train.py:255): full row r lerps half rows lo and lo + 1,
+    ``bf16(a*(1-f) + b*f)`` with each operation rounded, from the x2
+    upsample's row tables (``upsample2x._h_tables``).  There f is
+    ``float32(r*(H/2-1) - lo*(H-1)) * float32(1/(H-1))``: the reference
+    divides by H-1, and XLA compiles that division by a constant into the
+    multiply by its f32 reciprocal (one f32 ulp from the quotient at some
+    rows)."""
+    h = 2 * x.shape[1]
+    lo, fa, fb, _ = _h_tables(x.shape[1], x.device)
+    lo = lo.long()
     a, b = x[:, lo].float(), x[:, lo + 1].float()
-    return (a * (1.0 - f) + b * f).to(BF16)
+    return (a * fa.view(1, h, 1, 1) + b * fb.view(1, h, 1, 1)).to(BF16)
 
 
 def _conv3x3_reflect_f32(x: torch.Tensor, w_hwio: torch.Tensor) -> torch.Tensor:
@@ -117,7 +119,7 @@ def fused_double_conv_plain(x1, w1, s1, sh1, w2, s2, sh2, *, x2=None,
     per = n // g
     x = x1.float()
     if x2 is not None:
-        xb = lerp_h2x_plain(x2, h) if x2_half_h else x2
+        xb = lerp_h2x_plain(x2) if x2_half_h else x2
         # image n reads x2 image n % N2
         xb = xb.float().repeat(n // x2.shape[0], 1, 1, 1)
         x = torch.cat([x, xb], dim=-1)
@@ -185,10 +187,13 @@ def _launch(x1, w1, s1, sh1, w2, s2, sh2, x2, x2_half_h, wo, bo, emit_hpool,
     def ptr(t):
         return None if t is None else t.data_ptr()
 
+    lo_h = fb = None
+    if x2_half_h:
+        lo_h, _, fb, _ = _h_tables(h // 2, dev)
     _build.launch(
         "mimo_fused_double_conv", dev,
         ptr(x1), ptr(x2), ptr(w1k), ptr(s1k), ptr(sh1k), ptr(w2k), ptr(s2k),
-        ptr(sh2k), ptr(wo), ptr(bo), ptr(out), ptr(hp),
+        ptr(sh2k), ptr(wo), ptr(bo), ptr(out), ptr(hp), ptr(lo_h), ptr(fb),
         n, h, w, c1, c2, 0 if x2 is None else x2.shape[0], int(x2_half_h),
         m, o, oc, g, int(group_rows_out), fixed_cin)
     return (out, hp) if emit_hpool else out

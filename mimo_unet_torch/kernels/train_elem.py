@@ -86,9 +86,10 @@ def _check_act(y: torch.Tensor, params, c: Optional[int] = None) -> int:
 
 
 def _conv1x1_ok(y: torch.Tensor) -> None:
-    """What the 1x1 kernels take: at most 64 input channels."""
-    if y.shape[-1] > 64:
-        raise ValueError(f"the 1x1 kernels take C <= 64, got {tuple(y.shape)}")
+    """What the 1x1 kernels take: at most 128 input channels
+    (csrc/train_elem.cu CMAX)."""
+    if y.shape[-1] > 128:
+        raise ValueError(f"the 1x1 kernels take C <= 128, got {tuple(y.shape)}")
 
 
 def _blocks(n: int, hw: int, groups: int) -> int:

@@ -1,10 +1,14 @@
 """Bilinear x2 upsample with align_corners=True of channels-last bf16
-activations, and its transpose (K13).
+activations, and its transpose (K13); the transpose of its H lerp alone
+(K14).
 
 Replaces ``mimo_unet_tpu/ops/pallas/ct_resize.py:54`` ``upsample2x_ct``:
 the forward ``_up2_fwd_call`` (:59, pallas_call at :105) and the backward
-``_up2_bwd_call`` (:124, pallas_call at :176).  Kernel:
-``csrc/upsample2x.cu``.  ``Upsample2x`` is the ``autograd.Function``.
+``_up2_bwd_call`` (:124, pallas_call at :176); and ``ct_resize.py:295``
+``lerp_h2x_transpose_ct`` (pallas_call at :345) with
+``lerp_h2x_transpose``, the backward of the H lerp that the x2-half train
+decoder stages inside its conv kernels.  Kernel: ``csrc/upsample2x.cu``.
+``Upsample2x`` is the ``autograd.Function``.
 
 Rounding points (both versions; the TPU kernel's, not those of
 ``ops/resize.py``, which goes H first):
@@ -18,9 +22,11 @@ Rounding points (both versions; the TPU kernel's, not those of
             reciprocal (one f32 ulp from the quotient at some rows)
   backward  the H transpose in f32 with the same weights over the five
             full rows 2R-2 .. 2R+2 that can reach half row R, summed in
-            that order and rounded to bf16; then the W transpose against
-            the bf16 matrix over columns 2K-2 .. 2K+2, summed in f32 in
-            that order and rounded to bf16
+            that order and rounded to bf16 (``lerp_h2x_transpose``); then
+            the W transpose against the bf16 matrix over columns
+            2K-2 .. 2K+2, summed in f32 in that order and rounded to bf16
+            (``upsample_w2x_bwd``, K4b): the two in turn are this
+            backward bit for bit
 
 H2 and W2 must be at least 2; nothing else is required of the shape.
 """
@@ -34,19 +40,15 @@ import numpy as np
 import torch
 
 from mimo_unet_torch.kernels import _build
-from mimo_unet_torch.kernels.upsample_w2x import _tables as _w_fwd_tables
-from mimo_unet_torch.ops.resize import _interp_matrix
+from mimo_unet_torch.kernels.upsample_w2x import (
+    TAPS,
+    _taps,
+    _w_bwd_weights,
+    _tables as _w_fwd_tables,
+    upsample_w2x_bwd_plain,
+)
 
 BF16 = torch.bfloat16
-TAPS = 5  # full rows (columns) that can reach one half-res row (column)
-
-
-def _taps(size2: int) -> Tuple[np.ndarray, np.ndarray]:
-    """Backward taps of half-res index R: full-res indices 2R-2+t, clipped
-    to the image, and whether each lies inside it.  [size2, TAPS] each."""
-    idx = 2 * np.arange(size2)[:, None] - 2 + np.arange(TAPS)[None]
-    valid = (idx >= 0) & (idx < 2 * size2)
-    return np.clip(idx, 0, 2 * size2 - 1), valid
 
 
 @lru_cache(maxsize=16)
@@ -68,16 +70,6 @@ def _h_tables(h2: int, device: torch.device) -> Tuple[torch.Tensor, ...]:
                  for t in (lo.astype(np.int32), fa, f, wt))
 
 
-@lru_cache(maxsize=16)
-def _w_bwd_weights(w2: int, device: torch.device) -> torch.Tensor:
-    """[W2, TAPS] f32: column K's entries of the bf16 interpolation matrix
-    at columns 2K-2+u of the full-res row (0 outside the image)."""
-    mw = torch.from_numpy(_interp_matrix(w2, 2 * w2)).to(BF16).float().numpy()
-    cols, valid = _taps(w2)
-    wt = np.where(valid, mw[cols, np.arange(w2)[:, None]], np.float32(0))
-    return torch.from_numpy(wt.astype(np.float32)).to(device)
-
-
 def _check(x: torch.Tensor) -> None:
     if x.ndim != 4 or x.shape[1] < 2 or x.shape[2] < 2:
         raise ValueError(f"expected [N, H2, W2, C] with H2, W2 >= 2, got "
@@ -87,6 +79,12 @@ def _check(x: torch.Tensor) -> None:
 def _check_g(g: torch.Tensor) -> None:
     if g.ndim != 4 or g.shape[1] % 2 or g.shape[2] % 2 or min(g.shape[1:3]) < 4:
         raise ValueError(f"expected [N, H, W, C] with even H, W >= 4, got "
+                         f"{tuple(g.shape)}")
+
+
+def _check_gh(g: torch.Tensor) -> None:
+    if g.ndim != 4 or g.shape[1] % 2 or g.shape[1] < 4:
+        raise ValueError(f"expected [N, H, W, C] with even H >= 4, got "
                          f"{tuple(g.shape)}")
 
 
@@ -104,23 +102,24 @@ def upsample2x_plain(x: torch.Tensor) -> torch.Tensor:
     return y.to(x.dtype)
 
 
-def upsample2x_bwd_plain(g: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch version of ``upsample2x_bwd``."""
-    _check_g(g)
-    h2, w2 = g.shape[1] // 2, g.shape[2] // 2
+def lerp_h2x_transpose_plain(g: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of ``lerp_h2x_transpose``."""
+    _check_gh(g)
+    h2 = g.shape[1] // 2
     rows = torch.from_numpy(_taps(h2)[0]).to(g.device)
-    cols = torch.from_numpy(_taps(w2)[0]).to(g.device)
     wh = _h_tables(h2, g.device)[3]
-    ww = _w_bwd_weights(w2, g.device)
     gf = g.float()
-    acc = torch.zeros((g.shape[0], h2, g.shape[2], g.shape[3]), device=g.device)
+    acc = torch.zeros((g.shape[0], h2, *g.shape[2:]), device=g.device)
     for t in range(TAPS):
         acc = acc + gf[:, rows[:, t]] * wh[:, t, None, None]
-    acc = acc.to(BF16).float()
-    dx = torch.zeros((g.shape[0], h2, w2, g.shape[3]), device=g.device)
-    for u in range(TAPS):
-        dx = dx + acc[:, :, cols[:, u]] * ww[:, u, None]
-    return dx.to(g.dtype)
+    return acc.to(g.dtype)
+
+
+def upsample2x_bwd_plain(g: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of ``upsample2x_bwd``: the H transpose, then
+    the W transpose."""
+    _check_g(g)
+    return upsample_w2x_bwd_plain(lerp_h2x_transpose_plain(g))
 
 
 def upsample2x(x: torch.Tensor) -> torch.Tensor:
@@ -163,6 +162,26 @@ def upsample2x_bwd(g: torch.Tensor) -> torch.Tensor:
     return dx
 
 
+def lerp_h2x_transpose(g: torch.Tensor) -> torch.Tensor:
+    """The transpose of the H row lerp alone (K14): g [N, H, W, C] bf16 ->
+    [N, H/2, W, C] bf16, W the full width (the x2-half decoder's W
+    transpose is ``upsample_w2x_bwd``).  CPU tensors take the plain
+    version; CUDA tensors launch the kernel or raise."""
+    if g.device.type == "cpu":
+        return lerp_h2x_transpose_plain(g)
+    _check_gh(g)
+    _build.require_cuda(g, dtype=BF16)
+    n, h, w, c = g.shape
+    wh = _h_tables(h // 2, g.device)[3]
+    dx = torch.empty((n, h // 2, w, c), device=g.device, dtype=BF16)
+    if dx.numel() == 0:
+        return dx
+    _build.launch("mimo_lerp_h2x_transpose", g.device, g.data_ptr(),
+                  wh.data_ptr(), dx.data_ptr(), n, h // 2, w, c)
+    lerp_h2x_transpose.launches += 1
+    return dx
+
+
 class Upsample2x(torch.autograd.Function):
     """y = upsample2x(x), backward ``upsample2x_bwd``."""
 
@@ -177,3 +196,4 @@ class Upsample2x(torch.autograd.Function):
 
 upsample2x.launches = 0
 upsample2x_bwd.launches = 0
+lerp_h2x_transpose.launches = 0

@@ -61,6 +61,13 @@ route: the TPU's lane conditions are not ported, so 256x256 patches and
   decoder   Upsample2x (K13) to channels-last, conv3x3_fwd over [x1s, up]
             (x2 period B), conv3x3_fwd with bn1's prologue, conv1x1_prelu:
             bn2 + ReLU + out-conv                     [S*B, H, W, C_out]
+            With MIMO_CT_TRAIN_X2_HALF set to anything but "0" (opt-in, as
+            in the JAX package, :1276-1300) the x2-half decoder instead:
+            UpsampleW2x (K4, backward K4b) at half height, and conv1 with
+            ``x2_half_h`` (its forward and dw kernels lerp the rows as they
+            gather, its backward takes the x2 cotangent to half height
+            with K14), so the full-res upsampled tensor never exists; the
+            step is bit for bit the default one
 
 Every conv is a ``Conv3x3Train`` (forward K5; backward g_eff K9, dx K6 in
 plain or fold form, dw K7).  BatchNorm running statistics update in place,
@@ -77,6 +84,7 @@ then the grouped 1x1 (K11) forward and backward.
 
 from __future__ import annotations
 
+import os
 from typing import Sequence, Tuple
 
 import torch
@@ -88,6 +96,7 @@ from mimo_unet_torch.kernels import (
     Conv3x3Train,
     MaxPool2x2Skip,
     Upsample2x,
+    UpsampleW2x,
     conv1x1,
     fused_double_conv,
     fused_double_conv9,
@@ -105,9 +114,39 @@ from mimo_unet_torch.ops.dropout import (
 )
 from mimo_unet_torch.ops.norm import update_running_stats
 
-# what the train kernels take (csrc/conv3x3_train.cu KMAX, train_elem.cu
-# CMAX and OCMAX)
-_TRAIN_MAX_CIN, _TRAIN_MAX_C, _TRAIN_MAX_OC = 128, 64, 8
+# what the train kernels take: a 3x3 conv's input and output channels
+# (csrc/conv3x3_train.cu KMAX = 9 x 256), the 1x1 out-conv's input and
+# output channels (train_elem.cu CMAX, OCMAX)
+_TRAIN_MAX_CONV_C, _TRAIN_MAX_C, _TRAIN_MAX_OC = 256, 128, 8
+
+
+def check_channels(cfg: MimoUNetConfig, *, convs: bool = True) -> None:
+    """Raise, naming the limit, where a channel count of ``cfg`` is beyond
+    what the train kernels take (``convs``: the 3x3 train convs too; else
+    only the 1x1 out-conv, K11, as MC-dropout serving runs it): a
+    configuration that routes to the kernels runs on them or fails, it
+    never falls back to the plain model."""
+    f = cfg.filter_base_count
+    c_up = 2 * f * cfg.num_subnetworks // cfg.factor
+    # in_conv C_in -> F -> F, down1 F -> 2F -> 2F, up4 (F + C_up) -> mid -> F
+    widest = max(cfg.in_channels, 2 * f, f + c_up)
+    if convs and widest > _TRAIN_MAX_CONV_C:
+        raise ValueError(f"the train conv kernels take at most "
+                         f"{_TRAIN_MAX_CONV_C} channels, this configuration "
+                         f"needs {widest} (filter_base_count {f}, "
+                         f"{cfg.num_subnetworks} subnetworks)")
+    if f > _TRAIN_MAX_C or cfg.out_channels > _TRAIN_MAX_OC:
+        raise ValueError(f"the 1x1 out-conv kernels take at most {_TRAIN_MAX_C} "
+                         f"input and {_TRAIN_MAX_OC} output channels, this "
+                         f"configuration needs {f} and {cfg.out_channels}")
+
+
+def x2_half_route() -> bool:
+    """Whether the train decoder takes the x2-half route: the environment
+    variable MIMO_CT_TRAIN_X2_HALF set to anything but "0", read per call
+    (the JAX package reads it as it traces, fast_path.py:1282).  Off by
+    default, as there."""
+    return os.environ.get("MIMO_CT_TRAIN_X2_HALF", "0") != "0"
 
 
 def fast_path_supported(cfg: MimoUNetConfig, x_shape: Tuple[int, ...],
@@ -117,10 +156,10 @@ def fast_path_supported(cfg: MimoUNetConfig, x_shape: Tuple[int, ...],
     ``ct_fast_path_supported`` does: "off" never, "auto" for CUDA inputs,
     "force" on any device (on the CPU every kernel wrapper runs its plain
     version).  Gates on what the kernels need: eval, bf16, bilinear, and
-    H, W multiples of 16 (four pool levels, no pad-to-match); with MC
-    dropout at the up4 or final site, the channel counts the grouped 1x1
-    kernel takes.  Every MC-dropout site is supported.  Nothing here
-    catches a kernel failure: a CUDA launch that fails raises.
+    H, W multiples of 16 (four pool levels, no pad-to-match).  Every
+    MC-dropout site is supported; at the up4 or final site a channel count
+    beyond the grouped 1x1 kernel raises (``check_channels``).  Nothing
+    here catches a kernel failure: a CUDA launch that fails raises.
     """
     if cfg.ct_kernels == "off":
         return False
@@ -130,15 +169,14 @@ def fast_path_supported(cfg: MimoUNetConfig, x_shape: Tuple[int, ...],
         return False
     if cfg.compute_dtype != "bfloat16" or cfg.mode != "bilinear":
         return False
-    if (mc_dropout and (cfg.decoder_dropout_rate > 0
-                        or cfg.final_dropout_rate > 0)
-            and (cfg.filter_base_count > _TRAIN_MAX_C
-                 or cfg.out_channels > _TRAIN_MAX_OC)):
-        return False
     if len(x_shape) != 5:
         return False
     h, w = x_shape[2], x_shape[3]
-    return h >= 16 and w >= 16 and h % 16 == 0 and w % 16 == 0
+    if not (h >= 16 and w >= 16 and h % 16 == 0 and w % 16 == 0):
+        return False
+    if mc_dropout and (cfg.decoder_dropout_rate > 0 or cfg.final_dropout_rate > 0):
+        check_channels(cfg, convs=False)
+    return True
 
 
 def fold_bn_eval(conv_bias: torch.Tensor, bn: torch.nn.BatchNorm2d
@@ -256,11 +294,12 @@ def train_path_supported(cfg: MimoUNetConfig, x_shape: Tuple[int, ...],
     """True when the train kernel path applies (``ct_train_path_supported``,
     mimo_unet_tpu/models/fast_path.py:866-961, on what these kernels need):
     train mode, no MC dropout, bf16, bilinear, "auto" only for CUDA inputs,
-    H and W multiples of 16, channel counts the kernels take, and
-    ``remat == "none"`` (not ported yet).  Every dropout site is supported.
-    The TPU's lane conditions are not: 256x256 patches, 640x480 frames and
-    any other such shape take the same route (the kernels tile any pixel
-    count), and on it a kernel that cannot take its shape raises."""
+    H and W multiples of 16, and ``remat == "none"`` (not ported yet).
+    Every dropout site is supported.  The TPU's lane conditions are not:
+    256x256 patches, 640x480 frames and any other such shape take the same
+    route (the kernels tile any pixel count), and on it a kernel that
+    cannot take its shape raises; so does a configuration whose channel
+    counts the kernels cannot take (``check_channels``)."""
     if cfg.ct_kernels == "off" or not training or mc_dropout:
         return False
     if cfg.ct_kernels == "auto" and torch.device(device).type != "cuda":
@@ -269,16 +308,13 @@ def train_path_supported(cfg: MimoUNetConfig, x_shape: Tuple[int, ...],
         return False
     if cfg.remat != "none":
         return False
-    f = cfg.filter_base_count
-    c_up = 2 * f * cfg.num_subnetworks // cfg.factor
-    if (f > _TRAIN_MAX_C or f + c_up > _TRAIN_MAX_CIN
-            or max(cfg.in_channels, (f + c_up) // 2) > _TRAIN_MAX_C
-            or cfg.out_channels > _TRAIN_MAX_OC):
-        return False
     if len(x_shape) != 5:
         return False
     h, w = x_shape[2], x_shape[3]
-    return h >= 16 and w >= 16 and h % 16 == 0 and w % 16 == 0
+    if not (h >= 16 and w >= 16 and h % 16 == 0 and w % 16 == 0):
+        return False
+    check_channels(cfg)
+    return True
 
 
 def _bn_affine_from_stats(s: torch.Tensor, q: torch.Tensor, count: int,
@@ -312,13 +348,13 @@ def _w_train(convs: Sequence[torch.nn.Conv2d]) -> torch.Tensor:
     return torch.stack([_hwio(c) for c in convs]).to(torch.bfloat16)
 
 
-def _conv_bn(x1, dcs, idx, count, *, x2=None, prologue=None):
+def _conv_bn(x1, dcs, idx, count, *, x2=None, prologue=None, x2_half_h=False):
     """One train conv (position ``idx`` = 0 or 1 of each group's
     DoubleConv) and its BatchNorm: returns (y_raw, scale, shift)."""
     convs = [dc.double_conv[3 * idx] for dc in dcs]
     bns = [dc.double_conv[3 * idx + 1] for dc in dcs]
     sc, sh = prologue if prologue is not None else (None, None)
-    y, s, q = Conv3x3Train.apply(x1, x2, _w_train(convs), sc, sh)
+    y, s, q = Conv3x3Train.apply(x1, x2, _w_train(convs), sc, sh, x2_half_h)
     scale, shift = _bn_affine_from_stats(s, q, count, convs, bns)
     return y, scale, shift
 
@@ -399,10 +435,14 @@ def mimo_unet_apply_train(model, x: torch.Tensor,
     x_up = core(_group_concat(x2s, s), drops, x2_pooled=_group_concat(x2p, s))
 
     # ---- decoder: x2 upsample to channels-last (period B: image n reads
-    # upsampled image n % B), two kernel convs, the out-conv
-    up = Upsample2x.apply(x_up.permute(0, 2, 3, 1).contiguous())
+    # upsampled image n % B), two kernel convs, the out-conv.  The x2-half
+    # route upsamples only W here, at half height; conv1's kernels lerp
+    # the rows
+    x_up = x_up.permute(0, 2, 3, 1).contiguous()
+    half = x2_half_route()
+    up = UpsampleW2x.apply(x_up) if half else Upsample2x.apply(x_up)
     up4 = [u.conv for u in dec.up4s]
-    y5, sc5, sh5 = _conv_bn(x1s, up4, 0, cnt_full, x2=up)
+    y5, sc5, sh5 = _conv_bn(x1s, up4, 0, cnt_full, x2=up, x2_half_h=half)
     y6, sc6, sh6 = _conv_bn(y5, up4, 1, cnt_full, prologue=(sc5, sh5))
     wo = torch.stack([oc.conv.weight[:, :, 0, 0].t() for oc in dec.outcs])
     bo = torch.stack([oc.conv.bias for oc in dec.outcs])

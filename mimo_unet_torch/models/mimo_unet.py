@@ -14,7 +14,9 @@ Input and output are channels-last with the MIMO axis at position 1, as in
 ``MimoUNet.forward`` routes on configuration the way ``mimo_unet_apply``
 does: eligible inputs take a kernel path of ``models/fast_path.py`` (the
 eval one, or in train mode the train one), everything else the plain
-modules below.  In train mode BatchNorm normalizes with batch statistics
+modules below; an eval forward that autograd must see through (grad
+enabled, and the input or a parameter requiring it) runs the plain
+modules, the eval kernels carrying no gradient.  In train mode BatchNorm normalizes with batch statistics
 and updates its running statistics in place (the JAX package returns them
 as new state).  Dropout is live in train mode and under ``mc_dropout``
 (BatchNorm then stays in eval mode); its masks come from an explicit
@@ -279,10 +281,21 @@ class MimoUNet(nn.Module):
             cfg.check_train_ported()
             if train_path_supported(cfg, x.shape, x.device, training=True):
                 return mimo_unet_apply_train(self, x, drops)
-        elif fast_path_supported(cfg, x.shape, x.device, training=False,
-                                 mc_dropout=mc_dropout):
+        elif (fast_path_supported(cfg, x.shape, x.device, training=False,
+                                  mc_dropout=mc_dropout)
+              and not self._needs_input_or_param_grad(x)):
             return mimo_unet_apply_fast(self, x, drops)
         return self.forward_plain(x, drops)
+
+    def _needs_input_or_param_grad(self, x: torch.Tensor) -> bool:
+        """An eval forward that autograd must see through: the eval
+        kernels carry no gradient, so such a forward (an input gradient
+        for FGSM, say) runs the plain modules, as the JAX package traces
+        it outside its kernels (``ct_disabled``,
+        mimo_unet_tpu/models/fast_path.py:55-75).  ``predict`` and
+        ``val_step`` run under ``torch.no_grad`` and keep the kernels."""
+        return torch.is_grad_enabled() and (
+            x.requires_grad or any(p.requires_grad for p in self.parameters()))
 
     def forward_plain(self, x: torch.Tensor, drops: Drops = NO_DROPOUT
                       ) -> torch.Tensor:

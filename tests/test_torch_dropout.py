@@ -364,7 +364,7 @@ def test_ensemble_mc_width_order_and_liveness():
     (MC, True, True),                                  # the MC recipe
     (dict(final_dropout_rate=0.1), True, True),
     (dict(center_dropout_rate=0.1), True, True),
-    (dict(MC, filter_base_count=72), True, False),     # K11 takes C <= 64
+    (dict(MC, filter_base_count=72), True, True),      # K11 takes C <= 128
     (dict(MC, filter_base_count=72), False, True),     # fused out-conv
 ])
 def test_mc_routing(kw, mc, want):

@@ -327,8 +327,12 @@ def test_input_transform_semantics():
     (dict(compute_dtype=None), SHAPE, False),      # bf16 only
     (dict(decoder_dropout_rate=0.1), SHAPE, True),   # dropout sites
     (dict(remat="enc"), SHAPE, False),
-    (dict(filter_base_count=48), SHAPE, False),    # decoder C_in > 128
-    (dict(filter_base_count=40), SHAPE, True),     # down1's 2F = 80 <= 128
+    (dict(filter_base_count=48), SHAPE, True),     # decoder C_in 144 <= 256
+    (dict(filter_base_count=40), SHAPE, True),     # down1's 2F = 80 <= 256
+    # BASELINE configs 5a and 5b: S=3 and S=4 at fbc 30 (decoder C_in 120
+    # and 150, mid 60 and 75)
+    (dict(num_subnetworks=3, filter_base_count=30), (2, 3, 32, 256, 3), True),
+    (dict(num_subnetworks=4, filter_base_count=30), (2, 4, 32, 256, 3), True),
 ])
 def test_train_path_routing(kw, shape, want):
     cfg = MimoUNetConfig(**{**BASE, "compute_dtype": "bfloat16",
