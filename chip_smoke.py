@@ -8,7 +8,10 @@ Run from the root of the repository.  Phases, each raising on failure:
 1. Require CUDA; print the card (``nvidia-smi --query-gpu=name,power.limit
    --format=csv,noheader``) and the CUDA version.
 2. Build the hand-written kernels from ``mimo_unet_torch/csrc`` (one nvcc
-   per source, in parallel) and print the build time.
+   per source, in parallel) and print the build time, ptxas's registers,
+   shared memory and spills of the train conv kernels, and the HMMA
+   (tensor-core mma) instructions of each in the library's SASS
+   (cuobjdump); raise if K6 (dx) or K7 (dw) has none.
 3. Eval kernels: call each at its flagship serving call sites (S=2, fbc=21,
    256x256, B=32, bf16) and hold it against its plain PyTorch version
    (float32, TF32 off): pool_w and upsample_w2x bitwise, the DoubleConv
@@ -21,7 +24,11 @@ Run from the root of the repository.  Phases, each raising on failure:
    plain model (ct_kernels="off") within 3e-2 * max|ref|.
 5. Train kernels: every train kernel at its 640x480 call sites (NYUv2
    frames, S=2, fbc=21, B=4; down1's at 320x240), each output and
-   gradient against its plain version at the same tolerance as phase 3.
+   gradient against its plain version at the same tolerance as phase 3;
+   K6 and K7 (tensor cores) also bitwise from one launch to the next,
+   their times printed beside those of the f32 CUDA-core kernels they
+   replaced (``CUDA_CORE_MS``, from PERF.md: those are not built any
+   more).
 6. Train: the NYUv2-depth task (S=2, fbc=21, bf16, Laplace NLL, lr 1e-3,
    loss buffer 10) at 640x480: ``init_state`` on the card, one step's loss
    and gradients against the plain model (ct_kernels="off", same weights:
@@ -69,11 +76,13 @@ Run from the root of the repository.  Phases, each raising on failure:
    at B=16 and B=64 (kernels vs plain).
 12. Partial tiles: the train kernels where their blocks do not divide the
    pixels (down1 of a 48x48 step at B=3: 4.5 conv tiles per 24x24 image,
-   6.75 reducing blocks per group, 2.25 per image) and at fbc 40's
-   channel counts, each against its plain version at phase 3's
-   tolerance; then one B=3 48x48 step of the fbc-40 task on the kernel
-   route (every train kernel and K10/K13 launched) with its loss and
-   gradients against the plain and f32 models as in phase 9.
+   6.75 reducing blocks per group, 2.25 per image), at fbc 40's channel
+   counts, and K6/K7 at H = W = 3, 4, 5 and 24 with fbc 40's in_conv
+   and decoder widths (x2_half_h at even H), each against its plain
+   version at phase 3's tolerance, K6/K7 also bitwise launch to launch;
+   then one B=3 48x48 step of the fbc-40 task on the kernel route (every
+   train kernel and K10/K13 launched) with its loss and gradients against
+   the plain and f32 models as in phase 9.
 13. The x2-half train decoder (``MIMO_CT_TRAIN_X2_HALF=1``): K4b
    (``upsample_w2x_bwd``) and K14 (``lerp_h2x_transpose``) at the up4
    sites of the 256x256 B=64 and 640x480 B=4 steps, bitwise against
@@ -81,7 +90,8 @@ Run from the root of the repository.  Phases, each raising on failure:
    of ``F.interpolate`` (bilinear, align_corners) on the channels-last
    tensor; K5 and K7 with ``x2_half_h`` at dec.c1 (640x480 B=4) against
    their plain versions (phase 3's tolerance) and bitwise against their
-   full-res form fed K13's output; 3 steps at 256x256 B=64 and 3 at
+   full-res form fed K13's output; K4 at the 256x256 B=64 x2-half site
+   (bitwise, beside ``F.interpolate`` of the W axis); 3 steps at 256x256 B=64 and 3 at
    640x480 B=16 whose counters must show 1 K4, 1 K4b, 1 K14, 0 K13 each
    way and 2 K10 each way per step, and every train kernel; one B=16
    256x256 step against the flag-off step on the same weights and inputs
@@ -139,6 +149,18 @@ KERNEL_INFO = {
     "lerp_h2x_transpose": ("mimo_unet_torch/csrc/upsample2x.cu", _E + "ct_resize.py:295"),
 }
 X2_HALF = "MIMO_CT_TRAIN_X2_HALF"  # the x2-half train decoder's switch
+# K6 and K7 as f32 CUDA-core kernels, before their tensor-core redesign
+# (PERF.md section 6), ms at the phase-5 sites by site label prefix; those
+# kernels are not built any more
+CUDA_CORE_MS = {
+    ("conv3x3_dw", "in_conv.conv1"): 3.765, ("conv3x3_dw", "in_conv.conv2"): 5.670,
+    ("conv3x3_dw", "down1.conv1"): 4.527, ("conv3x3_dw", "down1.conv2"): 5.279,
+    ("conv3x3_dw", "decoder conv1"): 16.432, ("conv3x3_dw", "decoder conv2"): 7.703,
+    ("conv3x3_dx", "in_conv.conv2"): 3.050, ("conv3x3_dx", "down1.conv1"): 1.437,
+    ("conv3x3_dx", "down1.conv2"): 2.888, ("conv3x3_dx", "decoder conv2"): 3.076,
+    ("conv3x3_dx_fold", "decoder conv1"): 8.488,
+}
+TC_KERNELS = ("conv3x3_dx", "conv3x3_dx_fold", "conv3x3_dw")  # on the tensor cores
 # the documented MC-dropout recipe (reference Readme.md:82)
 MC_RECIPE = dict(encoder_dropout_rate=0.1, core_dropout_rate=0.1,
                  decoder_dropout_rate=0.1)
@@ -158,6 +180,8 @@ class Site:
     flops: float
     nbytes: float
     library: object = None
+    before: object = None   # the replaced kernel's time (PERF.md), where redesigned
+    repeat: bool = False    # two launches must agree bitwise
 
 
 def cuda_ms(fn, iters):
@@ -617,10 +641,11 @@ def resample_sites(dev, gen):
 
 def tail_sites(dev, gen):
     """The train kernels at shapes their blocks do not divide: down1 of a
-    48x48 step at B=3 (N = 6 images of 24x24 = 576 pixels: 4.5 of the conv
-    kernels' 128-pixel tiles per image, 6.75 of the reducing passes'
-    256-pixel blocks per group, 2.25 per image at groups = N) with fbc
-    40's 40 -> 80 channels, and the 1x1 kernels at that pixel count."""
+    48x48 step at B=3 (N = 6 images of 24x24 = 576 pixels: 4.5 of K5's
+    128-pixel tiles per image, 6.75 of the reducing passes' 256-pixel
+    blocks per group, 2.25 per image at groups = N) with fbc 40's 40 -> 80
+    channels, K6/K7 at H = W = 3, 4, 5 and 24 with fbc 40's in_conv and
+    decoder widths, and the 1x1 kernels at that pixel count."""
     import torch
     from mimo_unet_torch import kernels as K
 
@@ -667,6 +692,56 @@ def tail_sites(dev, gen):
     add("conv3x3_dw", f"down1.conv2 +prologue {tag}",
         lambda: K.conv3x3_dw(g1, y3, S, scale=sc, shift=sh),
         lambda: K.conv3x3_dw_plain(g1, y3, S, scale=sc, shift=sh))
+    # K6/K7 at H = W = 3, 4, 5 (one partial tile; at 3 the row and column
+    # reflect folds of both edges land on pixel 1) and 24, with fbc 40's
+    # in_conv and decoder widths: 3 -> 40, 40 -> 40, (40 + 80) -> 60 (x2
+    # shared by the S groups; x2_half_h at even H), 60 -> 40
+    for e in (3, 4, 5, 24):
+        b2 = 2
+        m = S * b2
+        tg = f"[{m},{e},{e}] fbc 40"
+        xin, x1d, y5 = act(m, e, e, 3), act(m, e, e, f), act(m, e, e, 60)
+        xu = act(b2, e, e, 2 * f)
+        gf, g60 = act(m, e, e, f, scale=0.01), act(m, e, e, 60, scale=0.01)
+        wf, wc1, wc2 = weight(f, f), weight(3 * f, 60), weight(60, f)
+        scf, shf = affine(S, f)
+        s60, h60 = affine(S, 60)
+        add("conv3x3_dw", f"in_conv.conv1 3->40 {tg}",
+            lambda gf=gf, xin=xin: K.conv3x3_dw(gf, xin, S),
+            lambda gf=gf, xin=xin: K.conv3x3_dw_plain(gf, xin, S))
+        add("conv3x3_dx", f"in_conv.conv2 40->40 +prologue {tg}",
+            lambda gf=gf, wf=wf, x1d=x1d, scf=scf, shf=shf:
+                K.conv3x3_dx(gf, wf, x1=x1d, scale=scf, shift=shf),
+            lambda gf=gf, wf=wf, x1d=x1d, scf=scf, shf=shf:
+                K.conv3x3_dx_plain(gf, wf, x1=x1d, scale=scf, shift=shf))
+        add("conv3x3_dw", f"in_conv.conv2 40->40 +prologue {tg}",
+            lambda gf=gf, x1d=x1d, scf=scf, shf=shf:
+                K.conv3x3_dw(gf, x1d, S, scale=scf, shift=shf),
+            lambda gf=gf, x1d=x1d, scf=scf, shf=shf:
+                K.conv3x3_dw_plain(gf, x1d, S, scale=scf, shift=shf))
+        add("conv3x3_dx_fold", f"decoder conv1 (40+80)->60 {tg}",
+            lambda g60=g60, wc1=wc1: K.conv3x3_dx_fold(g60, wc1, f, b2),
+            lambda g60=g60, wc1=wc1: K.conv3x3_dx_fold_plain(g60, wc1, f, b2))
+        add("conv3x3_dw", f"decoder conv1 (40+80)->60 {tg}",
+            lambda g60=g60, x1d=x1d, xu=xu: K.conv3x3_dw(g60, x1d, S, x2=xu),
+            lambda g60=g60, x1d=x1d, xu=xu: K.conv3x3_dw_plain(g60, x1d, S, x2=xu))
+        if e % 2 == 0:
+            xh = act(b2, e // 2, e, 2 * f)
+            add("conv3x3_dw", f"decoder conv1 (40+80)->60 x2_half_h {tg}",
+                lambda g60=g60, x1d=x1d, xh=xh:
+                    K.conv3x3_dw(g60, x1d, S, x2=xh, x2_half_h=True),
+                lambda g60=g60, x1d=x1d, xh=xh:
+                    K.conv3x3_dw_plain(g60, x1d, S, x2=xh, x2_half_h=True))
+        add("conv3x3_dx", f"decoder conv2 60->40 +prologue {tg}",
+            lambda gf=gf, wc2=wc2, y5=y5, s60=s60, h60=h60:
+                K.conv3x3_dx(gf, wc2, x1=y5, scale=s60, shift=h60),
+            lambda gf=gf, wc2=wc2, y5=y5, s60=s60, h60=h60:
+                K.conv3x3_dx_plain(gf, wc2, x1=y5, scale=s60, shift=h60))
+        add("conv3x3_dw", f"decoder conv2 60->40 +prologue {tg}",
+            lambda gf=gf, y5=y5, s60=s60, h60=h60:
+                K.conv3x3_dw(gf, y5, S, scale=s60, shift=h60),
+            lambda gf=gf, y5=y5, s60=s60, h60=h60:
+                K.conv3x3_dw_plain(gf, y5, S, scale=s60, shift=h60))
     y4, dz = act(n, hh, ww, 2 * f, scale=3.0), act(n, hh, ww, 2 * f, scale=0.01)
     z, gl = act(n, hh, ww, f, scale=3.0), act(n, hh, ww, 2, scale=0.01)
     for groups in (S, n):
@@ -703,6 +778,8 @@ def check_kernels(sites, card):
         got = st.kern()
         torch.cuda.synchronize()
         err = compare(f"{st.name} [{st.site}]", got, st.plain(), st.exact)
+        if st.repeat:
+            compare(f"{st.name} [{st.site}] launch to launch", st.kern(), got, True)
         del got
         iters = 20 if st.exact else 5
         ms, plain_ms = cuda_ms(st.kern, iters), cuda_ms(st.plain, iters)
@@ -721,14 +798,65 @@ def check_kernels(sites, card):
         if lib_ms is not None:
             rec["library_ms"] = (rec["library_ms"] or 0.0) + lib_ms
         lib = f", library {lib_ms:.4f} ms" if lib_ms is not None else ""
+        old = f" (CUDA-core kernel {st.before} ms, PERF.md)" if st.before else ""
+        rpt = ", launch to launch bitwise" if st.repeat else ""
         print(f"kernel {st.name} [{st.site}]: max_abs_err {err} "
-              f"({'bitwise' if st.exact else 'tolerance'}), {ms:.4f} ms vs plain "
-              f"{plain_ms:.4f} ms{lib}, bound {bound:.4f} ms "
+              f"({'bitwise' if st.exact else 'tolerance'}{rpt}), {ms:.4f} ms{old} vs "
+              f"plain {plain_ms:.4f} ms{lib}, bound {bound:.4f} ms "
               f"({'bytes' if t_bytes >= t_ops else 'operations'}) ({card})",
               flush=True)
     for rec in stats.values():
         rec["bound_by"] = "bytes" if rec.pop("_bytes_ms") >= rec.pop("_ops_ms") else "operations"
     return stats
+
+
+def _tc_marked(sites):
+    """K6/K7 sites with their CUDA-core kernels' time and the
+    launch-to-launch check."""
+    for st in sites:
+        if st.name in TC_KERNELS:
+            st.repeat = True
+            st.before = next((v for (k, lab), v in CUDA_CORE_MS.items()
+                              if k == st.name and st.site.startswith(lab)), None)
+    return sites
+
+
+def tensor_core_report():
+    """Print ptxas's registers, shared memory and spills of the train conv
+    kernels (this build's nvcc -Xptxas -v) and the HMMA (tensor-core mma)
+    instructions of each in the library's SASS (cuobjdump, where the
+    toolkit has it); raise if K6 or K7 has none."""
+    import re
+    import shutil
+    from mimo_unet_torch.kernels import _build
+
+    fn = None
+    for line in _build.build_log.get("conv3x3_train", "").splitlines():
+        m = re.search(r"entry function '(\S+)'", line)
+        if m:
+            fn = m.group(1)
+        elif fn and ("registers" in line or "spill" in line):
+            print(f"ptxas {fn}: {line.split(':', 1)[-1].strip()}")
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        print("cuobjdump: not in this toolkit; HMMA count not measured")
+        return
+    sass = subprocess.run([tool, "-sass", str(_build.library_path())],
+                          capture_output=True, text=True, check=True,
+                          timeout=120).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = m.group(1)
+            counts[fn] = 0
+        elif fn and "HMMA" in line:
+            counts[fn] += 1
+    for kern in ("conv_dx_tc", "conv_dw_tc", "conv_fwd_kernel"):
+        got = {k: v for k, v in counts.items() if kern in k}
+        print(f"SASS HMMA instructions in {kern}: {sorted(got.values())}")
+        if kern != "conv_fwd_kernel" and (not got or min(got.values()) == 0):
+            raise AssertionError(f"{kern}: no tensor-core (HMMA) instructions")
 
 
 def _flagship(dev, **rates):
@@ -986,7 +1114,7 @@ def _profile_step(task, state, batch, card, label):
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    names = ("conv_fwd_kernel", "conv_dx_kernel", "conv_dw_kernel",
+    names = ("conv_fwd_kernel", "conv_dx_tc", "conv_dw_tc",
              "g_eff_kernel", "affine_relu", "conv1x1", "reduce_groups",
              "pool2x2_kernel", "pool2x2_bwd", "up2_fwd_kernel", "up2_bwd_kernel",
              "upsample_w2x_kernel", "upsample_w2x_bwd_kernel", "lerp_h2x_t_kernel")
@@ -1167,8 +1295,13 @@ def train_tail(dev, card):
     from mimo_unet_torch.models.fast_path import train_path_supported
 
     for st in tail_sites(dev, torch.Generator(device=dev).manual_seed(4)):
-        err = compare(f"{st.name} [{st.site}]", st.kern(), st.plain(), False)
-        print(f"tail {st.name} [{st.site}]: max_abs_err {err} (tolerance)")
+        got = st.kern()
+        err = compare(f"{st.name} [{st.site}]", got, st.plain(), False)
+        rpt = ""
+        if st.name in TC_KERNELS:
+            compare(f"{st.name} [{st.site}] launch to launch", st.kern(), got, True)
+            rpt = ", launch to launch bitwise"
+        print(f"tail {st.name} [{st.site}]: max_abs_err {err} (tolerance{rpt})")
     task = dataclasses.replace(_train_task(), filter_base_count=40)
     b, hw = 3, (48, 48)
     if not train_path_supported(task.model_config, (b, S, *hw, 3), dev,
@@ -1235,7 +1368,8 @@ def x2_half_sites(dev, gen):
 def x2_half_conv_sites(dev, gen):
     """K5 and K7 with ``x2_half_h`` at dec.c1 (640x480 B=4): against
     their plain versions (phase 3's tolerance), and returns the bitwise
-    checks against the full-res form fed K13's output."""
+    checks against the full-res form fed K13's output; K4 at the
+    x2-half decoder's 256x256 B=64 site."""
     import torch
     from mimo_unet_torch import kernels as K
 
@@ -1266,8 +1400,20 @@ def x2_half_conv_sites(dev, gen):
         Site("conv3x3_dw", label,
              lambda: K.conv3x3_dw(g, x1s, S, x2=half, x2_half_h=True),
              lambda: K.conv3x3_dw_plain(g, x1s, S, x2=half, x2_half_h=True),
-             False, flops, in_bytes + y_bytes + _nbytes((w.shape, 4))),
+             False, flops, in_bytes + y_bytes + _nbytes((w.shape, 4)),
+             before=17.009, repeat=True),
     ]
+    # K4 at the x2-half decoder's 256x256 B=64 site: the core output's W
+    # half; library F.interpolate of the W axis alone (align_corners) on
+    # the channels-last tensor
+    xc = act(BIG_B, HW // 2, HW // 2, c_up)
+    sites.append(Site(
+        "upsample_w2x", f"x2-half up4 W-half 256x256 B={BIG_B} {list(xc.shape)}",
+        lambda: K.upsample_w2x(xc), lambda: K.upsample_w2x_plain(xc), True,
+        3.0 * xc.numel() * 2, _nbytes((xc.shape, 2)) * 3,
+        lambda: torch.nn.functional.interpolate(
+            xc.permute(0, 3, 1, 2), size=(HW // 2, HW), mode="bilinear",
+            align_corners=True)))
     same = [("conv3x3_fwd", lambda: K.conv3x3_fwd(x1s, w, x2=half, x2_half_h=True),
              lambda: K.conv3x3_fwd(x1s, w, x2=full)),
             ("conv3x3_dw", lambda: K.conv3x3_dw(g, x1s, S, x2=half, x2_half_h=True),
@@ -1531,6 +1677,7 @@ def main() -> int:
     print(f"build: {time.perf_counter() - t0:.2f} s "
           f"({'nvcc ' + format(built, '.2f') + ' s' if built else 'cached'})",
           flush=True)
+    tensor_core_report()
 
     # ---- 3-12 ---------------------------------------------------------------
     os.environ[X2_HALF] = "0"  # the default decoder until phase 13
@@ -1541,8 +1688,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     served = serve(dev, card)
     torch.cuda.empty_cache()
-    stats.update(check_kernels(
-        train_sites(dev, torch.Generator(device=dev).manual_seed(1)), card))
+    stats.update(check_kernels(_tc_marked(
+        train_sites(dev, torch.Generator(device=dev).manual_seed(1))), card))
     torch.cuda.empty_cache()
     trained = train(dev, card)
     torch.cuda.empty_cache()

@@ -1,6 +1,6 @@
 // Train-mode 3x3 reflect conv per subnetwork group, channels-last bf16, and
 // its two backward kernels:
-//   * mimo_conv3x3_fwd: y = conv(z), z = x or relu(x*scale+shift) (the
+//   * mimo_conv3x3_fwd (K5): y = conv(z), z = x or relu(x*scale+shift) (the
 //     previous BatchNorm's affine as a prologue); y rounded to bf16, no
 //     bias; per-channel sum and sum of squares of the *rounded* y, per
 //     block (the wrapper reduces them per group).  Optional second concat
@@ -9,21 +9,19 @@
 //     its rows (below).
 //     Replaces mimo_unet_tpu/ops/pallas/ct_train.py:283 _conv_fwd
 //     (pallas_call :318), reached through conv3x3_ct_train :1099.
-//   * mimo_conv3x3_dx: dz = transpose of (reflect pad + conv) applied to g;
-//     without x2, optionally the prologue backward fused in
+//   * mimo_conv3x3_dx (K6): dz = transpose of (reflect pad + conv) applied
+//     to g; without x2, optionally the prologue backward fused in
 //     (da = dz*[a>0], dx = da*scale, per-block dscale += da*x, dshift +=
 //     da); with x2 (the fold form) each block loops over the S images that
 //     share one x2 image and sums their bf16-rounded x2 cotangents in f32.
 //     Replaces ct_train.py:579 _conv_dx (pallas_call :648) and :677
 //     _conv_dx_fold_call (:697).
-//   * mimo_conv3x3_dw: per-block partial dw over a chunk of one group's
-//     pixels, the recomputed z contracted with g (the wrapper reduces the
-//     chunks), x2_half_h as in the forward.  Replaces ct_train.py:815
-//     _conv_dw (pallas_call :853).
+//   * mimo_conv3x3_dw (K7): per-block partial dw over a chunk of one
+//     group's pixels, the recomputed z contracted with g (the wrapper
+//     reduces the chunks), x2_half_h as in the forward.  Replaces
+//     ct_train.py:815 _conv_dw (pallas_call :853).
 //
-// All three are implicit GEMMs with a gathered operand: the fwd is
-// [pixels x 9*Cin] . [9*Cin x O], the dx [pixels x 9*O] . [9*O x Cin] and
-// the dw [9*Cin x pixels] . [pixels x O].  The gather does the padding:
+// Padding and rounding, as the TPU kernels do them:
 //   * fwd and dw read x at reflect(i + dy - 1), reflect(j + dx - 1); with
 //     x2_half_h (ct_train.py:238 _x2_half_spec, :255 _stage_x2_half) the
 //     x2 value of full row r is bf16(a * fa[r] + b * fb[r]) from half rows
@@ -31,28 +29,58 @@
 //     order of the x2 upsample's H lerp (upsample2x.cu), so y, its
 //     statistics and dw are bit for bit those of the full-res x2 that the
 //     upsample would have written;
-//   * dx reads g zero-padded at (a + 1 - dy, b + 1 - dx) plus the additive
-//     reflect folds (ct_train.py:26-31): pixel row 1 also takes g row 0
-//     through tap dy = 0 and row H-2 takes g row H-1 through dy = 2 (the
-//     same for columns), so one gathered element sums up to four g values.
-// Rounding points are the TPU kernels': bf16 operands, f32 accumulation,
-// the prologue z computed in f32 and rounded to bf16 before the product
-// (ct_train.py:151-156), statistics of the bf16 y (:220-224), dx rounded
-// once, the fold's per-image cotangents rounded before their f32 sum.
+//   * dx is the zero-pad full conv of g with the transposed taps plus the
+//     additive reflect folds (ct_train.py:26-31): pixel row 1 also takes g
+//     row 0 through tap dy = 0 and row H-2 takes g row H-1 through dy = 2
+//     (the same for columns).
+//   * bf16 operands, f32 accumulation, the prologue z computed in f32 and
+//     rounded to bf16 before the product (ct_train.py:151-156), statistics
+//     of the bf16 y (:220-224), dx rounded once, the fold's per-image
+//     cotangents rounded before their f32 sum.
 //
-// What bounds it on the H100: arithmetic.  Per output pixel the products
+// What bounds them on the H100: arithmetic.  Per output pixel the products
 // are 9*Cin*O multiply-adds (Cin, O = 3..63), against a few hundred bytes
 // in and out, so at these channel counts the work sits above the memory
-// roofline.  This first version runs the products on the f32 CUDA cores:
-// a 128 x 32 output tile per block, within one image (an image's last
-// tile is partial when 128 does not divide h*w: its missing rows repeat
-// the last pixel), 256 threads, each holding a 4 x 4
-// register tile fed by two 16-byte shared-memory loads per 16 FMAs; the
-// A operand is gathered from device memory into shared memory in f32, 32
-// columns at a time.  Reductions across blocks (statistics, dscale,
-// dshift, dw) go to per-block partials that a second pass sums per group
-// in a fixed order: results do not change from run to run.  Tensor cores
-// (mma.sync/wgmma) and TMA staging are later work.
+// roofline.
+//
+// K5 runs on the f32 CUDA cores: a 128 x 32 output tile per block, within
+// one image (an image's last tile is partial when 128 does not divide h*w:
+// its missing rows repeat the last pixel), 256 threads, each holding a
+// 4 x 4 register tile fed by two 16-byte shared-memory loads per 16 FMAs;
+// the A operand is gathered from device memory into shared memory in f32,
+// 32 columns at a time.
+//
+// K6 and K7 run on the tensor cores (mma.sync m16n8k16, bf16 operands,
+// f32 accumulators, fed by ldmatrix) from tiles staged once in shared
+// memory.  A block works through spatial tiles of 16 columns by th rows
+// (th = 8 unless the channels need the room) of one image, each with a
+// one-pixel halo.  A tile's rows arrive as flat runs of the [N, H, W, C]
+// tensor (a run of pixels of one image row is contiguous) in 16-byte
+// cp.async copies, the next tile's while the tensor cores work on this
+// one; a repack pass then writes the tile in bf16 [pixel][channel] with
+// the channels padded in shared memory to the mma multiple (and a row
+// stride of an odd number of 16-byte units, so that ldmatrix's eight rows
+// fall in eight bank groups):
+//   * K7 stages z with the reflect applied at the image edges; the
+//     prologue affine and the x2_half_h lerp run once per staged element.
+//     It also stages g [pixels, o-slice].  Nine warps, one per tap:
+//     D[cin x o] += Z_t^T . G over each 16-pixel row of the tile, Z_t the
+//     staged tile shifted by the tap, so a warp's accumulators (up to
+//     4 x 4 mma tiles: 64 channels by 32 outputs, the launch's slices)
+//     stay in registers.  At cin <= 7 (the RGB input conv) the staging
+//     folds (tap, channel) into M = 9*cin padded to 16 (27 -> 32) and
+//     warps own M tiles instead.
+//   * K6 stages g with a zero halo and its group's weights [9, cin-slice,
+//     o] (packed by the wrapper).  Eight warps, one per tile row: D[16
+//     pixels x cin-slice] += G_t . W_t over the taps and o.  Each reflect
+//     fold is one more mma step with the same tap's weights, its A rows
+//     the mirrored tap's view of the staged g (the single edge value) and
+//     the rows it does not reach pointed at a zero row: products stay
+//     exact, sums f32.  Tiles that touch no fold row or column skip them.
+// Reductions across blocks (statistics, dscale, dshift, dw) go to
+// per-block partials that a second pass sums per group in a fixed order;
+// inside a block, shuffles and shared memory sum in a fixed order too:
+// results do not change from run to run.
 #include "common.cuh"
 
 namespace {
@@ -111,27 +139,25 @@ __device__ __forceinline__ float column_sum(float* red, const float v[4],
 struct Conv {
   const bf16* x1;   // [n, h, w, c1]
   const bf16* x2;   // [n2, h, w, c2] ([n2, h/2, w, c2] with x2_half_h) or null
-  const bf16* wgt;  // fwd: [G, 9*cin, np]; dx: [G, 9*o, np]
-  const bf16* g;    // [n, h, w, o] (dx, dw)
+  const bf16* wgt;  // [G, 9*cin, np]
   const float* sc;  // [G, c1] prologue scale, or null
   const float* sh;
-  bf16* y;          // fwd: [n, h, w, o]; dx: dx1 [n, h, w, c1]
-  bf16* y2;         // dx fold: dx2 [n2, h, w, c2]
-  float* p0;        // per-block partials: sum / dscale / dw
-  float* p1;        // sumsq / dshift
-  int n, h, w, c1, c2, n2, o, groups, prologue, np, chunk, chunks;
+  bf16* y;          // [n, h, w, o]
+  float* p0;        // per-block partials: sum
+  float* p1;        // sumsq
+  int n, h, w, c1, c2, n2, o, groups, prologue, np;
 };
 
-// x2_half_h's row tables, a kernel argument of their own: Conv stays at 128
-// bytes (at 160, with these in it, the fwd, dx and dw kernels all ran 4-10 %
-// slower: NVIDIA H100 80GB HBM3, 700 W)
+// x2_half_h's row tables, a kernel argument of their own: Conv stays small
+// (at 160 bytes, with these in it, the fwd kernel ran 4-10 % slower:
+// NVIDIA H100 80GB HBM3, 700 W)
 struct Lerp {
   const int* lo;    // [h] first half row of full row r
   const float* fa;  // [h] its weights 1 - f and f
   const float* fb;
 };
 
-// One element of the fwd/dw gather: z at reflect(i+dy-1), reflect(j+dx-1),
+// One element of the fwd gather: z at reflect(i+dy-1), reflect(j+dx-1),
 // channel c of the concat [x1, x2] of image img, group g.  X2H (a template
 // flag, so that the full-res instantiation carries no lerp code): x2 at
 // half height, its rows lerped.
@@ -155,34 +181,10 @@ __device__ __forceinline__ float gather_z(const Conv& p, const Lerp& l, int img,
   return bf2f(p.x2[pix2 * p.c2 + c - p.c1]);
 }
 
-// One element of the dx gather: the sum of g[img, r, s, oc] over the rows r
-// and columns s that tap (dy, dx) of pixel (a, b) reaches, reflect folds
-// included.
-__device__ __forceinline__ float gather_g(const Conv& p, int img, int a, int b,
-                                          int t, int oc) {
-  const int H = p.h, W = p.w;
-  const int dy = t / 3, dx = t - 3 * dy;
-  const int r = a + 1 - dy, s = b + 1 - dx;
-  const bool rv = r >= 0 && r < H, sv = s >= 0 && s < W;
-  const int rf = (dy == 0 && a == 1) ? 0 : ((dy == 2 && a == H - 2) ? H - 1 : -1);
-  const int sf = (dx == 0 && b == 1) ? 0 : ((dx == 2 && b == W - 2) ? W - 1 : -1);
-  const bf16* gi = p.g + (int64_t)img * H * W * p.o + oc;
-  float v = 0.f;
-  if (rv) {
-    if (sv) v += bf2f(gi[((int64_t)r * W + s) * p.o]);
-    if (sf >= 0) v += bf2f(gi[((int64_t)r * W + sf) * p.o]);
-  }
-  if (rf >= 0) {
-    if (sv) v += bf2f(gi[((int64_t)rf * W + s) * p.o]);
-    if (sf >= 0) v += bf2f(gi[((int64_t)rf * W + sf) * p.o]);
-  }
-  return v;
-}
-
-// A tile (BM output pixels x BK gathered columns) of the fwd or dx GEMM for
-// the block's pixels (rows prow, columns pcol of image img); B tile from the
+// A tile (BM output pixels x BK gathered columns) of the fwd GEMM for the
+// block's pixels (rows prow, columns pcol of image img); B tile from the
 // packed weights [G, K, np].
-template <bool DX, bool X2H = false>
+template <bool X2H>
 __device__ __forceinline__ void load_tiles(const Conv& p, const Lerp& l, int img,
                                            int g, int k0,
                                            int K, int nb, const int* ktab,
@@ -194,8 +196,7 @@ __device__ __forceinline__ void load_tiles(const Conv& p, const Lerp& l, int img
     float v = 0.f;
     if (k < K) {
       const int code = ktab[k], t = code >> 16, c = code & 0xffff;
-      v = DX ? gather_g(p, img, prow[mm], pcol[mm], t, c)
-             : gather_z<X2H>(p, l, img, g, prow[mm], pcol[mm], t, c);
+      v = gather_z<X2H>(p, l, img, g, prow[mm], pcol[mm], t, c);
     }
     As[kk * AS + mm] = v;
   }
@@ -248,7 +249,7 @@ __global__ void __launch_bounds__(NT) conv_fwd_kernel(Conv p, Lerp l) {
 
   float acc[4][4] = {};
   for (int k0 = 0; k0 < K; k0 += BK) {
-    load_tiles<false, X2H>(p, l, img, g, k0, K, nb, ktab, prow, pcol, As, Bs, tid);
+    load_tiles<X2H>(p, l, img, g, k0, K, nb, ktab, prow, pcol, As, Bs, tid);
     __syncthreads();
     tile_fma(As, Bs, tm, tn, acc);
     __syncthreads();
@@ -280,148 +281,694 @@ __global__ void __launch_bounds__(NT) conv_fwd_kernel(Conv p, Lerp l) {
   }
 }
 
-// plain form (c2 == 0): grid (n * ceil(h*w / BM), ceil(c1 / BN));
-// fold form (c2 > 0, n == groups * n2): grid (n2 * ceil(h*w / BM),
-// ceil(cin / BN))
-__global__ void __launch_bounds__(NT, 3) conv_dx_kernel(Conv p) {
-  __shared__ __align__(16) float As[BK * AS];
-  __shared__ __align__(16) float Bs[BK * BN];
-  extern __shared__ int ktab[];  // [K]: dynamic, sized at launch
-  __shared__ int prow[BM], pcol[BM];
-  const int tid = threadIdx.x, tm = tid / 8, tn = tid % 8;
-  const int HW = p.h * p.w, K = 9 * p.o, per = p.n / p.groups;
-  const int tpi = tiles_per_image(HW);
-  const int img0 = blockIdx.x / tpi, rem = (blockIdx.x % tpi) * BM;
-  const int nb = blockIdx.y * BN;
-  const bool fold = p.c2 > 0;
-  fill_ktab(ktab, K, p.o, tid);
-  fill_pixels(prow, pcol, rem, p.w, HW, tid);
-  __syncthreads();
+// ---------------------------------------------------------------- K6 / K7
 
-  float acc2[4][4] = {};  // fold: the x2 cotangent summed over the S images
-  float s[4] = {}, q[4] = {};
-  const int reps = fold ? p.groups : 1;
-  for (int r = 0; r < reps; ++r) {
-    const int img = fold ? r * per + img0 : img0;
-    const int g = img / per;
-    float acc[4][4] = {};
-    for (int k0 = 0; k0 < K; k0 += BK) {
-      load_tiles<true>(p, Lerp{}, img, g, k0, K, nb, ktab, prow, pcol, As, Bs, tid);
-      __syncthreads();
-      tile_fma(As, Bs, tm, tn, acc);
-      __syncthreads();
+constexpr int TW = 16;              // tile columns: a dw k-step, a dx m-tile
+constexpr int HWD = TW + 2;         // halo tile columns
+constexpr int DW_THREADS = 288;     // nine warps, one per tap
+constexpr int DX_THREADS = 256;     // eight warps, one per tile row
+constexpr int MT_DW = 4, NT_DW = 4; // dw mma tiles per warp: 64 ch x 32 outputs
+constexpr int NT_DX = 8;            // dx mma n-tiles per warp: 64 channels
+constexpr int SMEM_MAX = 232448;    // dynamic shared memory of one block
+
+// row stride (elements) of a staged tile with c (a multiple of 8) channels:
+// an odd number of 16-byte units, so ldmatrix's eight rows miss each other
+__host__ __device__ __forceinline__ int stride8(int c) { return 8 * ((c / 8) | 1); }
+
+// bytes of the raw buffer of one run of px pixels of c bf16 channels copied
+// in 16-byte units from any element offset
+__host__ __device__ __forceinline__ int run_bytes(int px, int c) {
+  return 16 * ((px * c * 2 + 15) / 16 + 1);
+}
+
+__host__ __device__ __forceinline__ int align16(int b) { return (b + 15) & ~15; }
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)),
+               "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// four (two) 8x8 b16 matrices; lane l gives the shared-space address of
+// row l % 8 of matrix l / 8
+__device__ __forceinline__ void ldsm_x4(uint32_t r[4], uint32_t a) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(a));
+}
+
+__device__ __forceinline__ void ldsm_x2(uint32_t r[2], uint32_t a) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(a));
+}
+
+__device__ __forceinline__ void ldsm_x4_t(uint32_t r[4], uint32_t a) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(a));
+}
+
+__device__ __forceinline__ void ldsm_x2_t(uint32_t r[2], uint32_t a) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(a));
+}
+
+// d += a . b: a 16x16 bf16 (row), b 16x8 bf16 (col), d 16x8 f32
+__device__ __forceinline__ void mma16816(float d[4], const uint32_t a[4],
+                                         const uint32_t b[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+struct TcConv {
+  const bf16* x1;     // dw: [n, h, w, c1]; dx: the prologue's x1 or null
+  const bf16* x2;     // dw: [n2, h, w, c2] ([n2, h/2, w, c2] with x2_half_h)
+  const bf16* g;      // [n, h, w, o]
+  const bf16* wpk;    // dx: packed weights [G, ncs, 9, cb, ws]
+  const float* sc;    // [G, c1] prologue scale, or null
+  const float* sh;
+  const int* frow;    // dx: fold bits of each image row (bit 0: g row 0
+  const int* fcol;    //   through dy = 0; bit 1: row h-1 through dy = 2); columns
+  const int* lo;      // x2_half_h: first half row of full row r, weights
+  const float* fa;
+  const float* fb;
+  bf16* y;            // dx: dx1 [n, h, w, c1]
+  bf16* y2;           // dx fold: dx2 [n2, h, w, c2]
+  float* p0;          // dw partials; dx per-block dscale
+  float* p1;          // dx per-block dshift
+  int n, h, w, c1, c2, n2, o, groups, prologue;
+  int th, tiles_w, tpi, per;   // tile rows; tile columns and tiles per image; images per group
+  int cb, ncs;                 // channel slice (padded width) and slices
+  int nb, nos;                 // dw: output slice (padded width) and slices
+  int im2col, mp;              // dw: (tap, channel) folded into M, its padded width
+  int span, chunks;            // dw: tiles per chunk, chunks per group; dx: tiles per block, blocks per image
+  int opad;                    // dx: o padded to 16
+  int zs, gs, ws;              // row strides (elements): z / A tile, g tile, weights
+  int r1, r2, rg;              // raw bytes per row: x1, x2 (per half row), g
+  int o_z, o_g, o_w, o_r1, o_r2, o_rg, o_info, o_aff, o_red, o_zero, smem;  // byte offsets
+};
+
+struct TileAt {
+  int img, r0, c0;  // image; first row and column (the halo starts one before)
+};
+
+__device__ __forceinline__ TileAt tile_at(const TcConv& p, int img, int t) {
+  const int tr = t / p.tiles_w;
+  return TileAt{img, tr * p.th, (t - tr * p.tiles_w) * TW};
+}
+
+// cp.async the flat run of elements [s0, s1) of ``base`` (16-byte aligned)
+// into dst in 16-byte units, a warp's lanes taking every 32nd; the run's
+// element offset within its first unit goes to *slot
+__device__ __forceinline__ void copy_run(uint8_t* dst, const bf16* base, int64_t s0,
+                                         int64_t s1, int* slot, int lane) {
+  const int64_t q0 = s0 >> 3;
+  const int n = (int)(((s1 + 7) >> 3) - q0);
+  for (int k = lane; k < n; k += 32) cp_async16(dst + k * 16, base + ((q0 + k) << 3));
+  if (lane == 0) *slot = (int)(s0 - (q0 << 3));
+}
+
+// ---- K7 staging: the raw runs of a tile's halo rows (x1; x2 or its two
+// half rows) and of its g rows, one run a warp at a time.  info: [th + 2][4]
+// run offsets of x1, x2 (a, b), then [th] of g.
+template <bool X2H>
+__device__ void dw_fetch(const TcConv& p, uint8_t* sm, TileAt tl, int warp, int lane) {
+  const int H = p.h, W = p.w, rows = p.th + 2;
+  const int lo = max(tl.c0 - 1, 0), hi = min(tl.c0 + TW + 1, W), hig = min(tl.c0 + TW, W);
+  int* info = (int*)(sm + p.o_info);
+  const int nsrc = p.c2 > 0 ? (X2H ? 3 : 2) : 1;
+  for (int rs = warp; rs < rows * nsrc + p.th; rs += DW_THREADS / 32) {
+    if (rs >= rows * nsrc) {  // g row j
+      const int j = rs - rows * nsrc, r = tl.r0 + j;
+      if (r >= H) continue;
+      const int64_t st = ((int64_t)tl.img * H + r) * W;
+      copy_run(sm + p.o_rg + j * p.rg, p.g, (st + tl.c0) * p.o, (st + hig) * p.o,
+               info + 4 * rows + j, lane);
+      continue;
     }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int m = rem + tm * 4 + i;
-      const int64_t pix = (int64_t)img * HW + min(m, HW - 1);
-      const float live = m < HW ? 1.f : 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = nb + tn * 4 + j;
-        const float d = acc[i][j];
-        if (c < p.c1) {
-          if (p.prologue) {
-            const float sc = p.sc[g * p.c1 + c], sh = p.sh[g * p.c1 + c];
-            const float xv = bf2f(p.x1[pix * p.c1 + c]);
-            const float da = __fadd_rn(__fmul_rn(xv, sc), sh) > 0.f ? d : 0.f;
-            p.y[pix * p.c1 + c] = f2bf(__fmul_rn(da, sc));
-            s[j] = fmaf(da * live, xv, s[j]);
-            q[j] += da * live;
-          } else {
-            p.y[pix * p.c1 + c] = f2bf(d);
-          }
-        } else if (c < p.c1 + p.c2) {
-          acc2[i][j] += bf2f(f2bf(d));
-        }
-      }
-    }
-  }
-  if (fold) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int64_t pix2 = (int64_t)img0 * HW + min(rem + tm * 4 + i, HW - 1);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = nb + tn * 4 + j;
-        if (c >= p.c1 && c < p.c1 + p.c2)
-          p.y2[pix2 * p.c2 + c - p.c1] = f2bf(acc2[i][j]);
-      }
-    }
-  }
-  if (p.prologue) {
-    const float cs = column_sum(As, s, tm, tn, tid);
-    const float cq = column_sum(As, q, tm, tn, tid);
-    if (tid < BN && nb + tid < p.c1) {
-      p.p0[blockIdx.x * (int64_t)p.c1 + nb + tid] = cs;
-      p.p1[blockIdx.x * (int64_t)p.c1 + nb + tid] = cq;
+    const int hr = rs / nsrc, src = rs - hr * nsrc, sr = tl.r0 - 1 + hr;
+    if (sr > H) continue;  // only pixels below the image read this row
+    const int rr = reflect(sr, H);
+    if (src == 0) {
+      const int64_t st = ((int64_t)tl.img * H + rr) * W;
+      copy_run(sm + p.o_r1 + hr * p.r1, p.x1, (st + lo) * p.c1, (st + hi) * p.c1,
+               info + hr * 4, lane);
+    } else {
+      const int i2 = tl.img % p.n2;
+      int64_t st;
+      if constexpr (X2H)
+        st = ((int64_t)i2 * (H / 2) + p.lo[rr] + (src - 1)) * W;
+      else
+        st = ((int64_t)i2 * H + rr) * W;
+      copy_run(sm + p.o_r2 + (hr * 2 + src - 1) * p.r2, p.x2, (st + lo) * p.c2,
+               (st + hi) * p.c2, info + hr * 4 + src, lane);
     }
   }
 }
 
-// grid (chunks, ceil(9*cin / BM) * ceil(o / BN), groups): block (chunk, tile,
-// g) sums its chunk of group g's pixels into p0[g][chunk][9*cin][o]
+// Where halo position (hr, hc) of the tile reads z: the staged runs at its
+// reflected source pixel (x1; x2, or x2's two half rows and the lerp
+// weights of the full row), or nothing (only pixels outside the image
+// read it).  Resolved once per position, then read for each channel.
 template <bool X2H>
-__global__ void __launch_bounds__(NT) conv_dw_kernel(Conv p, Lerp l) {
-  __shared__ __align__(16) float As[BK * AS];
-  __shared__ __align__(16) float Bs[BK * BN];
-  extern __shared__ int ktab[];  // [K]: dynamic, sized at launch
-  __shared__ int pimg[BK], prow[BK], pcol[BK];
-  const int tid = threadIdx.x, tm = tid / 8, tn = tid % 8;
-  const int cin = p.c1 + p.c2, M = 9 * cin, HW = p.h * p.w;
-  const int ntiles = (p.o + BN - 1) / BN;
-  const int mb = (blockIdx.y / ntiles) * BM, nb = (blockIdx.y % ntiles) * BN;
-  const int g = blockIdx.z, chunk = blockIdx.x;
-  const int64_t gsize = (int64_t)(p.n / p.groups) * HW;
-  const int64_t kbeg = g * gsize + (int64_t)chunk * p.chunk;
-  const int64_t kend = min(kbeg + p.chunk, (g + 1) * gsize);
-  fill_ktab(ktab, M, cin, tid);
+struct ZSrc {
+  const bf16* a;   // the pixel's x1 channels
+  const bf16* b;   // its x2 channels (X2H: of half row lo)
+  const bf16* b2;  // X2H: of half row lo + 1
+  float fa, fb;
+  bool live;
+};
 
-  float acc[4][4] = {};
-  for (int64_t k0 = kbeg; k0 < kend; k0 += BK) {
-    if (tid < BK) {
-      const int64_t pix = k0 + tid;
-      int img = -1, i = 0, j = 0;
-      if (pix < kend) {
-        img = (int)(pix / HW);
-        const int q = (int)(pix - (int64_t)img * HW);
-        i = q / p.w;
-        j = q - i * p.w;
-      }
-      pimg[tid] = img;
-      prow[tid] = i;
-      pcol[tid] = j;
+template <bool X2H>
+__device__ __forceinline__ ZSrc<X2H> z_src(const TcConv& p, const uint8_t* sm,
+                                          const int* info, TileAt tl, int hr, int hc) {
+  ZSrc<X2H> z = {};
+  const int sr = tl.r0 - 1 + hr, scol = tl.c0 - 1 + hc;
+  z.live = sr <= p.h && scol <= p.w;
+  if (!z.live) return z;
+  const int s = reflect(scol, p.w) - max(tl.c0 - 1, 0);
+  z.a = (const bf16*)(sm + p.o_r1 + hr * p.r1) + info[hr * 4] + s * p.c1;
+  if (p.c2 > 0) {
+    z.b = (const bf16*)(sm + p.o_r2 + hr * 2 * p.r2) + info[hr * 4 + 1] + s * p.c2;
+    if constexpr (X2H) {
+      z.b2 = (const bf16*)(sm + p.o_r2 + (hr * 2 + 1) * p.r2) + info[hr * 4 + 2] +
+             s * p.c2;
+      const int rr = reflect(sr, p.h);
+      z.fa = p.fa[rr];
+      z.fb = p.fb[rr];
     }
-    __syncthreads();
-#pragma unroll 4
-    for (int r = 0; r < BM * BK / NT; ++r) {
-      const int e = tid + r * NT, mm = e % BM, kk = e / BM, m = mb + mm;
-      float v = 0.f;
-      if (m < M && pimg[kk] >= 0) {
-        const int code = ktab[m];
-        v = gather_z<X2H>(p, l, pimg[kk], g, prow[kk], pcol[kk], code >> 16,
-                          code & 0xffff);
-      }
-      As[kk * AS + mm] = v;
-    }
+  }
+  return z;
+}
+
+// z channel c (< cin) of the concat at a live position: the prologue
+// (aff: the group's scale, then shift) or the H lerp applied
+template <bool X2H>
+__device__ __forceinline__ float z_val(const TcConv& p, const ZSrc<X2H>& z,
+                                       const float* aff, int c) {
+  if (c < p.c1) {
+    const float v = bf2f(z.a[c]);
+    return p.prologue ? prologue_z(v, aff[c], aff[p.c1 + c]) : v;
+  }
+  const float va = bf2f(z.b[c - p.c1]);
+  if constexpr (X2H)
+    return bf2f(f2bf(__fadd_rn(__fmul_rn(va, z.fa), __fmul_rn(bf2f(z.b2[c - p.c1]), z.fb))));
+  return va;
+}
+
+// eight values (bf16-exact) as one 16-byte shared-memory store
+__device__ __forceinline__ void st8(bf16* dst, const float v[8]) {
+  uint4 u;
+  __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&u);
 #pragma unroll
-    for (int r = 0; r < BK * BN / NT; ++r) {
-      const int e = tid + r * NT, nn = e % BN, kk = e / BN, n = nb + nn;
-      Bs[kk * BN + nn] = (n < p.o && pimg[kk] >= 0)
-                             ? bf2f(p.g[(k0 + kk) * p.o + n]) : 0.f;
+  for (int i = 0; i < 4; ++i) h[i] = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
+  *reinterpret_cast<uint4*>(dst) = u;
+}
+
+// up to eight bf16 (bit copies) from src at any 2-byte alignment, zeros
+// from n on, as one 16-byte unit
+__device__ __forceinline__ uint4 ld8(const bf16* src, int n) {
+  uint32_t w[4];
+  if (n >= 8 && ((uintptr_t)src & 3) == 0) {
+    const uint32_t* q = reinterpret_cast<const uint32_t*>(src);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) w[i] = q[i];
+  } else {
+    const uint16_t* q = reinterpret_cast<const uint16_t*>(src);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      w[i] = (2 * i < n ? (uint32_t)q[2 * i] : 0u) |
+             (2 * i + 1 < n ? (uint32_t)q[2 * i + 1] << 16 : 0u);
+  }
+  uint4 u;
+  u.x = w[0];
+  u.y = w[1];
+  u.z = w[2];
+  u.w = w[3];
+  return u;
+}
+
+// the staged tiles from the raw runs, eight channels a work item: z
+// [(th+2) x 18 halo positions][cb] (im2col: A [th*16 pixels][mp], column
+// t*cin + c, a work item a (pixel, tap)) and g [th*16][nb]
+template <bool X2H>
+__device__ void dw_repack(const TcConv& p, uint8_t* sm, TileAt tl, int cs0,
+                          int cs_n, int os0, int os_n, int tid) {
+  const int* info = (const int*)(sm + p.o_info);
+  const float* aff = (const float*)(sm + p.o_aff);
+  bf16* Z = (bf16*)(sm + p.o_z);
+  const int cin = p.c1 + p.c2;
+  const uint4 zero = {0u, 0u, 0u, 0u};
+  if (!p.im2col) {  // a thread keeps its 8-channel group q (DW_THREADS % q8 == 0)
+    const int q8 = p.cb / 8, per = DW_THREADS / q8, q = tid % q8;
+    const int k0 = 8 * q, c0 = cs0 + k0, n = min(8, cs_n - k0);
+    const bool copy = !p.prologue && !X2H && (c0 + n <= p.c1 || c0 >= p.c1);
+    for (int pos = tid / q8; pos < (p.th + 2) * HWD; pos += per) {
+      const int hr = pos / HWD, hc = pos - hr * HWD;
+      bf16* dst = Z + pos * p.zs + k0;
+      const ZSrc<X2H> z = z_src<X2H>(p, sm, info, tl, hr, hc);
+      if (!z.live || n <= 0) {
+        *reinterpret_cast<uint4*>(dst) = zero;
+      } else if (copy) {
+        *reinterpret_cast<uint4*>(dst) =
+            c0 < p.c1 ? ld8(z.a + c0, n) : ld8(z.b + (c0 - p.c1), n);
+      } else {
+        float v[8];
+#pragma unroll
+        for (int j = 0; j < 8; ++j) v[j] = j < n ? z_val<X2H>(p, z, aff, c0 + j) : 0.f;
+        st8(dst, v);
+      }
     }
+  } else {
+    const int m_n = 9 * cin, pad = p.mp - m_n;
+    for (int e = tid; e < p.th * TW * 9; e += DW_THREADS) {
+      const int t = e % 9, px = e / 9, j = px / TW, x = px - j * TW;
+      const int dy = t / 3, dx = t - 3 * dy;
+      const ZSrc<X2H> z = z_src<X2H>(p, sm, info, tl, j + dy, x + dx);
+      bf16* dst = Z + px * p.zs + t * cin;
+      for (int c = 0; c < cin; ++c) dst[c] = f2bf(z.live ? z_val<X2H>(p, z, aff, c) : 0.f);
+    }
+    for (int e = tid; e < p.th * TW * pad; e += DW_THREADS)
+      Z[(e / pad) * p.zs + m_n + e % pad] = f2bf(0.f);
+  }
+  bf16* G = (bf16*)(sm + p.o_g);
+  const int q8 = p.nb / 8, per = DW_THREADS / q8, q = tid % q8, rows = p.th + 2;
+  const int n = min(8, os_n - 8 * q);
+  for (int px = tid / q8; px < p.th * TW; px += per) {
+    const int j = px / TW, x = px - j * TW;
+    uint4 v = zero;
+    if (n > 0 && tl.r0 + j < p.h && tl.c0 + x < p.w)
+      v = ld8((const bf16*)(sm + p.o_rg + j * p.rg) + info[4 * rows + j] + x * p.o +
+                  os0 + 8 * q, n);
+    *reinterpret_cast<uint4*>(G + px * p.gs + 8 * q) = v;
+  }
+}
+
+// One tile's products: each 16-pixel row j of the tile is a k-step;
+// acc[mt][nt] += A (16 channels of M tile mt) . G (8 outputs of n-tile nt).
+// sbase: the shared-space address of the block's dynamic shared memory.
+__device__ __forceinline__ void dw_compute(const TcConv& p, uint32_t sbase, int warp,
+                                           int lane, int mt_lo, int mt_hi, int ntn,
+                                           float acc[MT_DW][NT_DW][4]) {
+  const int mi = lane >> 3, r = lane & 7;
+  // A rows: pixels; im2col: the tile's own, else tap ``warp``'s view of the
+  // halo tile.  Lane: pixel (mi >> 1) * 8 + r, channels (mi & 1) * 8 on.
+  int rowp = TW * p.zs, toff = 0;
+  if (!p.im2col) {
+    const int dy = warp / 3, dx = warp - 3 * dy;
+    rowp = HWD * p.zs;
+    toff = (dy * HWD + dx) * p.zs;
+  }
+  const uint32_t za = sbase + p.o_z + 2 * (toff + ((mi >> 1) * 8 + r) * p.zs + (mi & 1) * 8);
+  // B rows: pixels (mi & 1) * 8 + r of the g tile, outputs (mi >> 1) * 8 on
+  const uint32_t gb = sbase + p.o_g + 2 * (((mi & 1) * 8 + r) * p.gs + (mi >> 1) * 8);
+  const uint32_t gb2 = sbase + p.o_g + 2 * (((mi & 1) * 8 + r) * p.gs);
+  for (int j = 0; j < p.th; ++j) {
+    uint32_t b[NT_DW][2];
+    const uint32_t gj = 2 * j * TW * p.gs;
+#pragma unroll
+    for (int nt = 0; nt < NT_DW; nt += 2) {
+      if (nt >= ntn) continue;
+      if (nt + 1 < ntn) {
+        uint32_t q[4];
+        ldsm_x4_t(q, gb + gj + nt * 16);
+        b[nt][0] = q[0];
+        b[nt][1] = q[1];
+        b[nt + 1][0] = q[2];
+        b[nt + 1][1] = q[3];
+      } else {
+        ldsm_x2_t(b[nt], gb2 + gj + nt * 16);
+      }
+    }
+    const uint32_t zj = za + 2 * j * rowp;
+#pragma unroll
+    for (int mt = 0; mt < MT_DW; ++mt) {
+      if (mt < mt_lo || mt >= mt_hi) continue;
+      uint32_t a[4];
+      ldsm_x4_t(a, zj + mt * 32);
+#pragma unroll
+      for (int nt = 0; nt < NT_DW; ++nt)
+        if (nt < ntn) mma16816(acc[mt][nt], a, b[nt]);
+    }
+  }
+}
+
+// grid (chunks, ncs * nos, groups): block (chunk, slice, g) sums tiles
+// [chunk * span, +span) of group g's images into its part of
+// p0[g][chunk][9*cin][o]
+template <bool X2H>
+__global__ void __launch_bounds__(DW_THREADS, 2) conv_dw_tc(TcConv p) {
+  extern __shared__ __align__(16) uint8_t sm[];
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int chunk = blockIdx.x, g = blockIdx.z;
+  const int cs = blockIdx.y / p.nos, os = blockIdx.y - cs * p.nos;
+  const int cin = p.c1 + p.c2;
+  const int cs0 = cs * p.cb, cs_n = min(p.cb, cin - cs0);
+  const int os0 = os * p.nb, os_n = min(p.nb, p.o - os0), ntn = (os_n + 7) / 8;
+  int mt_lo = 0, mt_hi = (cs_n + 15) / 16;
+  if (p.im2col) {  // warp w owns M tile w
+    mt_lo = warp;
+    mt_hi = warp < p.mp / 16 ? warp + 1 : warp;
+  }
+  const int t0 = chunk * p.span, t1 = min(t0 + p.span, p.per * p.tpi);
+  float acc[MT_DW][NT_DW][4] = {};
+  if (p.prologue) {  // the group's prologue scale and shift, for the repack
+    float* aff = (float*)(sm + p.o_aff);
+    for (int c = tid; c < p.c1; c += DW_THREADS) {
+      aff[c] = p.sc[g * p.c1 + c];
+      aff[p.c1 + c] = p.sh[g * p.c1 + c];
+    }
+  }
+  if (t0 < t1) {
+    const int img0 = g * p.per;
+    dw_fetch<X2H>(p, sm, tile_at(p, img0 + t0 / p.tpi, t0 % p.tpi), warp, lane);
+    cp_async_commit();
+    cp_async_wait_all();
     __syncthreads();
-    tile_fma(As, Bs, tm, tn, acc);
+    dw_repack<X2H>(p, sm, tile_at(p, img0 + t0 / p.tpi, t0 % p.tpi), cs0, cs_n,
+                   os0, os_n, tid);
+    __syncthreads();
+    for (int t = t0; t < t1; ++t) {
+      const bool more = t + 1 < t1;
+      const TileAt next = tile_at(p, img0 + (t + 1) / p.tpi, (t + 1) % p.tpi);
+      if (more) {  // the next tile's runs load while this one multiplies
+        dw_fetch<X2H>(p, sm, next, warp, lane);
+        cp_async_commit();
+      }
+      dw_compute(p, smem_addr(sm), warp, lane, mt_lo, mt_hi, ntn, acc);
+      cp_async_wait_all();
+      __syncthreads();
+      if (more) {
+        dw_repack<X2H>(p, sm, next, cs0, cs_n, os0, os_n, tid);
+        __syncthreads();
+      }
+    }
+  }
+  float* out = p.p0 + ((int64_t)g * p.chunks + chunk) * 9 * cin * p.o;
+  const int gq = lane >> 2, tq = lane & 3;
+#pragma unroll
+  for (int mt = 0; mt < MT_DW; ++mt) {
+    if (mt < mt_lo || mt >= mt_hi) continue;
+#pragma unroll
+    for (int nt = 0; nt < NT_DW; ++nt) {
+      if (nt >= ntn) continue;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int m = mt * 16 + gq + (i >> 1) * 8, n = nt * 8 + 2 * tq + (i & 1);
+        if (n >= os_n) continue;
+        int row;  // (tap, channel) row of dw
+        if (p.im2col) {
+          if (m >= 9 * cin) continue;
+          row = m;
+        } else {
+          if (m >= cs_n) continue;
+          row = warp * cin + cs0 + m;
+        }
+        out[(int64_t)row * p.o + os0 + n] = acc[mt][nt][i];
+      }
+    }
+  }
+}
+
+// ---- K6 staging: the raw runs of the halo rows of g (zero outside the
+// image), one a warp at a time, and the group's packed weights.  info:
+// [th + 2] run offsets.
+__device__ void dx_fetch_g(const TcConv& p, uint8_t* sm, TileAt tl, int warp, int lane) {
+  const int H = p.h, W = p.w;
+  const int lo = max(tl.c0 - 1, 0), hi = min(tl.c0 + TW + 1, W);
+  int* info = (int*)(sm + p.o_info);
+  for (int hr = warp; hr < p.th + 2; hr += DX_THREADS / 32) {
+    const int sr = tl.r0 - 1 + hr;
+    if (sr < 0 || sr >= H) continue;
+    const int64_t st = ((int64_t)tl.img * H + sr) * W;
+    copy_run(sm + p.o_rg + hr * p.rg, p.g, (st + lo) * p.o, (st + hi) * p.o, info + hr,
+             lane);
+  }
+}
+
+__device__ void dx_fetch_w(const TcConv& p, uint8_t* sm, int grp, int cs, int tid) {
+  const int units = 9 * p.cb * p.ws / 8;  // 16-byte units
+  const bf16* src = p.wpk + ((int64_t)grp * p.ncs + cs) * 9 * p.cb * p.ws;
+  for (int e = tid; e < units; e += DX_THREADS)
+    cp_async16(sm + p.o_w + e * 16, src + e * 8);
+}
+
+// g [(th+2) x 18 halo positions][opad], zero outside the image and past
+// o; a thread keeps its 8-channel group q of a position
+__device__ void dx_repack(const TcConv& p, uint8_t* sm, TileAt tl, int tid) {
+  const int* info = (const int*)(sm + p.o_info);
+  bf16* Gt = (bf16*)(sm + p.o_g);
+  const int q8 = p.opad / 8, per = DX_THREADS / q8, q = tid % q8;
+  const int n = min(8, p.o - 8 * q), lo = max(tl.c0 - 1, 0);
+  for (int pos = tid < per * q8 ? tid / q8 : (p.th + 2) * HWD; pos < (p.th + 2) * HWD;
+       pos += per) {
+    const int hr = pos / HWD, hc = pos - hr * HWD;
+    const int sr = tl.r0 - 1 + hr, scol = tl.c0 - 1 + hc;
+    uint4 v = {0u, 0u, 0u, 0u};
+    if (n > 0 && sr >= 0 && sr < p.h && scol >= 0 && scol < p.w)
+      v = ld8((const bf16*)(sm + p.o_rg + hr * p.rg) + info[hr] + (scol - lo) * p.o +
+                  8 * q, n);
+    *reinterpret_cast<uint4*>(Gt + pos * p.ws + 8 * q) = v;
+  }
+}
+
+// acc[nt] += G_t . W_t for the 16 pixels of tile row ``warp`` over the
+// nine taps and o, the reflect folds as extra steps.  sbase: the
+// shared-space address of the block's dynamic shared memory; frow, fcol:
+// the fold bits of the warp's image row and of this lane's A-row column.
+__device__ __forceinline__ void dx_compute(const TcConv& p, uint32_t sbase, int warp,
+                                           int lane, int ntn, int frow, int fcol,
+                                           float acc[NT_DX][4]) {
+  const int mi = lane >> 3, r = lane & 7;
+  const int ws2 = 2 * p.ws;  // bytes per staged row
+  // this lane's A row: pixel (mi & 1) * 8 + r, channels (mi >> 1) * 8 on
+  const uint32_t gt = sbase + p.o_g + ((mi & 1) * 8 + r) * ws2 + (mi >> 1) * 16;
+  // its B rows: channel (mi >> 1) * 8 + r of an n-tile pair, o (mi & 1) * 8 on
+  const uint32_t wb = sbase + p.o_w + ((mi >> 1) * 8 + r) * ws2 + (mi & 1) * 16;
+  const uint32_t wb2 = sbase + p.o_w + r * ws2 + (mi & 1) * 16;
+  const uint32_t zero = sbase + p.o_zero;
+  const int tapw = p.cb * ws2, ntw = 8 * ws2;
+  for (int t = 0; t < 9; ++t) {
+    const int dy = t / 3, dx = t - 3 * dy;
+    // the row fold: g row a - 1 + dy (0 or h-1) through this tap
+    const bool rf = (dy == 0 && (frow & 1)) || (dy == 2 && (frow & 2));
+    // the column fold of this lane's pixel
+    const bool cf = (dx == 0 && (fcol & 1)) || (dx == 2 && (fcol & 2));
+    const bool cany = __any_sync(0xffffffffu, cf);
+    const uint32_t pd = gt + ((warp + 2 - dy) * HWD + 2 - dx) * ws2;
+    const uint32_t pr = gt + ((warp + dy) * HWD + 2 - dx) * ws2;
+    const uint32_t pc = gt + ((warp + 2 - dy) * HWD + dx) * ws2;
+    const uint32_t pb = gt + ((warp + dy) * HWD + dx) * ws2;
+    const uint32_t wt = wb + t * tapw, wt2 = wb2 + t * tapw;
+    for (int k = 0; k < 2 * p.opad; k += 32) {  // bytes of 16 o
+      uint32_t bw[NT_DX][2];
+#pragma unroll
+      for (int nt = 0; nt < NT_DX; nt += 2) {
+        if (nt >= ntn) continue;
+        if (nt + 1 < ntn) {
+          uint32_t q[4];
+          ldsm_x4(q, wt + nt * ntw + k);
+          bw[nt][0] = q[0];
+          bw[nt][1] = q[1];
+          bw[nt + 1][0] = q[2];
+          bw[nt + 1][1] = q[3];
+        } else {
+          ldsm_x2(bw[nt], wt2 + nt * ntw + k);
+        }
+      }
+      uint32_t af[4];
+      ldsm_x4(af, pd + k);
+#pragma unroll
+      for (int nt = 0; nt < NT_DX; ++nt)
+        if (nt < ntn) mma16816(acc[nt], af, bw[nt]);
+      if (rf) {
+        ldsm_x4(af, pr + k);
+#pragma unroll
+        for (int nt = 0; nt < NT_DX; ++nt)
+          if (nt < ntn) mma16816(acc[nt], af, bw[nt]);
+      }
+      if (cany) {  // rows of pixels the fold does not reach read zeros
+        ldsm_x4(af, cf ? pc + k : zero);
+#pragma unroll
+        for (int nt = 0; nt < NT_DX; ++nt)
+          if (nt < ntn) mma16816(acc[nt], af, bw[nt]);
+        if (rf) {  // the corner: g[row fold][column fold]
+          ldsm_x4(af, cf ? pb + k : zero);
+#pragma unroll
+          for (int nt = 0; nt < NT_DX; ++nt)
+            if (nt < ntn) mma16816(acc[nt], af, bw[nt]);
+        }
+      }
+    }
+  }
+}
+
+// MODE 0: plain dx; 1: plain with the prologue backward; 2: the fold form.
+// grid (images * chunks, ncs): block (image, tiles [bt * span, +span),
+// channel slice); images = n (plain) or n2 (fold: the block loops over
+// the S images r * per + image that share x2 image ``image``)
+template <int MODE>
+__global__ void __launch_bounds__(DX_THREADS, 2) conv_dx_tc(TcConv p) {
+  extern __shared__ __align__(16) uint8_t sm[];
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int bimg = blockIdx.x / p.chunks, bt = blockIdx.x - bimg * p.chunks;
+  const int cs = blockIdx.y, cin = p.c1 + p.c2;
+  const int cs0 = cs * p.cb, cs_n = min(p.cb, cin - cs0), ntn = (cs_n + 7) / 8;
+  const int t0 = bt * p.span, t1 = min(t0 + p.span, p.tpi);
+  const int reps = MODE == 2 ? p.groups : 1;
+  const int nsteps = (t1 - t0) * reps;
+  const int gq = lane >> 2, tq = lane & 3;
+  if (tid < 4) reinterpret_cast<uint32_t*>(sm + p.o_zero)[tid] = 0u;
+  // step s: tile t0 + s / reps of image img_of(s)
+  auto img_of = [&](int s) { return MODE == 2 ? (s % reps) * p.per + bimg : bimg; };
+  auto tile_of = [&](int s) { return tile_at(p, img_of(s), t0 + s / reps); };
+  float acc2[NT_DX][4] = {};                // fold: the x2 cotangent over the S images
+  float ps[NT_DX][2] = {}, pq[NT_DX][2] = {};  // prologue: dscale, dshift
+  int wgrp = img_of(0) / p.per;
+  if (MODE == 1) {  // the group's prologue scale and shift of the slice
+    float* aff = (float*)(sm + p.o_aff);
+    for (int c = tid; c < cs_n; c += DX_THREADS) {
+      aff[c] = p.sc[wgrp * p.c1 + cs0 + c];
+      aff[p.cb + c] = p.sh[wgrp * p.c1 + cs0 + c];
+    }
+  }
+  if (nsteps > 0) {
+    dx_fetch_w(p, sm, wgrp, cs, tid);
+    dx_fetch_g(p, sm, tile_of(0), warp, lane);
+    cp_async_commit();
+    cp_async_wait_all();
+    __syncthreads();
+    dx_repack(p, sm, tile_of(0), tid);
     __syncthreads();
   }
-  float* out = p.p0 + ((int64_t)g * p.chunks + chunk) * M * p.o;
+  for (int s = 0; s < nsteps; ++s) {
+    const TileAt tl = tile_of(s);
+    const bool more = s + 1 < nsteps;
+    if (more) {  // the next step's g runs load while this one multiplies
+      dx_fetch_g(p, sm, tile_of(s + 1), warp, lane);
+      cp_async_commit();
+    }
+    const int a = tl.r0 + warp;
+    float acc[NT_DX][4] = {};
+    if (warp < p.th && a < p.h) {
+      const int bl = tl.c0 + (lane >> 3 & 1) * 8 + (lane & 7);  // the lane's A-row column
+      dx_compute(p, smem_addr(sm), warp, lane, ntn, p.frow[a], bl < p.w ? p.fcol[bl] : 0,
+                 acc);
+      const float* aff = (const float*)(sm + p.o_aff);
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int m = mb + tm * 4 + i;
+      for (int n2 = 0; n2 < NT_DX; n2 += 2) {  // n-tile pairs
+        if (n2 >= ntn) continue;
+        float xv[2][4] = {};
+        if (MODE == 1) {  // the pair's x1 values first: their loads overlap
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int n = nb + tn * 4 + j;
-      if (m < M && n < p.o) out[(int64_t)m * p.o + n] = acc[i][j];
+          for (int u = 0; u < 2; ++u)
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+              const int bb = tl.c0 + gq + (i >> 1) * 8, n = (n2 + u) * 8 + 2 * tq + (i & 1);
+              if (bb < p.w && n < cs_n)
+                xv[u][i] = bf2f(p.x1[(((int64_t)tl.img * p.h + a) * p.w + bb) * p.c1 + cs0 + n]);
+            }
+        }
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+          const int nt = n2 + u;
+          if (nt >= ntn) continue;
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const int xx = gq + (i >> 1) * 8, bb = tl.c0 + xx;
+            const int n = nt * 8 + 2 * tq + (i & 1), c = cs0 + n;
+            if (bb >= p.w || n >= cs_n) continue;
+            const int64_t pix = ((int64_t)tl.img * p.h + a) * p.w + bb;
+            const float d = acc[nt][i];
+            if (MODE == 0) {
+              p.y[pix * p.c1 + c] = f2bf(d);
+            } else if (MODE == 1) {
+              const float sc = aff[n], sh = aff[p.cb + n], x = xv[u][i];
+              const float da = __fadd_rn(__fmul_rn(x, sc), sh) > 0.f ? d : 0.f;
+              p.y[pix * p.c1 + c] = f2bf(__fmul_rn(da, sc));
+              ps[nt][i & 1] = fmaf(da, x, ps[nt][i & 1]);
+              pq[nt][i & 1] += da;
+            } else if (c < p.c1) {
+              p.y[pix * p.c1 + c] = f2bf(d);
+            } else {
+              acc2[nt][i] += bf2f(f2bf(d));
+            }
+          }
+        }
+      }
+      if (MODE == 2 && s % reps == reps - 1) {  // the tile's last image
+#pragma unroll
+        for (int nt = 0; nt < NT_DX; ++nt) {
+          if (nt >= ntn) continue;
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const int bb = tl.c0 + gq + (i >> 1) * 8;
+            const int c = cs0 + nt * 8 + 2 * tq + (i & 1);
+            if (bb < p.w && c - cs0 < cs_n && c >= p.c1) {
+              const int64_t pix2 = ((int64_t)bimg * p.h + a) * p.w + bb;
+              p.y2[pix2 * p.c2 + c - p.c1] = f2bf(acc2[nt][i]);
+            }
+            acc2[nt][i] = 0.f;
+          }
+        }
+      }
+    }
+    cp_async_wait_all();
+    __syncthreads();
+    if (more) {
+      const int g1 = img_of(s + 1) / p.per;
+      if (g1 != wgrp) {  // the fold form's next image is another group's
+        dx_fetch_w(p, sm, g1, cs, tid);
+        cp_async_commit();
+        wgrp = g1;
+      }
+      dx_repack(p, sm, tile_of(s + 1), tid);
+      cp_async_wait_all();
+      __syncthreads();
+    }
+  }
+  if (MODE == 1) {  // the block's dscale, dshift: lanes, then warps, in order
+    float* red = (float*)(sm + p.o_red);
+#pragma unroll
+    for (int nt = 0; nt < NT_DX; ++nt)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        float vs = ps[nt][j], vq = pq[nt][j];
+#pragma unroll
+        for (int m = 4; m < 32; m <<= 1) {
+          vs += __shfl_xor_sync(0xffffffffu, vs, m);
+          vq += __shfl_xor_sync(0xffffffffu, vq, m);
+        }
+        if (gq == 0 && nt < ntn) {
+          red[warp * p.cb + nt * 8 + 2 * tq + j] = vs;
+          red[(8 + warp) * p.cb + nt * 8 + 2 * tq + j] = vq;
+        }
+      }
+    __syncthreads();
+    for (int c = tid; c < cs_n; c += DX_THREADS) {
+      float vs = 0.f, vq = 0.f;
+      for (int w = 0; w < 8; ++w) {
+        vs += red[w * p.cb + c];
+        vq += red[(8 + w) * p.cb + c];
+      }
+      p.p0[(int64_t)blockIdx.x * cin + cs0 + c] = vs;
+      p.p1[(int64_t)blockIdx.x * cin + cs0 + c] = vq;
     }
   }
 }
@@ -450,6 +997,81 @@ size_t ktab_bytes(int64_t c) { return (size_t)(9 * c) * sizeof(int); }
 
 Lerp lerp_tables(const void* lo_h, const void* fa, const void* fb) {
   return Lerp{(const int*)lo_h, (const float*)fa, (const float*)fb};
+}
+
+// the tile grid of the launch's plan (th tile rows, 16 columns)
+bool tile_plan(TcConv& p, int64_t th, int64_t span) {
+  if (th != 1 && th != 2 && th != 4 && th != 8) return false;
+  if (span <= 0 || !small(span)) return false;
+  p.th = (int)th;
+  p.span = (int)span;
+  p.tiles_w = (p.w + TW - 1) / TW;
+  p.tpi = (p.h + p.th - 1) / p.th * p.tiles_w;
+  p.per = p.n / p.groups;
+  return small((int64_t)p.tpi * p.per);
+}
+
+// dynamic shared memory layout of K7; the wrapper's plan mirrors it
+// (kernels/conv3x3_train.py dw_plan)
+void dw_layout(TcConv& p) {
+  const int rows = p.th + 2;
+  p.zs = stride8(p.im2col ? p.mp : p.cb);
+  p.gs = stride8(p.nb);
+  p.r1 = run_bytes(HWD, p.c1);
+  p.r2 = p.c2 > 0 ? run_bytes(HWD, p.c2) : 0;
+  p.rg = run_bytes(TW, p.o);
+  int at = 0;
+  p.o_z = at;
+  at += align16((p.im2col ? p.th * TW : rows * HWD) * p.zs * 2);
+  p.o_g = at;
+  at += align16(p.th * TW * p.gs * 2);
+  p.o_r1 = at;
+  at += rows * p.r1;
+  p.o_r2 = at;
+  at += rows * 2 * p.r2;
+  p.o_rg = at;
+  at += p.th * p.rg;
+  p.o_info = at;
+  at += align16((4 * rows + p.th) * 4);
+  p.o_aff = at;
+  at += align16(2 * p.c1 * 4);
+  p.smem = at;
+}
+
+// dynamic shared memory layout of K6 (dx_plan in the wrapper)
+void dx_layout(TcConv& p) {
+  const int rows = p.th + 2;
+  p.opad = (p.o + 15) / 16 * 16;
+  p.ws = stride8(p.opad);
+  p.rg = run_bytes(HWD, p.o);
+  int at = 0;
+  p.o_w = at;
+  at += 9 * p.cb * p.ws * 2;
+  p.o_g = at;
+  at += rows * HWD * p.ws * 2;
+  p.o_rg = at;
+  at += rows * p.rg;
+  p.o_info = at;
+  at += align16(rows * 4);
+  p.o_red = at;
+  at += 2 * 8 * p.cb * 4;
+  p.o_aff = at;
+  at += 2 * p.cb * 4;
+  p.o_zero = at;
+  at += 16;
+  p.smem = at;
+}
+
+bool aligned16(const void* q) { return ((uintptr_t)q & 15) == 0; }
+
+template <typename K>
+int launch_tc(K kernel, dim3 grid, int threads, const TcConv& p, void* stream) {
+  if (p.smem > SMEM_MAX) return (int)cudaErrorInvalidValue;
+  cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, p.smem);
+  if (e != cudaSuccess) return (int)e;
+  kernel<<<grid, threads, p.smem, (cudaStream_t)stream>>>(p);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -488,18 +1110,28 @@ extern "C" int mimo_conv3x3_fwd(const void* x1, const void* x2, const void* w,
   return (int)cudaGetLastError();
 }
 
-extern "C" int mimo_conv3x3_dx(const void* g, const void* wt, const void* x1,
-                               const void* sc, const void* sh, void* dx1,
-                               void* dx2, void* pdsc, void* pdsh, int64_t n,
-                               int64_t h, int64_t wd, int64_t o, int64_t c1,
-                               int64_t c2, int64_t n2, int64_t groups,
-                               int64_t prologue, void* stream) {
+// K6.  th, cb, span: the wrapper's plan (tile rows, channel slice width,
+// tiles per block); wpk the weights packed for it, frow/fcol the fold
+// tables.  Plain form: c2 == 0, dx1 [n, h, w, c1], with the prologue the
+// per-block dscale/dshift [n * ceil(tiles / span), c1].  Fold form: c2 >
+// 0, n == groups * n2, dx2 [n2, h, w, c2].
+extern "C" int mimo_conv3x3_dx(const void* g, const void* wpk, const void* frow,
+                               const void* fcol, const void* x1, const void* sc,
+                               const void* sh, void* dx1, void* dx2, void* pdsc,
+                               void* pdsh, int64_t n, int64_t h, int64_t wd,
+                               int64_t o, int64_t c1, int64_t c2, int64_t n2,
+                               int64_t groups, int64_t prologue, int64_t th,
+                               int64_t cb, int64_t span, void* stream) {
   if (int e = check(n, h, wd, c1, c2, n2, o, groups)) return e;
-  if (9 * o > KMAX || (prologue && c2 > 0) || (c2 > 0 && n != groups * n2))
+  if (o > 256 || (prologue && c2 > 0) || (c2 > 0 && n != groups * n2) ||
+      cb <= 0 || cb > 8 * NT_DX || cb % 8 || !aligned16(g) || !aligned16(wpk) ||
+      !frow || !fcol || (prologue && (!x1 || !sc || !sh || !pdsc || !pdsh)))
     return (int)cudaErrorInvalidValue;
-  Conv p = {};
+  TcConv p = {};
   p.g = (const bf16*)g;
-  p.wgt = (const bf16*)wt;
+  p.wpk = (const bf16*)wpk;
+  p.frow = (const int*)frow;
+  p.fcol = (const int*)fcol;
   p.x1 = (const bf16*)x1;
   p.sc = (const float*)sc;
   p.sh = (const float*)sh;
@@ -510,47 +1142,64 @@ extern "C" int mimo_conv3x3_dx(const void* g, const void* wt, const void* x1,
   p.n = (int)n; p.h = (int)h; p.w = (int)wd; p.c1 = (int)c1; p.c2 = (int)c2;
   p.n2 = c2 > 0 ? (int)n2 : 1; p.o = (int)o; p.groups = (int)groups;
   p.prologue = prologue != 0;
-  p.np = (int)((c1 + c2 + BN - 1) / BN * BN);
+  if (!tile_plan(p, th, span)) return (int)cudaErrorInvalidValue;
+  p.cb = (int)cb;
+  p.ncs = (int)((c1 + c2 + cb - 1) / cb);
+  p.chunks = (p.tpi + p.span - 1) / p.span;
+  dx_layout(p);
   const int64_t images = c2 > 0 ? n2 : n;
-  const dim3 grid((unsigned)(images * ((h * wd + BM - 1) / BM)),
-                  (unsigned)((c1 + c2 + BN - 1) / BN));
-  conv_dx_kernel<<<grid, NT, ktab_bytes(o), (cudaStream_t)stream>>>(p);
-  return (int)cudaGetLastError();
+  if (images * p.chunks > 0x7fffffff || p.ncs > 65535) return (int)cudaErrorInvalidValue;
+  const dim3 grid((unsigned)(images * p.chunks), (unsigned)p.ncs);
+  if (c2 > 0) return launch_tc(conv_dx_tc<2>, grid, DX_THREADS, p, stream);
+  if (prologue) return launch_tc(conv_dx_tc<1>, grid, DX_THREADS, p, stream);
+  return launch_tc(conv_dx_tc<0>, grid, DX_THREADS, p, stream);
 }
 
+// K7.  th, cb, nb, span, im2col: the wrapper's plan (tile rows, channel
+// and output slice widths, tiles per chunk, (tap, channel) folded into M);
+// partial [groups * ceil(per * tiles / span), 9 * (c1 + c2) * o].
 extern "C" int mimo_conv3x3_dw(const void* x1, const void* x2, const void* g,
                                const void* sc, const void* sh, const void* lo_h,
                                const void* fa, const void* fb, void* partial,
                                int64_t n, int64_t h, int64_t wd, int64_t c1,
                                int64_t c2, int64_t n2, int64_t o,
                                int64_t groups, int64_t prologue,
-                               int64_t x2_half_h, int64_t chunk, void* stream) {
+                               int64_t x2_half_h, int64_t th, int64_t cb,
+                               int64_t nb, int64_t span, int64_t im2col,
+                               void* stream) {
   if (int e = check(n, h, wd, c1, c2, n2, o, groups)) return e;
-  if (9 * (c1 + c2) > KMAX || (prologue && c2 > 0) || chunk <= 0 || !small(chunk) ||
-      bad_half(x2_half_h, c2, h, prologue, lo_h, fa, fb))
+  const int64_t cin = c1 + c2;
+  if (cin > 256 || o > 256 || (prologue && c2 > 0) ||
+      bad_half(x2_half_h, c2, h, prologue, lo_h, fa, fb) || nb <= 0 ||
+      nb > 8 * NT_DW || nb % 8 || !aligned16(x1) || !aligned16(g) ||
+      (c2 > 0 && !aligned16(x2)) || (prologue && (!sc || !sh)))
     return (int)cudaErrorInvalidValue;
-  const int64_t gsize = n / groups * h * wd;
-  const int64_t chunks = (gsize + chunk - 1) / chunk;
-  Conv p = {};
+  if (im2col ? (9 * cin > 16 * MT_DW || cb != 16) : (cb <= 0 || cb > 16 * MT_DW || cb % 16))
+    return (int)cudaErrorInvalidValue;
+  TcConv p = {};
   p.x1 = (const bf16*)x1;
   p.x2 = (const bf16*)x2;
   p.g = (const bf16*)g;
   p.sc = (const float*)sc;
   p.sh = (const float*)sh;
+  p.lo = (const int*)lo_h;
+  p.fa = (const float*)fa;
+  p.fb = (const float*)fb;
   p.p0 = (float*)partial;
   p.n = (int)n; p.h = (int)h; p.w = (int)wd; p.c1 = (int)c1; p.c2 = (int)c2;
   p.n2 = c2 > 0 ? (int)n2 : 1; p.o = (int)o; p.groups = (int)groups;
   p.prologue = prologue != 0;
-  p.chunk = (int)chunk;
-  p.chunks = (int)chunks;
-  const int64_t tiles = (9 * (c1 + c2) + BM - 1) / BM * ((o + BN - 1) / BN);
-  if (chunks > 0x7fffffff || tiles > 65535 || groups > 65535)
-    return (int)cudaErrorInvalidValue;
-  const dim3 grid((unsigned)chunks, (unsigned)tiles, (unsigned)groups);
-  const Lerp l = lerp_tables(lo_h, fa, fb);
-  if (x2_half_h)
-    conv_dw_kernel<true><<<grid, NT, ktab_bytes(c1 + c2), (cudaStream_t)stream>>>(p, l);
-  else
-    conv_dw_kernel<false><<<grid, NT, ktab_bytes(c1 + c2), (cudaStream_t)stream>>>(p, l);
-  return (int)cudaGetLastError();
+  if (!tile_plan(p, th, span)) return (int)cudaErrorInvalidValue;
+  p.im2col = im2col != 0;
+  p.mp = p.im2col ? (int)((9 * cin + 15) / 16 * 16) : 0;
+  p.cb = (int)cb;
+  p.ncs = p.im2col ? 1 : (int)((cin + cb - 1) / cb);
+  p.nb = (int)nb;
+  p.nos = (int)((o + nb - 1) / nb);
+  p.chunks = (p.per * p.tpi + p.span - 1) / p.span;
+  dw_layout(p);
+  if ((int64_t)p.ncs * p.nos > 65535 || groups > 65535) return (int)cudaErrorInvalidValue;
+  const dim3 grid((unsigned)p.chunks, (unsigned)(p.ncs * p.nos), (unsigned)groups);
+  if (x2_half_h) return launch_tc(conv_dw_tc<true>, grid, DW_THREADS, p, stream);
+  return launch_tc(conv_dw_tc<false>, grid, DW_THREADS, p, stream);
 }

@@ -5,10 +5,12 @@ with a plain C interface, loaded with ``ctypes``: one nvcc per source, all
 started together, then one link:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 \
-         -Xcompiler -fPIC -c csrc/<name>.cu -o <build>/<hash>/<name>.o
+         -Xcompiler -fPIC -Xptxas -v -c csrc/<name>.cu -o <build>/<hash>/<name>.o
     nvcc -shared -o <build>/<hash>/libmimo_unet_kernels.so <build>/<hash>/*.o
 
-The build directory (``mimo_unet_torch/_build/``, git-ignored) is keyed by a
+ptxas's report (registers, shared memory, spills per kernel) of the build
+this process ran is kept in ``build_log``.  The build directory
+(``mimo_unet_torch/_build/``, git-ignored) is keyed by a
 hash of the sources and the command, so an edited source rebuilds and an
 unchanged one loads the existing library.  Nothing here runs at import: the
 CPU tests import every module on machines without ``nvcc``.
@@ -31,7 +33,7 @@ CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 LIB_NAME = "libmimo_unet_kernels.so"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-Xcompiler", "-fPIC"]
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 # element offsets and sizes cross the C boundary as 64-bit ints: a B=128
 # flagship in_conv output alone holds 352 M elements
@@ -48,12 +50,13 @@ _SIGNATURES = {
     # x1, x2, w, sc, sh, lo_h, fa, fb, y, psum, psq,
     # n, h, w, c1, c2, n2, o, groups, prologue, x2_half_h, stream
     "mimo_conv3x3_fwd": [_P] * 11 + [_I] * 10 + [_P],
-    # g, wt, x1, sc, sh, dx1, dx2, pdsc, pdsh,
-    # n, h, w, o, c1, c2, n2, groups, prologue, stream
-    "mimo_conv3x3_dx": [_P] * 9 + [_I] * 9 + [_P],
+    # g, wpk, frow, fcol, x1, sc, sh, dx1, dx2, pdsc, pdsh,
+    # n, h, w, o, c1, c2, n2, groups, prologue, th, cb, span, stream
+    "mimo_conv3x3_dx": [_P] * 11 + [_I] * 12 + [_P],
     # x1, x2, g, sc, sh, lo_h, fa, fb, partial,
-    # n, h, w, c1, c2, n2, o, groups, prologue, x2_half_h, chunk, stream
-    "mimo_conv3x3_dw": [_P] * 9 + [_I] * 11 + [_P],
+    # n, h, w, c1, c2, n2, o, groups, prologue, x2_half_h, th, cb, nb, span,
+    # im2col, stream
+    "mimo_conv3x3_dw": [_P] * 9 + [_I] * 15 + [_P],
     # dy, y, dsum, dsumsq, out, n, hw, o, groups, stream
     "mimo_g_eff": [_P] * 5 + [_I] * 4 + [_P],
     # y, sc, sh, z, n, hw, c, groups, stream
@@ -87,6 +90,7 @@ _SIGNATURES = {
 _lock = threading.Lock()
 _lib = None
 build_seconds = None  # wall time of the build this process ran, if any
+build_log = {}        # source stem -> what nvcc printed (ptxas -v) in that build
 
 
 def _sources():
@@ -116,7 +120,7 @@ def _digest() -> str:
 
 def _run_all(cmds):
     """Run the commands concurrently; raise with the first failure's
-    output once all have ended."""
+    output once all have ended, else return each one's output."""
     procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                               text=True) for c in cmds]
     outs = [p.communicate() for p in procs]
@@ -124,6 +128,7 @@ def _run_all(cmds):
         if p.returncode != 0:
             raise RuntimeError(f"nvcc failed ({p.returncode}):\n{' '.join(cmd)}"
                                f"\n{se}{so}")
+    return [se + so for so, se in outs]
 
 
 def _build(out: Path) -> None:
@@ -133,11 +138,12 @@ def _build(out: Path) -> None:
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(dir=out.parent) as tmpdir:
         objs, cmds = [], []
-        for src in sorted(CSRC_DIR.glob("*.cu")):
+        srcs = sorted(CSRC_DIR.glob("*.cu"))
+        for src in srcs:
             obj = os.path.join(tmpdir, src.stem + ".o")
             objs.append(obj)
             cmds.append([nvcc] + NVCC_FLAGS + ["-c", str(src), "-o", obj])
-        _run_all(cmds)
+        build_log.update(zip((s.stem for s in srcs), _run_all(cmds)))
         # link under a temporary name, then rename: a concurrent loader
         # never sees a half-written library
         tmp = os.path.join(tmpdir, LIB_NAME)
@@ -146,12 +152,17 @@ def _build(out: Path) -> None:
     build_seconds = time.perf_counter() - t0
 
 
+def library_path() -> Path:
+    """Where this source tree's kernel library is built."""
+    return BUILD_DIR / _digest() / LIB_NAME
+
+
 def load_library() -> ctypes.CDLL:
     """The kernel library, built first if this source tree has no build."""
     global _lib
     with _lock:
         if _lib is None:
-            path = BUILD_DIR / _digest() / LIB_NAME
+            path = library_path()
             if not path.exists():
                 _build(path)
             lib = ctypes.CDLL(str(path))

@@ -39,7 +39,16 @@ constraints and are not ported): activations channels-last bf16
 ``[N, H, W, C]`` with the groups folded S-major into N (image n uses group
 n // (N / G)); weights HWIO per group ``[G, 3, 3, C_in, O]``; prologue
 scale/shift f32 ``[G, C_in]``.  The kernels take any H, W >= 3: an
-image's last 128-pixel tile may be partial.
+image's last tile may be partial.
+
+K6 and K7 run on the tensor cores from spatial tiles staged in shared
+memory (``csrc/conv3x3_train.cu``).  What they take from the host is built
+here, where the CPU tests reach it: the tile plan (``dx_plan``,
+``dw_plan``: tile rows, channel and output slices, tiles per block, the
+partial counts and the shared memory they need), K6's packed weights
+(``pack_dx_weights``) and the reflect-fold tables of its rows and columns
+(``fold_table``); ``dz_folds`` is the plain torch form of K6's sum, the
+zero-pad full conv plus one term per fold.
 
 Rounding points (both versions): bf16 operands, f32 accumulation; z
 computed in f32 and rounded to bf16 (ct_train.py:151-156); y rounded to
@@ -51,6 +60,7 @@ autograd through an f32 reflect conv.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional, Tuple
 
 import torch
@@ -67,8 +77,14 @@ from mimo_unet_torch.kernels.train_elem import (
 from mimo_unet_torch.kernels.upsample2x import _h_tables, lerp_h2x_transpose
 
 BF16 = torch.bfloat16
-BM, BN = 128, 32      # the kernels' GEMM tile (pixels x channels)
-DW_CHUNK = 16384      # pixels per dw block: partials per group = pixels / chunk
+BM, BN = 128, 32      # K5's GEMM tile (pixels x channels)
+TW = 16               # K6/K7 tile columns (the halo tile has TW + 2)
+MAX_C = 256           # 3x3 conv channels in and out of the train kernels (K5:
+                      # csrc KMAX = 9 * 256; K6/K7: their entries' limit)
+SMEM_MAX = 232448     # dynamic shared memory of one H100 block
+SMEM_TWO = 113 * 1024  # ... of each of two blocks on one multiprocessor
+DW_BLOCKS = 528       # K7 blocks aimed at: 132 multiprocessors x 4
+DX_SPAN = 4           # K6 tiles per block
 
 
 def _pad_to(t: torch.Tensor, k: int) -> torch.Tensor:
@@ -110,8 +126,201 @@ def _check(x1, w, x2, scale, shift, x2_half_h=False) -> Tuple[int, int, int]:
 
 
 def _tiles(n: int, h: int, w: int) -> int:
-    """Blocks of the fwd and dx kernels: ceil(H*W / BM) per image."""
+    """Blocks of the fwd kernel: ceil(H*W / BM) per image."""
     return n * -(-(h * w) // BM)
+
+
+# ---------------------------------------------------------------- K6/K7 plans
+
+def _up(a: int, b: int) -> int:
+    return -(-a // b) * b
+
+
+def _stride8(c: int) -> int:
+    """Row stride (elements) of a staged tile of c (a multiple of 8)
+    channels: an odd number of 16-byte units (ldmatrix without bank
+    conflicts)."""
+    return 8 * ((c // 8) | 1)
+
+
+def _run_bytes(px: int, c: int) -> int:
+    """Raw bytes of one run of px pixels of c bf16 channels copied in
+    16-byte units from any element offset."""
+    return 16 * ((px * c * 2 + 15) // 16 + 1)
+
+
+@dataclasses.dataclass(frozen=True)
+class TilePlan:
+    """A K6/K7 launch: tiles of ``th`` rows by ``TW`` columns; channel
+    slices of ``cb`` (``ncs`` of them; K7's M, K6's N); K7's output slices
+    of ``nb`` (``nos``) and its (tap, channel) fold into M (``im2col``, M
+    padded to ``mp``); ``span`` tiles per block; ``chunks`` blocks per
+    group (K7: the partial rows of a group) or per image (K6); ``smem``
+    bytes of dynamic shared memory (the layouts ``dw_layout`` and
+    ``dx_layout`` of the source)."""
+    th: int
+    tiles_w: int
+    tpi: int
+    cb: int
+    ncs: int
+    nb: int
+    nos: int
+    im2col: bool
+    mp: int
+    span: int
+    chunks: int
+    smem: int
+
+
+def _dw_smem(th, c1, c2, o, cb, nb, im2col, mp) -> int:
+    rows = th + 2
+    a16 = lambda b: _up(b, 16)  # noqa: E731
+    z = (th * TW if im2col else rows * (TW + 2)) * _stride8(mp if im2col else cb) * 2
+    raw2 = _run_bytes(TW + 2, c2) if c2 else 0
+    return (a16(z) + a16(th * TW * _stride8(nb) * 2) + rows * _run_bytes(TW + 2, c1)
+            + rows * 2 * raw2 + th * _run_bytes(TW, o) + a16((4 * rows + th) * 4)
+            + a16(2 * c1 * 4))
+
+
+def _dx_smem(th, o, cb) -> int:
+    rows, ws = th + 2, _stride8(_up(o, 16))
+    return (9 * cb * ws * 2 + rows * (TW + 2) * ws * 2
+            + rows * _run_bytes(TW + 2, o) + _up(rows * 4, 16) + 2 * 9 * cb * 4 + 16)
+
+
+def _pick_th(smem_of) -> Optional[int]:
+    """The tallest tile that leaves room for two blocks a multiprocessor,
+    else the tallest that fits one."""
+    for limit in (SMEM_TWO, SMEM_MAX):
+        for th in (8, 4, 2, 1):
+            if smem_of(th) <= limit:
+                return th
+    return None
+
+
+def _limit(cin: int, o: int) -> None:
+    if cin > MAX_C or o > MAX_C:
+        raise ValueError(f"the train conv kernels take at most {MAX_C} input "
+                         f"and output channels, got {cin} -> {o}")
+
+
+def dw_plan(n: int, h: int, w: int, c1: int, c2: int, o: int,
+            groups: int) -> TilePlan:
+    """K7's launch.  Nine warps, one per tap, each holding up to 4 x 4 mma
+    tiles: channel slices of at most 64 (M) and output slices of at most
+    32 (N); at C_in <= 7 the (tap, channel) pairs fold into one M of
+    9*C_in padded to 16.  Chunks of ``span`` tiles of one group: about
+    ``DW_BLOCKS`` blocks in all, each writing one partial row."""
+    cin = c1 + c2
+    _limit(cin, o)
+    im2col = 9 * cin <= 64
+    if im2col:
+        cb, ncs, mp = 16, 1, _up(9 * cin, 16)
+    else:
+        ncs = -(-cin // 64)
+        cb, mp = _up(-(-cin // ncs), 16), 0
+    nos = -(-o // 32)
+    nb = _up(-(-o // nos), 8)
+    th = _pick_th(lambda t: _dw_smem(t, c1, c2, o, cb, nb, im2col, mp))
+    if th is None:
+        raise ValueError(f"conv3x3_dw: {cin} -> {o} channels need more than "
+                         f"{SMEM_MAX} bytes of shared memory")
+    tiles_w = -(-w // TW)
+    tpi = -(-h // th) * tiles_w
+    tiles = n // groups * tpi
+    want = min(tiles, max(1, -(-DW_BLOCKS // (groups * ncs * nos))))
+    span = -(-tiles // want)
+    return TilePlan(th, tiles_w, tpi, cb, ncs, nb, nos, im2col, mp, span,
+                    -(-tiles // span),
+                    _dw_smem(th, c1, c2, o, cb, nb, im2col, mp))
+
+
+def dx_plan(h: int, w: int, o: int, cin: int) -> TilePlan:
+    """K6's launch.  Eight warps, one per tile row, each with up to 8 mma
+    n-tiles: channel slices of at most 64 (narrower where the weights need
+    the room); blocks of ``DX_SPAN`` tiles of one image."""
+    _limit(cin, o)
+    for limit in (SMEM_TWO, SMEM_MAX):
+        for cmax in (64, 32, 16, 8):
+            ncs = -(-cin // cmax)
+            cb = _up(-(-cin // ncs), 8)
+            for th in (8, 4, 2, 1):
+                if _dx_smem(th, o, cb) <= limit:
+                    tiles_w = -(-w // TW)
+                    tpi = -(-h // th) * tiles_w
+                    return TilePlan(th, tiles_w, tpi, cb, ncs, 0, 0, False, 0,
+                                    DX_SPAN, -(-tpi // DX_SPAN),
+                                    _dx_smem(th, o, cb))
+    raise ValueError(f"conv3x3_dx: {cin} <- {o} channels need more than "
+                     f"{SMEM_MAX} bytes of shared memory")
+
+
+def pack_dx_weights(w: torch.Tensor, plan: TilePlan) -> torch.Tensor:
+    """[G, 3, 3, C, O] -> K6's [G, ncs, 9, cb, ws] bf16: per channel slice
+    and tap, the weights [channel][o] with o padded to the staged row
+    stride ws, zeros in the padding (a flat copy of one slice is K6's
+    shared-memory B operand)."""
+    groups, _, _, c, o = w.shape
+    ws = _stride8(_up(o, 16))
+    wt = F.pad(w.to(BF16).reshape(groups, 9, c, o),
+               (0, ws - o, 0, plan.ncs * plan.cb - c))
+    return wt.reshape(groups, 9, plan.ncs, plan.cb, ws).transpose(1, 2).contiguous()
+
+
+def unpack_dx_weights(wpk: torch.Tensor, c: int, o: int) -> torch.Tensor:
+    """Inverse of ``pack_dx_weights``: -> [G, 3, 3, C, O]."""
+    groups, ncs, _, cb, ws = wpk.shape
+    wt = wpk.transpose(1, 2).reshape(groups, 9, ncs * cb, ws)[:, :, :c, :o]
+    return wt.reshape(groups, 3, 3, c, o)
+
+
+def fold_table(size: int, device=None) -> torch.Tensor:
+    """The reflect folds of one axis of K6, int32 [size]: bit 0 of entry 1
+    (g at 0 reaches it through tap 0), bit 1 of entry size - 2 (g at size
+    - 1, through tap 2).  At size 3 both fall on entry 1."""
+    t = torch.zeros(size, dtype=torch.int32)
+    t[1] |= 1
+    t[size - 2] |= 2
+    return t.to(device) if device is not None else t
+
+
+def dz_folds(g: torch.Tensor, w: torch.Tensor, frow: torch.Tensor,
+             fcol: torch.Tensor) -> torch.Tensor:
+    """K6's sum in plain torch: [N, H, W, O] -> [N, H, W, C] f32, the
+    zero-pad full conv of g with the transposed taps plus, for each tap
+    and pixel the fold tables name, the mirrored tap's single g value
+    through this tap's weights (a row fold, a column fold, both), each
+    term a product of one g value and one weight, summed in f32."""
+    n, h, wd, o = g.shape
+    groups = w.shape[0]
+    gp = F.pad(g.float(), (0, 0, 1, 1, 1, 1))  # zero halo: [N, H+2, W+2, O]
+    wf = w.to(BF16).float().repeat_interleave(n // groups, dim=0)  # [N, 3, 3, C, O]
+    rows, cols = torch.arange(h), torch.arange(wd)
+    rbit, cbit = frow.cpu().long(), fcol.cpu().long()
+    out = torch.zeros((n, h, wd, w.shape[3]), dtype=torch.float32, device=g.device)
+    for dy in range(3):
+        for dx in range(3):
+            wt = wf[:, dy, dx]
+            rmask = ((rbit >> (dy // 2)) & 1).bool() if dy != 1 else torch.zeros(h, dtype=torch.bool)
+            cmask = ((cbit >> (dx // 2)) & 1).bool() if dx != 1 else torch.zeros(wd, dtype=torch.bool)
+            # halo index of g row a + 1 - dy is a + 2 - dy; the mirrored
+            # tap's row a - 1 + dy is a + dy
+            for ry, rm in ((rows + 2 - dy, None), (rows + dy, rmask)):
+                for cx, cm in ((cols + 2 - dx, None), (cols + dx, cmask)):
+                    v = gp[:, ry][:, :, cx]
+                    if rm is not None:
+                        v = v * rm.to(v.device)[None, :, None, None]
+                    if cm is not None:
+                        v = v * cm.to(v.device)[None, None, :, None]
+                    out += torch.einsum("nhwo,nco->nhwc", v, wt)
+    return out
+
+
+def _aligned(t: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    """``t`` at a 16-byte aligned address (K6/K7 copy 16-byte units)."""
+    if t is None or t.data_ptr() % 16 == 0:
+        return t
+    return t.clone()
 
 
 def _ptr(t: Optional[torch.Tensor]):
@@ -261,13 +470,6 @@ def conv3x3_fwd(x1: torch.Tensor, w: torch.Tensor, *,
     return y, reduce_groups(psum, groups), reduce_groups(psq, groups)
 
 
-def _wt(w: torch.Tensor) -> torch.Tensor:
-    """[G, 3, 3, C, O] -> the dx GEMM's [G, 9*O, C padded] bf16."""
-    groups, _, _, c, o = w.shape
-    wt = w.to(BF16).reshape(groups, 9, c, o).transpose(2, 3)
-    return _pad_to(wt.reshape(groups, 9 * o, c), _cols(c))
-
-
 def conv3x3_dx(g: torch.Tensor, w: torch.Tensor, *,
                x1: Optional[torch.Tensor] = None,
                scale: Optional[torch.Tensor] = None,
@@ -285,20 +487,24 @@ def conv3x3_dx(g: torch.Tensor, w: torch.Tensor, *,
     if g.device.type == "cpu":
         return conv3x3_dx_plain(g, w, x1=x1, scale=scale, shift=shift)
     n, h, wd, _ = g.shape
-    wt = _wt(w)
+    plan = dx_plan(h, wd, o, cin)
+    wpk = pack_dx_weights(w, plan)
     sc, sh = _prologue_args(scale, shift)
     xk = x1 if scale is not None else None
-    _build.require_cuda(*[t for t in (g, wt, xk, sc, sh) if t is not None])
+    _build.require_cuda(*[t for t in (g, wpk, xk, sc, sh) if t is not None])
     _build.require_cuda(*[t for t in (g, xk) if t is not None], dtype=BF16)
+    g = _aligned(g)
+    frow, fcol = fold_table(h, g.device), fold_table(wd, g.device)
     dx = torch.empty((n, h, wd, cin), device=g.device, dtype=BF16)
     pdsc = pdsh = None
     if sc is not None:
-        pdsc = torch.empty((_tiles(n, h, wd), cin), device=g.device,
+        pdsc = torch.empty((n * plan.chunks, cin), device=g.device,
                            dtype=torch.float32)
         pdsh = torch.empty_like(pdsc)
-    _build.launch("mimo_conv3x3_dx", g.device, _ptr(g), _ptr(wt), _ptr(xk),
-                  _ptr(sc), _ptr(sh), _ptr(dx), None, _ptr(pdsc), _ptr(pdsh),
-                  n, h, wd, o, cin, 0, 0, groups, int(sc is not None))
+    _build.launch("mimo_conv3x3_dx", g.device, _ptr(g), _ptr(wpk),
+                  _ptr(frow), _ptr(fcol), _ptr(xk), _ptr(sc), _ptr(sh), _ptr(dx), None, _ptr(pdsc),
+                  _ptr(pdsh), n, h, wd, o, cin, 0, 0, groups,
+                  int(sc is not None), plan.th, plan.cb, plan.span)
     conv3x3_dx.launches += 1
     if sc is None:
         return dx
@@ -319,14 +525,17 @@ def conv3x3_dx_fold(g: torch.Tensor, w: torch.Tensor, c1: int, n2: int):
                          f"N={n}, N2={n2}")
     if g.device.type == "cpu":
         return conv3x3_dx_fold_plain(g, w, c1, n2)
-    wt = _wt(w)
-    _build.require_cuda(g, wt)
+    plan = dx_plan(h, wd, o, cin)
+    wpk = pack_dx_weights(w, plan)
+    _build.require_cuda(g, wpk)
     _build.require_cuda(g, dtype=BF16)
+    g = _aligned(g)
+    frow, fcol = fold_table(h, g.device), fold_table(wd, g.device)
     dx1 = torch.empty((n, h, wd, c1), device=g.device, dtype=BF16)
     dx2 = torch.empty((n2, h, wd, cin - c1), device=g.device, dtype=BF16)
-    _build.launch("mimo_conv3x3_dx", g.device, _ptr(g), _ptr(wt), None, None,
-                  None, _ptr(dx1), _ptr(dx2), None, None, n, h, wd, o, c1,
-                  cin - c1, n2, groups, 0)
+    _build.launch("mimo_conv3x3_dx", g.device, _ptr(g), _ptr(wpk),
+                  _ptr(frow), _ptr(fcol), None, None, None, _ptr(dx1), _ptr(dx2), None, None, n, h, wd,
+                  o, c1, cin - c1, n2, groups, 0, plan.th, plan.cb, plan.span)
     conv3x3_dx_fold.launches += 1
     return dx1, dx2
 
@@ -348,18 +557,20 @@ def conv3x3_dw(g: torch.Tensor, x1: torch.Tensor, groups: int, *,
         return conv3x3_dw_plain(g, x1, groups, x2=x2, scale=scale, shift=shift,
                                 x2_half_h=x2_half_h)
     n, h, wd, _ = g.shape
+    plan = dw_plan(n, h, wd, c1, cin - c1, o, groups)
     sc, sh = _prologue_args(scale, shift)
     _build.require_cuda(*[t for t in (g, x1, x2, sc, sh) if t is not None])
     _build.require_cuda(*[t for t in (g, x1, x2) if t is not None], dtype=BF16)
+    g, x1, x2 = _aligned(g), _aligned(x1), _aligned(x2)
     lo_h, fa, fb = _half_args(x2_half_h, h, g.device)
-    chunks = -(-(n // groups * h * wd) // DW_CHUNK)
-    partial = torch.empty((groups * chunks, 9 * cin * o), device=g.device,
+    partial = torch.empty((groups * plan.chunks, 9 * cin * o), device=g.device,
                           dtype=torch.float32)
     _build.launch("mimo_conv3x3_dw", g.device, _ptr(x1), _ptr(x2), _ptr(g),
                   _ptr(sc), _ptr(sh), _ptr(lo_h), _ptr(fa), _ptr(fb),
                   _ptr(partial), n, h, wd, c1, cin - c1,
                   0 if x2 is None else x2.shape[0], o, groups,
-                  int(sc is not None), int(x2_half_h), DW_CHUNK)
+                  int(sc is not None), int(x2_half_h), plan.th, plan.cb,
+                  plan.nb, plan.span, int(plan.im2col))
     conv3x3_dw.launches += 1
     return reduce_groups(partial, groups).view(groups, 3, 3, cin, o)
 

@@ -89,6 +89,7 @@ from typing import Sequence, Tuple
 
 import torch
 
+from mimo_unet_torch.kernels import conv3x3_train
 from mimo_unet_torch.kernels import (
     AffineRelu,
     Conv1x1,
@@ -115,9 +116,9 @@ from mimo_unet_torch.ops.dropout import (
 from mimo_unet_torch.ops.norm import update_running_stats
 
 # what the train kernels take: a 3x3 conv's input and output channels
-# (csrc/conv3x3_train.cu KMAX = 9 x 256), the 1x1 out-conv's input and
-# output channels (train_elem.cu CMAX, OCMAX)
-_TRAIN_MAX_CONV_C, _TRAIN_MAX_C, _TRAIN_MAX_OC = 256, 128, 8
+# (conv3x3_train.MAX_C), the 1x1 out-conv's input and output channels
+# (train_elem.cu CMAX, OCMAX)
+_TRAIN_MAX_CONV_C, _TRAIN_MAX_C, _TRAIN_MAX_OC = conv3x3_train.MAX_C, 128, 8
 
 
 def check_channels(cfg: MimoUNetConfig, *, convs: bool = True) -> None:

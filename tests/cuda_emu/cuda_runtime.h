@@ -1,0 +1,125 @@
+// A CPU stand-in for the CUDA runtime and device built-ins, enough to
+// compile a kernel source with g++ and run its blocks on host threads: one
+// std::thread per CUDA thread, a std::barrier per block (__syncthreads)
+// and per warp (the warp-collective instructions).  Blocks run one after
+// another; dynamic shared memory is a host buffer filled with 0xff (bf16
+// NaN) before each block, so a read of anything not written shows.  For
+// tests of index logic only: no timing, no asynchrony (cp.async copies at
+// once), and the f32 sums of mma run in double.  A fault (a shared-memory
+// access out of range, a misaligned copy) is recorded, the access skipped,
+// and the launch's cudaGetLastError() reports it.
+#pragma once
+#include <algorithm>
+#include <barrier>
+#include <cmath>
+#include <cstdint>
+#include <cstdio>
+#include <cstdlib>
+#include <cstring>
+#include <memory>
+#include <thread>
+#include <vector>
+using std::max;
+using std::min;
+#define __global__
+#define __device__
+#define __host__
+#define __forceinline__ inline
+#define __launch_bounds__(...)
+#define __restrict__ __restrict
+#define __align__(n) __attribute__((aligned(n)))
+struct dim3 {
+  unsigned x = 1, y = 1, z = 1;
+  dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {}
+};
+struct float4 { float x, y, z, w; };
+struct uint4 { uint32_t x, y, z, w; };
+typedef void* cudaStream_t;
+typedef int cudaError_t;
+enum { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
+enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
+template <typename T>
+inline cudaError_t cudaFuncSetAttribute(T, cudaFuncAttribute, int) { return 0; }
+// the first fault of the current launch, if any (main.cpp)
+bool emu_take_fault();
+void emu_fault(const char* what);
+inline cudaError_t cudaGetLastError() { return emu_take_fault() ? 1 : 0; }
+inline float __fmul_rn(float a, float b) { return a * b; }
+inline float __fadd_rn(float a, float b) { return a + b; }
+inline float __uint_as_float(uint32_t u) { float f; std::memcpy(&f, &u, 4); return f; }
+
+struct EmuWarp {
+  std::barrier<> bar{32};
+  const void* addr[32];
+  uint32_t a[32][4], b[32][2];
+  float f[32];
+  int i[32];
+};
+struct EmuBlock {
+  std::unique_ptr<std::barrier<>> bar;
+  std::vector<std::unique_ptr<EmuWarp>> warps;
+  uint8_t* smem = nullptr;
+  size_t smem_size = 0;
+};
+extern thread_local dim3 threadIdx, blockIdx;
+extern dim3 blockDim, gridDim;
+extern thread_local EmuBlock* emu_block;
+inline void __syncthreads() { emu_block->bar->arrive_and_wait(); }
+inline EmuWarp& emu_warp() { return *emu_block->warps[threadIdx.x >> 5]; }
+inline uint8_t* emu_dyn_smem() { return emu_block->smem; }
+inline float __shfl_xor_sync(unsigned, float v, int m) {
+  EmuWarp& w = emu_warp();
+  const int l = threadIdx.x & 31;
+  w.f[l] = v;
+  w.bar.arrive_and_wait();
+  const float r = w.f[l ^ m];
+  w.bar.arrive_and_wait();
+  return r;
+}
+inline bool __any_sync(unsigned, bool p) {
+  EmuWarp& w = emu_warp();
+  const int l = threadIdx.x & 31;
+  w.i[l] = p;
+  w.bar.arrive_and_wait();
+  bool r = false;
+  for (int k = 0; k < 32; ++k) r = r || w.i[k];
+  w.bar.arrive_and_wait();
+  return r;
+}
+inline size_t __cvta_generic_to_shared(const void* p) {
+  return (const uint8_t*)p - emu_block->smem;
+}
+// whether [p, p + bytes) lies in the block's shared memory; a fault if not
+bool emu_check_smem(const void* p, size_t bytes, const char* what);
+
+// the dynamic shared memory the last launch asked for
+extern size_t emu_launch_smem;
+
+// kernel<<<grid, threads, smem, stream>>>(args...), block by block
+template <typename K, typename... A>
+void emu_launch(K kernel, dim3 grid, int threads, size_t smem, cudaStream_t, A... args) {
+  emu_launch_smem = smem;
+  blockDim = dim3(threads);
+  gridDim = grid;
+  std::vector<uint8_t> buf(smem + 64);
+  for (unsigned z = 0; z < grid.z; ++z)
+    for (unsigned y = 0; y < grid.y; ++y)
+      for (unsigned x = 0; x < grid.x; ++x) {
+        EmuBlock blk;
+        blk.bar = std::make_unique<std::barrier<>>(threads);
+        for (int w = 0; w < (threads + 31) / 32; ++w)
+          blk.warps.push_back(std::make_unique<EmuWarp>());
+        std::memset(buf.data(), 0xff, buf.size());
+        blk.smem = (uint8_t*)(((uintptr_t)buf.data() + 15) & ~(uintptr_t)15);
+        blk.smem_size = smem;
+        std::vector<std::thread> ts;
+        for (int t = 0; t < threads; ++t)
+          ts.emplace_back([&, t] {
+            threadIdx = dim3(t);
+            blockIdx = dim3(x, y, z);
+            emu_block = &blk;
+            kernel(args...);
+          });
+        for (auto& th : ts) th.join();
+      }
+}
