@@ -11,7 +11,7 @@ Run from the root of the repository.  Phases, each raising on failure:
    per source, in parallel) and print the build time, ptxas's registers,
    shared memory and spills of the train conv kernels, and the HMMA
    (tensor-core mma) instructions of each in the library's SASS
-   (cuobjdump); raise if K6 (dx) or K7 (dw) has none.
+   (cuobjdump); raise if K5 (fwd), K6 (dx) or K7 (dw) has none.
 3. Eval kernels: call each at its flagship serving call sites (S=2, fbc=21,
    256x256, B=32, bf16) and hold it against its plain PyTorch version
    (float32, TF32 off): pool_w and upsample_w2x bitwise, the DoubleConv
@@ -25,10 +25,10 @@ Run from the root of the repository.  Phases, each raising on failure:
 5. Train kernels: every train kernel at its 640x480 call sites (NYUv2
    frames, S=2, fbc=21, B=4; down1's at 320x240), each output and
    gradient against its plain version at the same tolerance as phase 3;
-   K6 and K7 (tensor cores) also bitwise from one launch to the next,
+   K5, K6 and K7 (tensor cores) also bitwise from one launch to the next,
    their times printed beside those of the f32 CUDA-core kernels they
    replaced (``CUDA_CORE_MS``, from PERF.md: those are not built any
-   more).
+   more) and of their library calls.
 6. Train: the NYUv2-depth task (S=2, fbc=21, bf16, Laplace NLL, lr 1e-3,
    loss buffer 10) at 640x480: ``init_state`` on the card, one step's loss
    and gradients against the plain model (ct_kernels="off", same weights:
@@ -77,9 +77,9 @@ Run from the root of the repository.  Phases, each raising on failure:
 12. Partial tiles: the train kernels where their blocks do not divide the
    pixels (down1 of a 48x48 step at B=3: 4.5 conv tiles per 24x24 image,
    6.75 reducing blocks per group, 2.25 per image), at fbc 40's channel
-   counts, and K6/K7 at H = W = 3, 4, 5 and 24 with fbc 40's in_conv
+   counts, and K5/K6/K7 at H = W = 3, 4, 5 and 24 with fbc 40's in_conv
    and decoder widths (x2_half_h at even H), each against its plain
-   version at phase 3's tolerance, K6/K7 also bitwise launch to launch;
+   version at phase 3's tolerance, K5/K6/K7 also bitwise launch to launch;
    then one B=3 48x48 step of the fbc-40 task on the kernel route (every
    train kernel and K10/K13 launched) with its loss and gradients against
    the plain and f32 models as in phase 9.
@@ -149,10 +149,13 @@ KERNEL_INFO = {
     "lerp_h2x_transpose": ("mimo_unet_torch/csrc/upsample2x.cu", _E + "ct_resize.py:295"),
 }
 X2_HALF = "MIMO_CT_TRAIN_X2_HALF"  # the x2-half train decoder's switch
-# K6 and K7 as f32 CUDA-core kernels, before their tensor-core redesign
+# K5, K6 and K7 as f32 CUDA-core kernels, before their tensor-core redesign
 # (PERF.md section 6), ms at the phase-5 sites by site label prefix; those
 # kernels are not built any more
 CUDA_CORE_MS = {
+    ("conv3x3_fwd", "in_conv.conv1"): 0.589, ("conv3x3_fwd", "in_conv.conv2"): 2.611,
+    ("conv3x3_fwd", "down1.conv1"): 1.174, ("conv3x3_fwd", "down1.conv2"): 2.498,
+    ("conv3x3_fwd", "decoder conv1"): 9.063, ("conv3x3_fwd", "decoder conv2"): 3.796,
     ("conv3x3_dw", "in_conv.conv1"): 3.765, ("conv3x3_dw", "in_conv.conv2"): 5.670,
     ("conv3x3_dw", "down1.conv1"): 4.527, ("conv3x3_dw", "down1.conv2"): 5.279,
     ("conv3x3_dw", "decoder conv1"): 16.432, ("conv3x3_dw", "decoder conv2"): 7.703,
@@ -160,7 +163,7 @@ CUDA_CORE_MS = {
     ("conv3x3_dx", "down1.conv2"): 2.888, ("conv3x3_dx", "decoder conv2"): 3.076,
     ("conv3x3_dx_fold", "decoder conv1"): 8.488,
 }
-TC_KERNELS = ("conv3x3_dx", "conv3x3_dx_fold", "conv3x3_dw")  # on the tensor cores
+TC_KERNELS = ("conv3x3_fwd", "conv3x3_dx", "conv3x3_dx_fold", "conv3x3_dw")  # tensor cores
 # the documented MC-dropout recipe (reference Readme.md:82)
 MC_RECIPE = dict(encoder_dropout_rate=0.1, core_dropout_rate=0.1,
                  decoder_dropout_rate=0.1)
@@ -641,11 +644,12 @@ def resample_sites(dev, gen):
 
 def tail_sites(dev, gen):
     """The train kernels at shapes their blocks do not divide: down1 of a
-    48x48 step at B=3 (N = 6 images of 24x24 = 576 pixels: 4.5 of K5's
-    128-pixel tiles per image, 6.75 of the reducing passes' 256-pixel
-    blocks per group, 2.25 per image at groups = N) with fbc 40's 40 -> 80
-    channels, K6/K7 at H = W = 3, 4, 5 and 24 with fbc 40's in_conv and
-    decoder widths, and the 1x1 kernels at that pixel count."""
+    48x48 step at B=3 (N = 6 images of 24x24 = 576 pixels: 1.5 of the
+    conv kernels' 16-column tiles per image row, 6.75 of the reducing
+    passes' 256-pixel blocks per group, 2.25 per image at groups = N) with
+    fbc 40's 40 -> 80 channels, K5/K6/K7 at H = W = 3, 4, 5 and 24 with
+    fbc 40's in_conv and decoder widths, and the 1x1 kernels at that pixel
+    count."""
     import torch
     from mimo_unet_torch import kernels as K
 
@@ -692,10 +696,10 @@ def tail_sites(dev, gen):
     add("conv3x3_dw", f"down1.conv2 +prologue {tag}",
         lambda: K.conv3x3_dw(g1, y3, S, scale=sc, shift=sh),
         lambda: K.conv3x3_dw_plain(g1, y3, S, scale=sc, shift=sh))
-    # K6/K7 at H = W = 3, 4, 5 (one partial tile; at 3 the row and column
-    # reflect folds of both edges land on pixel 1) and 24, with fbc 40's
-    # in_conv and decoder widths: 3 -> 40, 40 -> 40, (40 + 80) -> 60 (x2
-    # shared by the S groups; x2_half_h at even H), 60 -> 40
+    # K5/K6/K7 at H = W = 3, 4, 5 (one partial tile; at 3 the row and
+    # column reflect folds of both edges land on pixel 1) and 24, with fbc
+    # 40's in_conv and decoder widths: 3 -> 40, 40 -> 40, (40 + 80) -> 60
+    # (x2 shared by the S groups; x2_half_h at even H), 60 -> 40
     for e in (3, 4, 5, 24):
         b2 = 2
         m = S * b2
@@ -703,9 +707,25 @@ def tail_sites(dev, gen):
         xin, x1d, y5 = act(m, e, e, 3), act(m, e, e, f), act(m, e, e, 60)
         xu = act(b2, e, e, 2 * f)
         gf, g60 = act(m, e, e, f, scale=0.01), act(m, e, e, 60, scale=0.01)
-        wf, wc1, wc2 = weight(f, f), weight(3 * f, 60), weight(60, f)
+        wi, wf, wc1, wc2 = weight(3, f), weight(f, f), weight(3 * f, 60), weight(60, f)
         scf, shf = affine(S, f)
         s60, h60 = affine(S, 60)
+        add("conv3x3_fwd", f"in_conv.conv1 3->40 {tg}",
+            lambda xin=xin, wi=wi: K.conv3x3_fwd(xin, wi),
+            lambda xin=xin, wi=wi: K.conv3x3_fwd_plain(xin, wi))
+        add("conv3x3_fwd", f"in_conv.conv2 40->40 +prologue {tg}",
+            lambda x1d=x1d, wf=wf, scf=scf, shf=shf:
+                K.conv3x3_fwd(x1d, wf, scale=scf, shift=shf),
+            lambda x1d=x1d, wf=wf, scf=scf, shf=shf:
+                K.conv3x3_fwd_plain(x1d, wf, scale=scf, shift=shf))
+        add("conv3x3_fwd", f"decoder conv1 (40+80)->60 {tg}",
+            lambda x1d=x1d, xu=xu, wc1=wc1: K.conv3x3_fwd(x1d, wc1, x2=xu),
+            lambda x1d=x1d, xu=xu, wc1=wc1: K.conv3x3_fwd_plain(x1d, wc1, x2=xu))
+        add("conv3x3_fwd", f"decoder conv2 60->40 +prologue {tg}",
+            lambda y5=y5, wc2=wc2, s60=s60, h60=h60:
+                K.conv3x3_fwd(y5, wc2, scale=s60, shift=h60),
+            lambda y5=y5, wc2=wc2, s60=s60, h60=h60:
+                K.conv3x3_fwd_plain(y5, wc2, scale=s60, shift=h60))
         add("conv3x3_dw", f"in_conv.conv1 3->40 {tg}",
             lambda gf=gf, xin=xin: K.conv3x3_dw(gf, xin, S),
             lambda gf=gf, xin=xin: K.conv3x3_dw_plain(gf, xin, S))
@@ -727,6 +747,10 @@ def tail_sites(dev, gen):
             lambda g60=g60, x1d=x1d, xu=xu: K.conv3x3_dw_plain(g60, x1d, S, x2=xu))
         if e % 2 == 0:
             xh = act(b2, e // 2, e, 2 * f)
+            add("conv3x3_fwd", f"decoder conv1 (40+80)->60 x2_half_h {tg}",
+                lambda x1d=x1d, xh=xh, wc1=wc1: K.conv3x3_fwd(x1d, wc1, x2=xh, x2_half_h=True),
+                lambda x1d=x1d, xh=xh, wc1=wc1:
+                    K.conv3x3_fwd_plain(x1d, wc1, x2=xh, x2_half_h=True))
             add("conv3x3_dw", f"decoder conv1 (40+80)->60 x2_half_h {tg}",
                 lambda g60=g60, x1d=x1d, xh=xh:
                     K.conv3x3_dw(g60, x1d, S, x2=xh, x2_half_h=True),
@@ -811,7 +835,7 @@ def check_kernels(sites, card):
 
 
 def _tc_marked(sites):
-    """K6/K7 sites with their CUDA-core kernels' time and the
+    """K5/K6/K7 sites with their CUDA-core kernels' time and the
     launch-to-launch check."""
     for st in sites:
         if st.name in TC_KERNELS:
@@ -825,7 +849,7 @@ def tensor_core_report():
     """Print ptxas's registers, shared memory and spills of the train conv
     kernels (this build's nvcc -Xptxas -v) and the HMMA (tensor-core mma)
     instructions of each in the library's SASS (cuobjdump, where the
-    toolkit has it); raise if K6 or K7 has none."""
+    toolkit has it); raise if K5, K6 or K7 has none."""
     import re
     import shutil
     from mimo_unet_torch.kernels import _build
@@ -852,10 +876,10 @@ def tensor_core_report():
             counts[fn] = 0
         elif fn and "HMMA" in line:
             counts[fn] += 1
-    for kern in ("conv_dx_tc", "conv_dw_tc", "conv_fwd_kernel"):
+    for kern in ("conv_fwd_tc", "conv_dx_tc", "conv_dw_tc"):
         got = {k: v for k, v in counts.items() if kern in k}
         print(f"SASS HMMA instructions in {kern}: {sorted(got.values())}")
-        if kern != "conv_fwd_kernel" and (not got or min(got.values()) == 0):
+        if not got or min(got.values()) == 0:
             raise AssertionError(f"{kern}: no tensor-core (HMMA) instructions")
 
 
@@ -1114,7 +1138,7 @@ def _profile_step(task, state, batch, card, label):
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    names = ("conv_fwd_kernel", "conv_dx_tc", "conv_dw_tc",
+    names = ("conv_fwd_tc", "conv_dx_tc", "conv_dw_tc",
              "g_eff_kernel", "affine_relu", "conv1x1", "reduce_groups",
              "pool2x2_kernel", "pool2x2_bwd", "up2_fwd_kernel", "up2_bwd_kernel",
              "upsample_w2x_kernel", "upsample_w2x_bwd_kernel", "lerp_h2x_t_kernel")
@@ -1396,7 +1420,7 @@ def x2_half_conv_sites(dev, gen):
         Site("conv3x3_fwd", label,
              lambda: K.conv3x3_fwd(x1s, w, x2=half, x2_half_h=True),
              lambda: K.conv3x3_fwd_plain(x1s, w, x2=half, x2_half_h=True),
-             False, flops, in_bytes + w_bytes + y_bytes),
+             False, flops, in_bytes + w_bytes + y_bytes, before=10.547, repeat=True),
         Site("conv3x3_dw", label,
              lambda: K.conv3x3_dw(g, x1s, S, x2=half, x2_half_h=True),
              lambda: K.conv3x3_dw_plain(g, x1s, S, x2=half, x2_half_h=True),

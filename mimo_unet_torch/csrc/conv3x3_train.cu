@@ -5,7 +5,7 @@
 //     bias; per-channel sum and sum of squares of the *rounded* y, per
 //     block (the wrapper reduces them per group).  Optional second concat
 //     input x2 whose image n is x2 image n % n2; with x2_half_h it arrives
-//     at half height, W-upsampled (upsample_w2x.cu), and the gather lerps
+//     at half height, W-upsampled (upsample_w2x.cu), and the staging lerps
 //     its rows (below).
 //     Replaces mimo_unet_tpu/ops/pallas/ct_train.py:283 _conv_fwd
 //     (pallas_call :318), reached through conv3x3_ct_train :1099.
@@ -43,33 +43,36 @@
 // in and out, so at these channel counts the work sits above the memory
 // roofline.
 //
-// K5 runs on the f32 CUDA cores: a 128 x 32 output tile per block, within
-// one image (an image's last tile is partial when 128 does not divide h*w:
-// its missing rows repeat the last pixel), 256 threads, each holding a
-// 4 x 4 register tile fed by two 16-byte shared-memory loads per 16 FMAs;
-// the A operand is gathered from device memory into shared memory in f32,
-// 32 columns at a time.
-//
-// K6 and K7 run on the tensor cores (mma.sync m16n8k16, bf16 operands,
-// f32 accumulators, fed by ldmatrix) from tiles staged once in shared
-// memory.  A block works through spatial tiles of 16 columns by th rows
-// (th = 8 unless the channels need the room) of one image, each with a
-// one-pixel halo.  A tile's rows arrive as flat runs of the [N, H, W, C]
-// tensor (a run of pixels of one image row is contiguous) in 16-byte
-// cp.async copies, the next tile's while the tensor cores work on this
-// one; a repack pass then writes the tile in bf16 [pixel][channel] with
-// the channels padded in shared memory to the mma multiple (and a row
-// stride of an odd number of 16-byte units, so that ldmatrix's eight rows
-// fall in eight bank groups):
-//   * K7 stages z with the reflect applied at the image edges; the
-//     prologue affine and the x2_half_h lerp run once per staged element.
-//     It also stages g [pixels, o-slice].  Nine warps, one per tap:
-//     D[cin x o] += Z_t^T . G over each 16-pixel row of the tile, Z_t the
-//     staged tile shifted by the tap, so a warp's accumulators (up to
-//     4 x 4 mma tiles: 64 channels by 32 outputs, the launch's slices)
-//     stay in registers.  At cin <= 7 (the RGB input conv) the staging
-//     folds (tap, channel) into M = 9*cin padded to 16 (27 -> 32) and
-//     warps own M tiles instead.
+// All three run on the tensor cores (mma.sync m16n8k16, bf16 operands, f32
+// accumulators, fed by ldmatrix) from tiles staged once in shared memory.
+// A block works through spatial tiles of 16 columns by th rows (th = 8
+// unless the channels need the room) of one image, each with a one-pixel
+// halo.  A tile's rows arrive as flat runs of the [N, H, W, C] tensor (a
+// run of pixels of one image row is contiguous) in 16-byte cp.async
+// copies, the next tile's while the tensor cores work on this one; a
+// repack pass then writes the tile in bf16 [pixel][channel] with the
+// channels padded in shared memory to the mma multiple (and a row stride
+// of an odd number of 16-byte units, so that ldmatrix's eight rows fall in
+// eight bank groups):
+//   * K5 and K7 stage z with one pair of functions (z_fetch, z_repack): the
+//     reflect applied at the image edges, the prologue affine and the
+//     x2_half_h lerp once per staged element, channels in slices of at most
+//     64.  At cin <= 7 (the RGB input conv) the staging folds (tap,
+//     channel) into one dimension of 9*cin padded to 16 (27 -> 32) over the
+//     tile's own pixels.
+//   * K5 also stages its group's weights [9, cin, o-slice] (packed by the
+//     wrapper).  Eight warps, one per tile row: D[16 pixels x o-slice] +=
+//     Z_t . W_t over the taps and 16-channel k-steps, Z_t the staged tile
+//     shifted by the tap (im2col: the k-steps of the folded pairs).  A cin
+//     wider than one slice is restaged slice by slice inside the block, so
+//     the whole f32 sum exists before y's one rounding.  The epilogue
+//     rounds y, stores it and sums the rounded values and their squares
+//     per channel in registers over the block's tiles.
+//   * K7 also stages g [pixels, o-slice].  Nine warps, one per tap:
+//     D[cin x o] += Z_t^T . G over each 16-pixel row of the tile, so a
+//     warp's accumulators (up to 4 x 4 mma tiles: 64 channels by 32
+//     outputs, the launch's slices) stay in registers; at cin <= 7 warps own
+//     tiles of the folded M instead.
 //   * K6 stages g with a zero halo and its group's weights [9, cin-slice,
 //     o] (packed by the wrapper).  Eight warps, one per tile row: D[16
 //     pixels x cin-slice] += G_t . W_t over the taps and o.  Each reflect
@@ -79,20 +82,11 @@
 //     exact, sums f32.  Tiles that touch no fold row or column skip them.
 // Reductions across blocks (statistics, dscale, dshift, dw) go to
 // per-block partials that a second pass sums per group in a fixed order;
-// inside a block, shuffles and shared memory sum in a fixed order too:
-// results do not change from run to run.
+// inside a block, lanes by shuffles and warps in order through shared
+// memory: results do not change from run to run.
 #include "common.cuh"
 
 namespace {
-
-constexpr int BM = 128;      // GEMM tile rows
-constexpr int BN = 32;       // GEMM tile columns
-constexpr int BK = 32;       // reduction depth per step
-constexpr int NT = 256;      // threads per block: 32 row groups x 8 column groups
-constexpr int AS = BM + 4;   // row stride of the A tile (16-byte aligned)
-// the longest gathered dimension, 9 x 256 channels; the gather's (tap,
-// channel) table ktab is dynamic shared memory of the launch's K ints
-constexpr int KMAX = 2304;
 
 __device__ __forceinline__ int reflect(int i, int n) {
   return i < 0 ? -i : (i >= n ? 2 * n - 2 - i : i);
@@ -105,188 +99,13 @@ __device__ __forceinline__ float prologue_z(float x, float s, float b) {
   return bf2f(f2bf(relu(__fadd_rn(__fmul_rn(x, s), b))));
 }
 
-// acc[i][j] += sum_k A[k][tm*4 + i] * B[k][tn*4 + j] over one BK step
-__device__ __forceinline__ void tile_fma(const float* __restrict__ As,
-                                         const float* __restrict__ Bs, int tm,
-                                         int tn, float acc[4][4]) {
-#pragma unroll 8
-  for (int k = 0; k < BK; ++k) {
-    const float4 a = *reinterpret_cast<const float4*>(As + k * AS + tm * 4);
-    const float4 b = *reinterpret_cast<const float4*>(Bs + k * BN + tn * 4);
-    const float av[4] = {a.x, a.y, a.z, a.w};
-    const float bv[4] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-  }
-}
-
-// Sum v[j] (this thread's 4 columns) over the block's 32 row groups in a
-// fixed order; threads 0..BN-1 receive the column sums (red: 32*BN floats).
-__device__ __forceinline__ float column_sum(float* red, const float v[4],
-                                            int tm, int tn, int tid) {
-#pragma unroll
-  for (int j = 0; j < 4; ++j) red[tm * BN + tn * 4 + j] = v[j];
-  __syncthreads();
-  float s = 0.f;
-  if (tid < BN)
-    for (int r = 0; r < NT / 8; ++r) s += red[r * BN + tid];
-  __syncthreads();
-  return s;
-}
-
-struct Conv {
-  const bf16* x1;   // [n, h, w, c1]
-  const bf16* x2;   // [n2, h, w, c2] ([n2, h/2, w, c2] with x2_half_h) or null
-  const bf16* wgt;  // [G, 9*cin, np]
-  const float* sc;  // [G, c1] prologue scale, or null
-  const float* sh;
-  bf16* y;          // [n, h, w, o]
-  float* p0;        // per-block partials: sum
-  float* p1;        // sumsq
-  int n, h, w, c1, c2, n2, o, groups, prologue, np;
-};
-
-// x2_half_h's row tables, a kernel argument of their own: Conv stays small
-// (at 160 bytes, with these in it, the fwd kernel ran 4-10 % slower:
-// NVIDIA H100 80GB HBM3, 700 W)
-struct Lerp {
-  const int* lo;    // [h] first half row of full row r
-  const float* fa;  // [h] its weights 1 - f and f
-  const float* fb;
-};
-
-// One element of the fwd gather: z at reflect(i+dy-1), reflect(j+dx-1),
-// channel c of the concat [x1, x2] of image img, group g.  X2H (a template
-// flag, so that the full-res instantiation carries no lerp code): x2 at
-// half height, its rows lerped.
-template <bool X2H>
-__device__ __forceinline__ float gather_z(const Conv& p, const Lerp& l, int img,
-                                          int g, int i, int j, int t, int c) {
-  const int dy = t / 3, dx = t - 3 * dy;
-  const int r = reflect(i + dy - 1, p.h), s = reflect(j + dx - 1, p.w);
-  const int64_t pix = ((int64_t)img * p.h + r) * p.w + s;
-  if (c < p.c1) {
-    const float v = bf2f(p.x1[pix * p.c1 + c]);
-    return p.prologue ? prologue_z(v, p.sc[g * p.c1 + c], p.sh[g * p.c1 + c]) : v;
-  }
-  if constexpr (X2H) {  // the H lerp of full row r from half rows lo[r], lo[r] + 1
-    const int64_t a =
-        (((int64_t)(img % p.n2) * (p.h / 2) + l.lo[r]) * p.w + s) * p.c2 + c - p.c1;
-    const float va = bf2f(p.x2[a]), vb = bf2f(p.x2[a + (int64_t)p.w * p.c2]);
-    return bf2f(f2bf(__fadd_rn(__fmul_rn(va, l.fa[r]), __fmul_rn(vb, l.fb[r]))));
-  }
-  const int64_t pix2 = pix + (int64_t)(img % p.n2 - img) * p.h * p.w;
-  return bf2f(p.x2[pix2 * p.c2 + c - p.c1]);
-}
-
-// A tile (BM output pixels x BK gathered columns) of the fwd GEMM for the
-// block's pixels (rows prow, columns pcol of image img); B tile from the
-// packed weights [G, K, np].
-template <bool X2H>
-__device__ __forceinline__ void load_tiles(const Conv& p, const Lerp& l, int img,
-                                           int g, int k0,
-                                           int K, int nb, const int* ktab,
-                                           const int* prow, const int* pcol,
-                                           float* As, float* Bs, int tid) {
-#pragma unroll 4
-  for (int r = 0; r < BM * BK / NT; ++r) {
-    const int e = tid + r * NT, kk = e % BK, mm = e / BK, k = k0 + kk;
-    float v = 0.f;
-    if (k < K) {
-      const int code = ktab[k], t = code >> 16, c = code & 0xffff;
-      v = gather_z<X2H>(p, l, img, g, prow[mm], pcol[mm], t, c);
-    }
-    As[kk * AS + mm] = v;
-  }
-  const bf16* wg = p.wgt + (int64_t)g * K * p.np;
-#pragma unroll
-  for (int r = 0; r < BK * BN / NT; ++r) {
-    const int e = tid + r * NT, nn = e % BN, kk = e / BN, k = k0 + kk;
-    Bs[kk * BN + nn] = k < K ? bf2f(wg[(int64_t)k * p.np + nb + nn]) : 0.f;
-  }
-}
-
-// the block's BM pixels [rem, rem + BM) of one image as rows and columns;
-// past the image's last pixel (the tail tile of an image whose pixel count
-// BM does not divide) the rows repeat that pixel: they compute its values
-// again, write the same values to it, and the statistics weigh them 0
-__device__ __forceinline__ void fill_pixels(int* prow, int* pcol, int rem, int w,
-                                            int hw, int tid) {
-  for (int m = tid; m < BM; m += NT) {
-    const int q = min(rem + m, hw - 1);
-    prow[m] = q / w;
-    pcol[m] = q % w;
-  }
-}
-
-// tiles per image: ceil(h*w / BM); block b covers image b / tiles
-__device__ __forceinline__ int tiles_per_image(int hw) { return (hw + BM - 1) / BM; }
-
-__device__ __forceinline__ void fill_ktab(int* ktab, int K, int div, int tid) {
-  for (int k = tid; k < K; k += NT) {
-    const int t = k / div;
-    ktab[k] = (t << 16) | (k - t * div);
-  }
-}
-
-// grid (n * ceil(h*w / BM), ceil(o / BN))
-template <bool X2H>
-__global__ void __launch_bounds__(NT) conv_fwd_kernel(Conv p, Lerp l) {
-  __shared__ __align__(16) float As[BK * AS];
-  __shared__ __align__(16) float Bs[BK * BN];
-  extern __shared__ int ktab[];  // [K]: dynamic, sized at launch
-  __shared__ int prow[BM], pcol[BM];
-  const int tid = threadIdx.x, tm = tid / 8, tn = tid % 8;
-  const int HW = p.h * p.w, cin = p.c1 + p.c2, K = 9 * cin;
-  const int tpi = tiles_per_image(HW);
-  const int img = blockIdx.x / tpi, rem = (blockIdx.x % tpi) * BM;
-  const int g = img / (p.n / p.groups), nb = blockIdx.y * BN;
-  fill_ktab(ktab, K, cin, tid);
-  fill_pixels(prow, pcol, rem, p.w, HW, tid);
-  __syncthreads();
-
-  float acc[4][4] = {};
-  for (int k0 = 0; k0 < K; k0 += BK) {
-    load_tiles<X2H>(p, l, img, g, k0, K, nb, ktab, prow, pcol, As, Bs, tid);
-    __syncthreads();
-    tile_fma(As, Bs, tm, tn, acc);
-    __syncthreads();
-  }
-
-  float s[4] = {}, q[4] = {};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int m = rem + tm * 4 + i;
-    const int64_t pix = (int64_t)img * HW + min(m, HW - 1);
-    const float live = m < HW ? 1.f : 0.f;  // a repeated pixel counts nothing
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int n = nb + tn * 4 + j;
-      if (n < p.o) {
-        const bf16 v = f2bf(acc[i][j]);
-        p.y[pix * p.o + n] = v;
-        const float f = bf2f(v) * live;
-        s[j] += f;
-        q[j] = fmaf(f, f, q[j]);
-      }
-    }
-  }
-  const float cs = column_sum(As, s, tm, tn, tid);
-  const float cq = column_sum(As, q, tm, tn, tid);
-  if (tid < BN && nb + tid < p.o) {
-    p.p0[blockIdx.x * (int64_t)p.o + nb + tid] = cs;
-    p.p1[blockIdx.x * (int64_t)p.o + nb + tid] = cq;
-  }
-}
-
-// ---------------------------------------------------------------- K6 / K7
-
-constexpr int TW = 16;              // tile columns: a dw k-step, a dx m-tile
+constexpr int TW = 16;              // tile columns: a dw k-step, a fwd/dx m-tile
 constexpr int HWD = TW + 2;         // halo tile columns
+constexpr int FWD_THREADS = 256;    // eight warps, one per tile row
 constexpr int DW_THREADS = 288;     // nine warps, one per tap
 constexpr int DX_THREADS = 256;     // eight warps, one per tile row
+constexpr int CS_MAX = 64;          // channels of a staged z slice of K5
+constexpr int NT_FWD = 8;           // fwd mma n-tiles per warp: 64 outputs
 constexpr int MT_DW = 4, NT_DW = 4; // dw mma tiles per warp: 64 ch x 32 outputs
 constexpr int NT_DX = 8;            // dx mma n-tiles per warp: 64 channels
 constexpr int SMEM_MAX = 232448;    // dynamic shared memory of one block
@@ -302,6 +121,11 @@ __host__ __device__ __forceinline__ int run_bytes(int px, int c) {
 }
 
 __host__ __device__ __forceinline__ int align16(int b) { return (b + 15) & ~15; }
+
+// where the prologue's shift starts in the staged affine table [scale |
+// shift], each part c1 floats padded to 8, so eight channels from any
+// multiple of 8 load as two 16-byte units of each
+__host__ __device__ __forceinline__ int shift_at(int c1) { return (c1 + 7) & ~7; }
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return (uint32_t)__cvta_generic_to_shared(p);
@@ -357,10 +181,10 @@ __device__ __forceinline__ void mma16816(float d[4], const uint32_t a[4],
 }
 
 struct TcConv {
-  const bf16* x1;     // dw: [n, h, w, c1]; dx: the prologue's x1 or null
-  const bf16* x2;     // dw: [n2, h, w, c2] ([n2, h/2, w, c2] with x2_half_h)
+  const bf16* x1;     // fwd, dw: [n, h, w, c1]; dx: the prologue's x1 or null
+  const bf16* x2;     // fwd, dw: [n2, h, w, c2] ([n2, h/2, w, c2] with x2_half_h)
   const bf16* g;      // [n, h, w, o]
-  const bf16* wpk;    // dx: packed weights [G, ncs, 9, cb, ws]
+  const bf16* wpk;    // packed weights: fwd [G, nos, 9*ncs*cb or mp, ws]; dx [G, ncs, 9, cb, ws]
   const float* sc;    // [G, c1] prologue scale, or null
   const float* sh;
   const int* frow;    // dx: fold bits of each image row (bit 0: g row 0
@@ -368,16 +192,16 @@ struct TcConv {
   const int* lo;      // x2_half_h: first half row of full row r, weights
   const float* fa;
   const float* fb;
-  bf16* y;            // dx: dx1 [n, h, w, c1]
+  bf16* y;            // fwd: y [n, h, w, o]; dx: dx1 [n, h, w, c1]
   bf16* y2;           // dx fold: dx2 [n2, h, w, c2]
-  float* p0;          // dw partials; dx per-block dscale
-  float* p1;          // dx per-block dshift
+  float* p0;          // fwd per-block sum; dw partials; dx per-block dscale
+  float* p1;          // fwd per-block sum of squares; dx per-block dshift
   int n, h, w, c1, c2, n2, o, groups, prologue;
   int th, tiles_w, tpi, per;   // tile rows; tile columns and tiles per image; images per group
   int cb, ncs;                 // channel slice (padded width) and slices
-  int nb, nos;                 // dw: output slice (padded width) and slices
-  int im2col, mp;              // dw: (tap, channel) folded into M, its padded width
-  int span, chunks;            // dw: tiles per chunk, chunks per group; dx: tiles per block, blocks per image
+  int nb, nos;                 // fwd, dw: output slice (padded width) and slices
+  int im2col, mp;              // fwd, dw: (tap, channel) folded into K (M), its padded width
+  int span, chunks;            // dw: tiles per chunk, chunks per group; fwd, dx: tiles per block, blocks per image
   int opad;                    // dx: o padded to 16
   int zs, gs, ws;              // row strides (elements): z / A tile, g tile, weights
   int r1, r2, rg;              // raw bytes per row: x1, x2 (per half row), g
@@ -404,24 +228,17 @@ __device__ __forceinline__ void copy_run(uint8_t* dst, const bf16* base, int64_t
   if (lane == 0) *slot = (int)(s0 - (q0 << 3));
 }
 
-// ---- K7 staging: the raw runs of a tile's halo rows (x1; x2 or its two
-// half rows) and of its g rows, one run a warp at a time.  info: [th + 2][4]
-// run offsets of x1, x2 (a, b), then [th] of g.
+// ---- z staging, shared by K5 and K7: the raw runs of a tile's halo rows
+// (x1; x2 or its two half rows), one run a warp at a time over nw warps.
+// info: [th + 2][4] run offsets of x1, x2 (a, b).
 template <bool X2H>
-__device__ void dw_fetch(const TcConv& p, uint8_t* sm, TileAt tl, int warp, int lane) {
+__device__ void z_fetch(const TcConv& p, uint8_t* sm, TileAt tl, int warp, int nw,
+                        int lane) {
   const int H = p.h, W = p.w, rows = p.th + 2;
-  const int lo = max(tl.c0 - 1, 0), hi = min(tl.c0 + TW + 1, W), hig = min(tl.c0 + TW, W);
+  const int lo = max(tl.c0 - 1, 0), hi = min(tl.c0 + TW + 1, W);
   int* info = (int*)(sm + p.o_info);
   const int nsrc = p.c2 > 0 ? (X2H ? 3 : 2) : 1;
-  for (int rs = warp; rs < rows * nsrc + p.th; rs += DW_THREADS / 32) {
-    if (rs >= rows * nsrc) {  // g row j
-      const int j = rs - rows * nsrc, r = tl.r0 + j;
-      if (r >= H) continue;
-      const int64_t st = ((int64_t)tl.img * H + r) * W;
-      copy_run(sm + p.o_rg + j * p.rg, p.g, (st + tl.c0) * p.o, (st + hig) * p.o,
-               info + 4 * rows + j, lane);
-      continue;
-    }
+  for (int rs = warp; rs < rows * nsrc; rs += nw) {
     const int hr = rs / nsrc, src = rs - hr * nsrc, sr = tl.r0 - 1 + hr;
     if (sr > H) continue;  // only pixels below the image read this row
     const int rr = reflect(sr, H);
@@ -478,13 +295,13 @@ __device__ __forceinline__ ZSrc<X2H> z_src(const TcConv& p, const uint8_t* sm,
 }
 
 // z channel c (< cin) of the concat at a live position: the prologue
-// (aff: the group's scale, then shift) or the H lerp applied
+// (aff: the group's scale and shift, stage_affine) or the H lerp applied
 template <bool X2H>
 __device__ __forceinline__ float z_val(const TcConv& p, const ZSrc<X2H>& z,
                                        const float* aff, int c) {
   if (c < p.c1) {
     const float v = bf2f(z.a[c]);
-    return p.prologue ? prologue_z(v, aff[c], aff[p.c1 + c]) : v;
+    return p.prologue ? prologue_z(v, aff[c], aff[shift_at(p.c1) + c]) : v;
   }
   const float va = bf2f(z.b[c - p.c1]);
   if constexpr (X2H)
@@ -524,22 +341,26 @@ __device__ __forceinline__ uint4 ld8(const bf16* src, int n) {
   return u;
 }
 
-// the staged tiles from the raw runs, eight channels a work item: z
-// [(th+2) x 18 halo positions][cb] (im2col: A [th*16 pixels][mp], column
-// t*cin + c, a work item a (pixel, tap)) and g [th*16][nb]
-template <bool X2H>
-__device__ void dw_repack(const TcConv& p, uint8_t* sm, TileAt tl, int cs0,
-                          int cs_n, int os0, int os_n, int tid) {
+// The staged z from the raw runs, by NTH threads: [(th+2) x 18 halo
+// positions][cb] of channels [cs0, cs0 + cs_n), eight channels a work item
+// (a thread keeps its 8-channel group q); im2col: [th*16 pixels][mp],
+// column t*cin + c, a work item a (pixel, tap), the columns past 9*cin
+// left as z_pad wrote them
+template <bool X2H, int NTH>
+__device__ void z_repack(const TcConv& p, uint8_t* sm, TileAt tl, int cs0, int cs_n,
+                         int tid) {
   const int* info = (const int*)(sm + p.o_info);
   const float* aff = (const float*)(sm + p.o_aff);
   bf16* Z = (bf16*)(sm + p.o_z);
   const int cin = p.c1 + p.c2;
   const uint4 zero = {0u, 0u, 0u, 0u};
-  if (!p.im2col) {  // a thread keeps its 8-channel group q (DW_THREADS % q8 == 0)
-    const int q8 = p.cb / 8, per = DW_THREADS / q8, q = tid % q8;
+  if (!p.im2col) {
+    const int q8 = p.cb / 8, per = NTH / q8, q = tid % q8;
     const int k0 = 8 * q, c0 = cs0 + k0, n = min(8, cs_n - k0);
-    const bool copy = !p.prologue && !X2H && (c0 + n <= p.c1 || c0 >= p.c1);
-    for (int pos = tid / q8; pos < (p.th + 2) * HWD; pos += per) {
+    // bit copies: x1 without the prologue, x2 without the lerp
+    const bool copy = !p.prologue && (c0 + n <= p.c1 || (!X2H && c0 >= p.c1));
+    const int end = (p.th + 2) * HWD;
+    for (int pos = tid < per * q8 ? tid / q8 : end; pos < end; pos += per) {
       const int hr = pos / HWD, hc = pos - hr * HWD;
       bf16* dst = Z + pos * p.zs + k0;
       const ZSrc<X2H> z = z_src<X2H>(p, sm, info, tl, hr, hc);
@@ -548,6 +369,26 @@ __device__ void dw_repack(const TcConv& p, uint8_t* sm, TileAt tl, int cs0,
       } else if (copy) {
         *reinterpret_cast<uint4*>(dst) =
             c0 < p.c1 ? ld8(z.a + c0, n) : ld8(z.b + (c0 - p.c1), n);
+      } else if (p.prologue) {  // eight x1 channels (the prologue takes no x2)
+        float x[8], v[8];
+        unpack8(ld8(z.a + c0, n), x);
+        const float4* s4 = reinterpret_cast<const float4*>(aff + c0);
+        const float4* b4 = reinterpret_cast<const float4*>(aff + shift_at(p.c1) + c0);
+        const float4 sa = s4[0], sb = s4[1], ba = b4[0], bb = b4[1];
+        const float sv[8] = {sa.x, sa.y, sa.z, sa.w, sb.x, sb.y, sb.z, sb.w};
+        const float bv[8] = {ba.x, ba.y, ba.z, ba.w, bb.x, bb.y, bb.z, bb.w};
+#pragma unroll
+        for (int j = 0; j < 8; ++j)  // prologue_z, its rounding left to st8
+          v[j] = j < n ? relu(__fadd_rn(__fmul_rn(x[j], sv[j]), bv[j])) : 0.f;
+        st8(dst, v);
+      } else if (X2H && c0 >= p.c1) {  // eight x2 channels lerped from the half rows
+        float va[8], vb[8], v[8];
+        unpack8(ld8(z.b + (c0 - p.c1), n), va);
+        unpack8(ld8(z.b2 + (c0 - p.c1), n), vb);
+#pragma unroll
+        for (int j = 0; j < 8; ++j)  // z_val's lerp, its rounding left to st8
+          v[j] = __fadd_rn(__fmul_rn(va[j], z.fa), __fmul_rn(vb[j], z.fb));
+        st8(dst, v);
       } else {
         float v[8];
 #pragma unroll
@@ -556,23 +397,226 @@ __device__ void dw_repack(const TcConv& p, uint8_t* sm, TileAt tl, int cs0,
       }
     }
   } else {
-    const int m_n = 9 * cin, pad = p.mp - m_n;
-    for (int e = tid; e < p.th * TW * 9; e += DW_THREADS) {
+    for (int e = tid; e < p.th * TW * 9; e += NTH) {
       const int t = e % 9, px = e / 9, j = px / TW, x = px - j * TW;
       const int dy = t / 3, dx = t - 3 * dy;
       const ZSrc<X2H> z = z_src<X2H>(p, sm, info, tl, j + dy, x + dx);
       bf16* dst = Z + px * p.zs + t * cin;
       for (int c = 0; c < cin; ++c) dst[c] = f2bf(z.live ? z_val<X2H>(p, z, aff, c) : 0.f);
     }
-    for (int e = tid; e < p.th * TW * pad; e += DW_THREADS)
-      Z[(e / pad) * p.zs + m_n + e % pad] = f2bf(0.f);
   }
+}
+
+// im2col: the zero columns [9*cin, mp) of the staged z, once a block (no
+// repack writes them)
+__device__ void z_pad(const TcConv& p, uint8_t* sm, int tid, int nth) {
+  if (!p.im2col) return;
+  bf16* Z = (bf16*)(sm + p.o_z);
+  const int m_n = 9 * (p.c1 + p.c2), pad = p.mp - m_n;
+  for (int e = tid; e < p.th * TW * pad; e += nth)
+    Z[(e / pad) * p.zs + m_n + e % pad] = f2bf(0.f);
+}
+
+// the group's prologue scale and shift [2][shift_at(c1)], for z_repack
+__device__ void stage_affine(const TcConv& p, uint8_t* sm, int g, int tid, int nth) {
+  float* aff = (float*)(sm + p.o_aff);
+  for (int c = tid; c < p.c1; c += nth) {
+    aff[c] = p.sc[g * p.c1 + c];
+    aff[shift_at(p.c1) + c] = p.sh[g * p.c1 + c];
+  }
+}
+
+// ---- K5: the group's packed weights of output slice os, [rows][ws] with
+// rows 9 * ncs * cb (tap-major) or mp (im2col)
+__device__ void fwd_fetch_w(const TcConv& p, uint8_t* sm, int grp, int os, int tid) {
+  const int rows = p.im2col ? p.mp : 9 * p.ncs * p.cb;
+  const int units = rows * p.ws / 8;  // 16-byte units
+  const bf16* src = p.wpk + ((int64_t)grp * p.nos + os) * rows * p.ws;
+  for (int e = tid; e < units; e += FWD_THREADS)
+    cp_async16(sm + p.o_w + e * 16, src + e * 8);
+}
+
+// One k-step: acc[nt] += A . B_nt, A 16 pixels x 16 channels at za (this
+// lane's row), B 16 channels x the n-tiles at wb (this lane's row; a pair
+// of n-tiles an ldmatrix, the last one alone when ntn is odd)
+__device__ __forceinline__ void fwd_step(uint32_t za, uint32_t wb, int ntn,
+                                         float acc[NT_FWD][4]) {
+  uint32_t bw[NT_FWD][2];
+#pragma unroll
+  for (int nt = 0; nt < NT_FWD; nt += 2) {
+    if (nt >= ntn) continue;
+    if (nt + 1 < ntn) {
+      uint32_t q[4];
+      ldsm_x4_t(q, wb + nt * 16);
+      bw[nt][0] = q[0];
+      bw[nt][1] = q[1];
+      bw[nt + 1][0] = q[2];
+      bw[nt + 1][1] = q[3];
+    } else {
+      ldsm_x2_t(bw[nt], wb + nt * 16);  // lanes 0-15 give the addresses
+    }
+  }
+  uint32_t af[4];
+  ldsm_x4(af, za);
+#pragma unroll
+  for (int nt = 0; nt < NT_FWD; ++nt)
+    if (nt < ntn) mma16816(acc[nt], af, bw[nt]);
+}
+
+// acc[nt] += Z_t . W_t for the 16 pixels of tile row ``warp`` over the nine
+// taps and the k-steps of channel slice cs (im2col: the k-steps of the
+// folded (tap, channel) pairs of the warp's own pixels).  sbase: the
+// shared-space address of the block's dynamic shared memory.
+__device__ __forceinline__ void fwd_compute(const TcConv& p, uint32_t sbase, int warp,
+                                            int lane, int cs, int ntn,
+                                            float acc[NT_FWD][4]) {
+  const int mi = lane >> 3, r = lane & 7;
+  const int zs2 = 2 * p.zs, ws2 = 2 * p.ws;  // bytes per staged row
+  // this lane's A row: pixel (mi & 1) * 8 + r, channels (mi >> 1) * 8 on;
+  // its B row: channel (mi & 1) * 8 + r of a k-step, outputs (mi >> 1) * 8 on
+  const int px = (mi & 1) * 8 + r;
+  const uint32_t wb = sbase + p.o_w + px * ws2 + (mi >> 1) * 16;
+  if (p.im2col) {
+    const uint32_t za = sbase + p.o_z + (warp * TW + px) * zs2 + (mi >> 1) * 16;
+    for (int k = 0; k < p.mp / 16; ++k) fwd_step(za + 32 * k, wb + 16 * k * ws2, ntn, acc);
+    return;
+  }
+  const uint32_t za = sbase + p.o_z + (warp * HWD + px) * zs2 + (mi >> 1) * 16;
+  const uint32_t wc = wb + cs * p.cb * ws2, tapw = p.ncs * p.cb * ws2;
+  const int ks = p.cb / 16;
+  for (int t = 0; t < 9; ++t) {
+    const int dy = t / 3, dx = t - 3 * dy;
+    const uint32_t zt = za + (dy * HWD + dx) * zs2, wt = wc + t * tapw;
+    for (int k = 0; k < ks; ++k) fwd_step(zt + 32 * k, wt + 16 * k * ws2, ntn, acc);
+  }
+}
+
+// grid (n * chunks, nos): block (image, tiles [bt * span, +span), output
+// slice) writes y at its pixels and outputs, and its row of the per-block
+// statistics p0 (sum), p1 (sum of squares) [n * chunks][o]
+template <bool X2H>
+__global__ void __launch_bounds__(FWD_THREADS, 2) conv_fwd_tc(TcConv p) {
+  extern __shared__ __align__(16) uint8_t sm[];
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int img = blockIdx.x / p.chunks, bt = blockIdx.x - img * p.chunks;
+  const int os = blockIdx.y, cin = p.c1 + p.c2, g = img / p.per;
+  const int os0 = os * p.nb, os_n = min(p.nb, p.o - os0), ntn = (os_n + 7) / 8;
+  const int t0 = bt * p.span, t1 = min(t0 + p.span, p.tpi);
+  const int nsl = p.im2col ? 1 : p.ncs;  // channel slices staged in turn
+  const int gq = lane >> 2, tq = lane & 3;
+  float ps[NT_FWD][2] = {}, pq[NT_FWD][2] = {};  // this thread's sums of y, y^2
+  if (p.prologue) stage_affine(p, sm, g, tid, FWD_THREADS);
+  z_pad(p, sm, tid, FWD_THREADS);
+  if (t0 < t1) {
+    fwd_fetch_w(p, sm, g, os, tid);
+    z_fetch<X2H>(p, sm, tile_at(p, img, t0), warp, FWD_THREADS / 32, lane);
+    cp_async_commit();
+    cp_async_wait_all();
+    __syncthreads();
+    z_repack<X2H, FWD_THREADS>(p, sm, tile_at(p, img, t0), 0, min(p.cb, cin), tid);
+    __syncthreads();
+  }
+  for (int t = t0; t < t1; ++t) {
+    const TileAt tl = tile_at(p, img, t);
+    const int a = tl.r0 + warp;  // the warp's image row
+    const bool live = warp < p.th && a < p.h;
+    const bool more = t + 1 < t1;
+    float acc[NT_FWD][4] = {};
+    for (int cs = 0; cs < nsl; ++cs) {
+      const bool last = cs + 1 == nsl;
+      if (last && more) {  // the next tile's runs load while this one multiplies
+        z_fetch<X2H>(p, sm, tile_at(p, img, t + 1), warp, FWD_THREADS / 32, lane);
+        cp_async_commit();
+      }
+      if (live) fwd_compute(p, smem_addr(sm), warp, lane, cs, ntn, acc);
+      if (last && live) {  // y rounded once; statistics of the rounded values
+        bf16* yrow = p.y + ((int64_t)img * p.h + a) * p.w * p.o + os0;
+#pragma unroll
+        for (int nt = 0; nt < NT_FWD; ++nt) {
+          if (nt >= ntn) continue;
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const int col = tl.c0 + gq + (i >> 1) * 8, n = nt * 8 + 2 * tq + (i & 1);
+            if (col >= p.w || n >= os_n) continue;
+            const bf16 v = f2bf(acc[nt][i]);
+            yrow[(int64_t)col * p.o + n] = v;
+            const float f = bf2f(v);
+            ps[nt][i & 1] += f;
+            pq[nt][i & 1] = fmaf(f, f, pq[nt][i & 1]);
+          }
+        }
+      }
+      cp_async_wait_all();
+      __syncthreads();
+      if (!last) {  // this tile's next channel slice
+        const int c0 = (cs + 1) * p.cb;
+        z_repack<X2H, FWD_THREADS>(p, sm, tl, c0, min(p.cb, cin - c0), tid);
+        __syncthreads();
+      } else if (more) {
+        z_repack<X2H, FWD_THREADS>(p, sm, tile_at(p, img, t + 1), 0, min(p.cb, cin), tid);
+        __syncthreads();
+      }
+    }
+  }
+  // the block's statistics: lanes, then warps, in order
+  float* red = (float*)(sm + p.o_red);
+#pragma unroll
+  for (int nt = 0; nt < NT_FWD; ++nt)
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      float vs = ps[nt][j], vq = pq[nt][j];
+#pragma unroll
+      for (int m = 4; m < 32; m <<= 1) {
+        vs += __shfl_xor_sync(0xffffffffu, vs, m);
+        vq += __shfl_xor_sync(0xffffffffu, vq, m);
+      }
+      if (gq == 0 && nt < ntn) {
+        red[warp * p.nb + nt * 8 + 2 * tq + j] = vs;
+        red[(8 + warp) * p.nb + nt * 8 + 2 * tq + j] = vq;
+      }
+    }
+  __syncthreads();
+  for (int c = tid; c < os_n; c += FWD_THREADS) {
+    float vs = 0.f, vq = 0.f;
+    for (int w = 0; w < 8; ++w) {
+      vs += red[w * p.nb + c];
+      vq += red[(8 + w) * p.nb + c];
+    }
+    p.p0[(int64_t)blockIdx.x * p.o + os0 + c] = vs;
+    p.p1[(int64_t)blockIdx.x * p.o + os0 + c] = vq;
+  }
+}
+
+// ---- K7 staging: z's runs (z_fetch), then the tile's g rows continuing the
+// warps' round robin.  info: [th + 2][4] as z_fetch, then [th] of g.
+template <bool X2H>
+__device__ void dw_fetch(const TcConv& p, uint8_t* sm, TileAt tl, int warp, int lane) {
+  constexpr int NW = DW_THREADS / 32;
+  z_fetch<X2H>(p, sm, tl, warp, NW, lane);
+  const int rows = p.th + 2, nz = rows * (p.c2 > 0 ? (X2H ? 3 : 2) : 1);
+  const int hig = min(tl.c0 + TW, p.w);
+  int* info = (int*)(sm + p.o_info);
+  for (int rs = nz + (warp - nz % NW + NW) % NW; rs < nz + p.th; rs += NW) {
+    const int j = rs - nz, r = tl.r0 + j;  // g row j
+    if (r >= p.h) continue;
+    const int64_t st = ((int64_t)tl.img * p.h + r) * p.w;
+    copy_run(sm + p.o_rg + j * p.rg, p.g, (st + tl.c0) * p.o, (st + hig) * p.o,
+             info + 4 * rows + j, lane);
+  }
+}
+
+// the staged tiles: z (z_repack) and g [th*16][nb]
+template <bool X2H>
+__device__ void dw_repack(const TcConv& p, uint8_t* sm, TileAt tl, int cs0,
+                          int cs_n, int os0, int os_n, int tid) {
+  z_repack<X2H, DW_THREADS>(p, sm, tl, cs0, cs_n, tid);
+  const int* info = (const int*)(sm + p.o_info);
   bf16* G = (bf16*)(sm + p.o_g);
   const int q8 = p.nb / 8, per = DW_THREADS / q8, q = tid % q8, rows = p.th + 2;
   const int n = min(8, os_n - 8 * q);
   for (int px = tid / q8; px < p.th * TW; px += per) {
     const int j = px / TW, x = px - j * TW;
-    uint4 v = zero;
+    uint4 v = {0u, 0u, 0u, 0u};
     if (n > 0 && tl.r0 + j < p.h && tl.c0 + x < p.w)
       v = ld8((const bf16*)(sm + p.o_rg + j * p.rg) + info[4 * rows + j] + x * p.o +
                   os0 + 8 * q, n);
@@ -648,13 +692,8 @@ __global__ void __launch_bounds__(DW_THREADS, 2) conv_dw_tc(TcConv p) {
   }
   const int t0 = chunk * p.span, t1 = min(t0 + p.span, p.per * p.tpi);
   float acc[MT_DW][NT_DW][4] = {};
-  if (p.prologue) {  // the group's prologue scale and shift, for the repack
-    float* aff = (float*)(sm + p.o_aff);
-    for (int c = tid; c < p.c1; c += DW_THREADS) {
-      aff[c] = p.sc[g * p.c1 + c];
-      aff[p.c1 + c] = p.sh[g * p.c1 + c];
-    }
-  }
+  if (p.prologue) stage_affine(p, sm, g, tid, DW_THREADS);
+  z_pad(p, sm, tid, DW_THREADS);
   if (t0 < t1) {
     const int img0 = g * p.per;
     dw_fetch<X2H>(p, sm, tile_at(p, img0 + t0 / p.tpi, t0 % p.tpi), warp, lane);
@@ -979,8 +1018,7 @@ inline bool small(int64_t v) { return v >= 0 && v <= 0x3fffffff; }
 int check(int64_t n, int64_t h, int64_t w, int64_t c1, int64_t c2, int64_t n2,
           int64_t o, int64_t groups) {
   if (n <= 0 || h < 3 || w < 3 || c1 <= 0 || c2 < 0 || o <= 0 || groups <= 0 ||
-      n % groups || !small(h * w) || !small(n * ((h * w + BM - 1) / BM)) ||
-      c1 + c2 > 0xffff)
+      n % groups || !small(h * w) || c1 + c2 > 0xffff)
     return (int)cudaErrorInvalidValue;
   if (c2 > 0 && (n2 <= 0 || n % n2)) return (int)cudaErrorInvalidValue;
   return 0;
@@ -990,13 +1028,6 @@ int check(int64_t n, int64_t h, int64_t w, int64_t c1, int64_t c2, int64_t n2,
 bool bad_half(int64_t x2h, int64_t c2, int64_t h, int64_t prologue,
               const void* lo_h, const void* fa, const void* fb) {
   return x2h && (c2 <= 0 || prologue || h % 2 || h < 4 || !lo_h || !fa || !fb);
-}
-
-// dynamic shared memory of the ktab of a 9 x ``c`` gathered dimension
-size_t ktab_bytes(int64_t c) { return (size_t)(9 * c) * sizeof(int); }
-
-Lerp lerp_tables(const void* lo_h, const void* fa, const void* fb) {
-  return Lerp{(const int*)lo_h, (const float*)fa, (const float*)fb};
 }
 
 // the tile grid of the launch's plan (th tile rows, 16 columns)
@@ -1011,8 +1042,34 @@ bool tile_plan(TcConv& p, int64_t th, int64_t span) {
   return small((int64_t)p.tpi * p.per);
 }
 
-// dynamic shared memory layout of K7; the wrapper's plan mirrors it
-// (kernels/conv3x3_train.py dw_plan)
+// dynamic shared memory layout of K5; the wrapper's plan mirrors it
+// (kernels/conv3x3_train.py fwd_plan).  x2's half-row pair is reserved
+// with or without x2_half_h, so both forms take the same plan.
+void fwd_layout(TcConv& p) {
+  const int rows = p.th + 2;
+  p.zs = stride8(p.im2col ? p.mp : p.cb);
+  p.ws = stride8(p.nb);
+  p.r1 = run_bytes(HWD, p.c1);
+  p.r2 = p.c2 > 0 ? run_bytes(HWD, p.c2) : 0;
+  int at = 0;
+  p.o_w = at;
+  at += (p.im2col ? p.mp : 9 * p.ncs * p.cb) * p.ws * 2;
+  p.o_z = at;
+  at += align16((p.im2col ? p.th * TW : rows * HWD) * p.zs * 2);
+  p.o_r1 = at;
+  at += rows * p.r1;
+  p.o_r2 = at;
+  at += rows * 2 * p.r2;
+  p.o_info = at;
+  at += align16(4 * rows * 4);
+  p.o_aff = at;
+  at += 2 * shift_at(p.c1) * 4;
+  p.o_red = at;
+  at += 2 * 8 * p.nb * 4;
+  p.smem = at;
+}
+
+// dynamic shared memory layout of K7 (dw_plan in the wrapper)
 void dw_layout(TcConv& p) {
   const int rows = p.th + 2;
   p.zs = stride8(p.im2col ? p.mp : p.cb);
@@ -1034,7 +1091,7 @@ void dw_layout(TcConv& p) {
   p.o_info = at;
   at += align16((4 * rows + p.th) * 4);
   p.o_aff = at;
-  at += align16(2 * p.c1 * 4);
+  at += 2 * shift_at(p.c1) * 4;
   p.smem = at;
 }
 
@@ -1076,38 +1133,56 @@ int launch_tc(K kernel, dim3 grid, int threads, const TcConv& p, void* stream) {
 
 }  // namespace
 
-extern "C" int mimo_conv3x3_fwd(const void* x1, const void* x2, const void* w,
+// K5.  wpk: the weights packed for the wrapper's plan (pack_fwd_weights);
+// th, cb, nb, span, im2col: that plan (fwd_plan: tile rows, channel and
+// output slice widths, tiles per block, (tap, channel) folded into K);
+// psum/psq: the per-block statistics [n * ceil(tiles / span), o].
+extern "C" int mimo_conv3x3_fwd(const void* x1, const void* x2, const void* wpk,
                                 const void* sc, const void* sh, const void* lo_h,
                                 const void* fa, const void* fb, void* y,
                                 void* psum, void* psq, int64_t n, int64_t h,
                                 int64_t wd, int64_t c1, int64_t c2, int64_t n2,
                                 int64_t o, int64_t groups, int64_t prologue,
-                                int64_t x2_half_h, void* stream) {
+                                int64_t x2_half_h, int64_t th, int64_t cb,
+                                int64_t nb, int64_t span, int64_t im2col,
+                                void* stream) {
   if (int e = check(n, h, wd, c1, c2, n2, o, groups)) return e;
-  if (9 * (c1 + c2) > KMAX || (prologue && c2 > 0) ||
-      bad_half(x2_half_h, c2, h, prologue, lo_h, fa, fb))
+  const int64_t cin = c1 + c2;
+  if (cin > 256 || o > 256 || (prologue && c2 > 0) ||
+      bad_half(x2_half_h, c2, h, prologue, lo_h, fa, fb) || nb <= 0 ||
+      nb > 8 * NT_FWD || nb % 8 || !aligned16(x1) || !aligned16(wpk) ||
+      (c2 > 0 && !aligned16(x2)) || (prologue && (!sc || !sh)) || !y || !psum || !psq)
     return (int)cudaErrorInvalidValue;
-  Conv p = {};
+  if (im2col ? (9 * cin > CS_MAX || cb != 16) : (cb <= 0 || cb > CS_MAX || cb % 16))
+    return (int)cudaErrorInvalidValue;
+  TcConv p = {};
   p.x1 = (const bf16*)x1;
   p.x2 = (const bf16*)x2;
-  p.wgt = (const bf16*)w;
+  p.wpk = (const bf16*)wpk;
   p.sc = (const float*)sc;
   p.sh = (const float*)sh;
+  p.lo = (const int*)lo_h;
+  p.fa = (const float*)fa;
+  p.fb = (const float*)fb;
   p.y = (bf16*)y;
   p.p0 = (float*)psum;
   p.p1 = (float*)psq;
   p.n = (int)n; p.h = (int)h; p.w = (int)wd; p.c1 = (int)c1; p.c2 = (int)c2;
   p.n2 = c2 > 0 ? (int)n2 : 1; p.o = (int)o; p.groups = (int)groups;
   p.prologue = prologue != 0;
-  p.np = (int)((o + BN - 1) / BN * BN);
-  const dim3 grid((unsigned)(n * ((h * wd + BM - 1) / BM)),
-                  (unsigned)((o + BN - 1) / BN));
-  const Lerp l = lerp_tables(lo_h, fa, fb);
-  if (x2_half_h)
-    conv_fwd_kernel<true><<<grid, NT, ktab_bytes(c1 + c2), (cudaStream_t)stream>>>(p, l);
-  else
-    conv_fwd_kernel<false><<<grid, NT, ktab_bytes(c1 + c2), (cudaStream_t)stream>>>(p, l);
-  return (int)cudaGetLastError();
+  if (!tile_plan(p, th, span)) return (int)cudaErrorInvalidValue;
+  p.im2col = im2col != 0;
+  p.mp = p.im2col ? (int)((9 * cin + 15) / 16 * 16) : 0;
+  p.cb = (int)cb;
+  p.ncs = p.im2col ? 1 : (int)((cin + cb - 1) / cb);
+  p.nb = (int)nb;
+  p.nos = (int)((o + nb - 1) / nb);
+  p.chunks = (p.tpi + p.span - 1) / p.span;
+  fwd_layout(p);
+  if (n * p.chunks > 0x7fffffff || p.nos > 65535) return (int)cudaErrorInvalidValue;
+  const dim3 grid((unsigned)(n * p.chunks), (unsigned)p.nos);
+  if (x2_half_h) return launch_tc(conv_fwd_tc<true>, grid, FWD_THREADS, p, stream);
+  return launch_tc(conv_fwd_tc<false>, grid, FWD_THREADS, p, stream);
 }
 
 // K6.  th, cb, span: the wrapper's plan (tile rows, channel slice width,
@@ -1203,3 +1278,4 @@ extern "C" int mimo_conv3x3_dw(const void* x1, const void* x2, const void* g,
   if (x2_half_h) return launch_tc(conv_dw_tc<true>, grid, DW_THREADS, p, stream);
   return launch_tc(conv_dw_tc<false>, grid, DW_THREADS, p, stream);
 }
+

@@ -47,9 +47,10 @@ _SIGNATURES = {
     "mimo_pool_w": [_P, _P, _I, _I, _I, _P],
     # x, lo, w0, w1, out, rows, w2, c, stream
     "mimo_upsample_w2x": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
-    # x1, x2, w, sc, sh, lo_h, fa, fb, y, psum, psq,
-    # n, h, w, c1, c2, n2, o, groups, prologue, x2_half_h, stream
-    "mimo_conv3x3_fwd": [_P] * 11 + [_I] * 10 + [_P],
+    # x1, x2, wpk, sc, sh, lo_h, fa, fb, y, psum, psq,
+    # n, h, w, c1, c2, n2, o, groups, prologue, x2_half_h, th, cb, nb, span,
+    # im2col, stream
+    "mimo_conv3x3_fwd": [_P] * 11 + [_I] * 15 + [_P],
     # g, wpk, frow, fcol, x1, sc, sh, dx1, dx2, pdsc, pdsh,
     # n, h, w, o, c1, c2, n2, groups, prologue, th, cb, span, stream
     "mimo_conv3x3_dx": [_P] * 11 + [_I] * 12 + [_P],

@@ -23,7 +23,7 @@ its custom VJP (``_train_fwd_rule`` / ``_train_bwd_rule``, :1128-1273):
 ``x2_half_h`` (the forward and dw; ``_x2_half_spec`` :238,
 ``_stage_x2_half`` :255): x2 arrives at half height ``[N2, H/2, W, C2]``,
 only the W half of its bilinear x2 upsample applied (``upsample_w2x``,
-K4), and the kernels lerp its rows as they gather, with the x2
+K4), and the kernels lerp its rows as they stage it, with the x2
 upsample's row tables and operation order (``upsample2x._h_tables``;
 ``fused_double_conv.lerp_h2x_plain`` in the plain versions): y, its
 statistics and dw are bit for bit those of the full-res x2 that
@@ -41,14 +41,15 @@ n // (N / G)); weights HWIO per group ``[G, 3, 3, C_in, O]``; prologue
 scale/shift f32 ``[G, C_in]``.  The kernels take any H, W >= 3: an
 image's last tile may be partial.
 
-K6 and K7 run on the tensor cores from spatial tiles staged in shared
+K5, K6 and K7 run on the tensor cores from spatial tiles staged in shared
 memory (``csrc/conv3x3_train.cu``).  What they take from the host is built
-here, where the CPU tests reach it: the tile plan (``dx_plan``,
-``dw_plan``: tile rows, channel and output slices, tiles per block, the
-partial counts and the shared memory they need), K6's packed weights
-(``pack_dx_weights``) and the reflect-fold tables of its rows and columns
-(``fold_table``); ``dz_folds`` is the plain torch form of K6's sum, the
-zero-pad full conv plus one term per fold.
+here, where the CPU tests reach it: the tile plan (``fwd_plan``,
+``dx_plan``, ``dw_plan``: tile rows, channel and output slices, tiles per
+block, the partial counts and the shared memory they need), K5's and K6's
+packed weights (``pack_fwd_weights``, ``pack_dx_weights``) and the
+reflect-fold tables of K6's rows and columns (``fold_table``);
+``dz_folds`` is the plain torch form of K6's sum, the zero-pad full conv
+plus one term per fold.
 
 Rounding points (both versions): bf16 operands, f32 accumulation; z
 computed in f32 and rounded to bf16 (ct_train.py:151-156); y rounded to
@@ -77,22 +78,15 @@ from mimo_unet_torch.kernels.train_elem import (
 from mimo_unet_torch.kernels.upsample2x import _h_tables, lerp_h2x_transpose
 
 BF16 = torch.bfloat16
-BM, BN = 128, 32      # K5's GEMM tile (pixels x channels)
-TW = 16               # K6/K7 tile columns (the halo tile has TW + 2)
-MAX_C = 256           # 3x3 conv channels in and out of the train kernels (K5:
-                      # csrc KMAX = 9 * 256; K6/K7: their entries' limit)
+TW = 16               # K5/K6/K7 tile columns (the halo tile has TW + 2)
+MAX_C = 256           # 3x3 conv channels in and out of the train kernels
+                      # (their entries' limit)
 SMEM_MAX = 232448     # dynamic shared memory of one H100 block
 SMEM_TWO = 113 * 1024  # ... of each of two blocks on one multiprocessor
 DW_BLOCKS = 528       # K7 blocks aimed at: 132 multiprocessors x 4
 DX_SPAN = 4           # K6 tiles per block
-
-
-def _pad_to(t: torch.Tensor, k: int) -> torch.Tensor:
-    return F.pad(t, (0, k - t.shape[-1])).contiguous()
-
-
-def _cols(c: int) -> int:
-    return -(-c // BN) * BN
+FWD_SPAN = 8          # K5 tiles per block at most, fewer where that
+FWD_BLOCKS = 2112     # leaves under 132 multiprocessors x 2 x 8 blocks
 
 
 def _check(x1, w, x2, scale, shift, x2_half_h=False) -> Tuple[int, int, int]:
@@ -125,12 +119,7 @@ def _check(x1, w, x2, scale, shift, x2_half_h=False) -> Tuple[int, int, int]:
     return g, c1 + c2, o
 
 
-def _tiles(n: int, h: int, w: int) -> int:
-    """Blocks of the fwd kernel: ceil(H*W / BM) per image."""
-    return n * -(-(h * w) // BM)
-
-
-# ---------------------------------------------------------------- K6/K7 plans
+# ---------------------------------------------------------------- K5/K6/K7 plans
 
 def _up(a: int, b: int) -> int:
     return -(-a // b) * b
@@ -151,13 +140,13 @@ def _run_bytes(px: int, c: int) -> int:
 
 @dataclasses.dataclass(frozen=True)
 class TilePlan:
-    """A K6/K7 launch: tiles of ``th`` rows by ``TW`` columns; channel
-    slices of ``cb`` (``ncs`` of them; K7's M, K6's N); K7's output slices
-    of ``nb`` (``nos``) and its (tap, channel) fold into M (``im2col``, M
-    padded to ``mp``); ``span`` tiles per block; ``chunks`` blocks per
-    group (K7: the partial rows of a group) or per image (K6); ``smem``
-    bytes of dynamic shared memory (the layouts ``dw_layout`` and
-    ``dx_layout`` of the source)."""
+    """A K5/K6/K7 launch: tiles of ``th`` rows by ``TW`` columns; channel
+    slices of ``cb`` (``ncs`` of them; K5's K, K7's M, K6's N); K5's and
+    K7's output slices of ``nb`` (``nos``) and their (tap, channel) fold
+    (``im2col``, padded to ``mp``); ``span`` tiles per block; ``chunks``
+    blocks per group (K7: the partial rows of a group) or per image (K5,
+    K6); ``smem`` bytes of dynamic shared memory (the layouts
+    ``fwd_layout``, ``dw_layout`` and ``dx_layout`` of the source)."""
     th: int
     tiles_w: int
     tpi: int
@@ -172,6 +161,16 @@ class TilePlan:
     smem: int
 
 
+def _fwd_smem(th, c1, c2, cb, ncs, nb, im2col, mp) -> int:
+    rows = th + 2
+    a16 = lambda b: _up(b, 16)  # noqa: E731
+    wrows = mp if im2col else 9 * ncs * cb
+    z = (th * TW if im2col else rows * (TW + 2)) * _stride8(mp if im2col else cb) * 2
+    raw2 = _run_bytes(TW + 2, c2) if c2 else 0
+    return (wrows * _stride8(nb) * 2 + a16(z) + rows * _run_bytes(TW + 2, c1)
+            + rows * 2 * raw2 + a16(4 * rows * 4) + 2 * _up(c1, 8) * 4 + 2 * 8 * nb * 4)
+
+
 def _dw_smem(th, c1, c2, o, cb, nb, im2col, mp) -> int:
     rows = th + 2
     a16 = lambda b: _up(b, 16)  # noqa: E731
@@ -179,7 +178,7 @@ def _dw_smem(th, c1, c2, o, cb, nb, im2col, mp) -> int:
     raw2 = _run_bytes(TW + 2, c2) if c2 else 0
     return (a16(z) + a16(th * TW * _stride8(nb) * 2) + rows * _run_bytes(TW + 2, c1)
             + rows * 2 * raw2 + th * _run_bytes(TW, o) + a16((4 * rows + th) * 4)
-            + a16(2 * c1 * 4))
+            + 2 * _up(c1, 8) * 4)
 
 
 def _dx_smem(th, o, cb) -> int:
@@ -204,6 +203,70 @@ def _limit(cin: int, o: int) -> None:
                          f"and output channels, got {cin} -> {o}")
 
 
+def _slices(cin: int) -> Tuple[bool, int, int, int]:
+    """The staged z's channels, as K5 and K7 take them: (im2col, cb, ncs,
+    mp).  At C_in <= 7 the (tap, channel) pairs fold into one dimension of
+    9*C_in padded to 16; else slices of at most 64 channels padded to 16."""
+    if 9 * cin <= 64:
+        return True, 16, 1, _up(9 * cin, 16)
+    ncs = -(-cin // 64)
+    return False, _up(-(-cin // ncs), 16), ncs, 0
+
+
+def fwd_plan(n: int, h: int, w: int, c1: int, c2: int, o: int) -> TilePlan:
+    """K5's launch.  Eight warps, one per tile row, each with up to 8 mma
+    n-tiles: output slices of at most 64 (narrower where the weights need
+    the room), every channel slice inside the block; blocks of up to
+    ``FWD_SPAN`` tiles of one image, fewer where that would leave fewer
+    than ``FWD_BLOCKS`` blocks.  The plan does not depend on x2_half_h:
+    both forms take the same tiles and sum in the same order."""
+    cin = c1 + c2
+    _limit(cin, o)
+    im2col, cb, ncs, mp = _slices(cin)
+    # output slice widths, widest first: o in 1, 2, ... slices of at most
+    # 64, each padded to whole n-tiles
+    widths = sorted({_up(-(-o // k), 8) for k in range(-(-o // 64), -(-o // 8) + 1)},
+                    reverse=True)
+    for limit in (SMEM_TWO, SMEM_MAX):
+        for th in (8, 4, 2, 1):
+            for nb in widths:
+                smem = _fwd_smem(th, c1, c2, cb, ncs, nb, im2col, mp)
+                if smem <= limit:
+                    tiles_w = -(-w // TW)
+                    tpi = -(-h // th) * tiles_w
+                    nos = -(-o // nb)
+                    span = min(FWD_SPAN, tpi, max(1, -(-(n * tpi * nos) // FWD_BLOCKS)))
+                    return TilePlan(th, tiles_w, tpi, cb, ncs, nb, nos, im2col,
+                                    mp, span, -(-tpi // span), smem)
+    raise ValueError(f"conv3x3_fwd: {cin} -> {o} channels need more than "
+                     f"{SMEM_MAX} bytes of shared memory")
+
+
+def pack_fwd_weights(w: torch.Tensor, plan: TilePlan) -> torch.Tensor:
+    """[G, 3, 3, C, O] -> K5's [G, nos, K, ws] bf16: per output slice, the
+    weights [k][o] with k = tap * ncs*cb + c (im2col: tap * C + c, padded to
+    mp) and o padded to the staged row stride ws, zeros in the padding (a
+    flat copy of one slice is K5's shared-memory B operand)."""
+    groups, _, _, c, o = w.shape
+    ws = _stride8(plan.nb)
+    wt = w.to(BF16).reshape(groups, 9, c, o)
+    if plan.im2col:
+        wt = F.pad(wt.reshape(groups, 9 * c, o), (0, 0, 0, plan.mp - 9 * c))
+    else:
+        wt = F.pad(wt, (0, 0, 0, plan.ncs * plan.cb - c)).reshape(groups, -1, o)
+    wt = F.pad(wt, (0, plan.nos * plan.nb - o)).reshape(groups, -1, plan.nos, plan.nb)
+    return F.pad(wt, (0, ws - plan.nb)).transpose(1, 2).contiguous()
+
+
+def unpack_fwd_weights(wpk: torch.Tensor, plan: TilePlan, c: int, o: int) -> torch.Tensor:
+    """Inverse of ``pack_fwd_weights``: -> [G, 3, 3, C, O]."""
+    groups = wpk.shape[0]
+    wt = wpk[..., :plan.nb].transpose(1, 2).reshape(groups, wpk.shape[2], -1)[..., :o]
+    if plan.im2col:
+        return wt[:, :9 * c].reshape(groups, 3, 3, c, o)
+    return wt.reshape(groups, 9, -1, o)[:, :, :c].reshape(groups, 3, 3, c, o)
+
+
 def dw_plan(n: int, h: int, w: int, c1: int, c2: int, o: int,
             groups: int) -> TilePlan:
     """K7's launch.  Nine warps, one per tap, each holding up to 4 x 4 mma
@@ -213,12 +276,7 @@ def dw_plan(n: int, h: int, w: int, c1: int, c2: int, o: int,
     ``DW_BLOCKS`` blocks in all, each writing one partial row."""
     cin = c1 + c2
     _limit(cin, o)
-    im2col = 9 * cin <= 64
-    if im2col:
-        cb, ncs, mp = 16, 1, _up(9 * cin, 16)
-    else:
-        ncs = -(-cin // 64)
-        cb, mp = _up(-(-cin // ncs), 16), 0
+    im2col, cb, ncs, mp = _slices(cin)
     nos = -(-o // 32)
     nb = _up(-(-o // nos), 8)
     th = _pick_th(lambda t: _dw_smem(t, c1, c2, o, cb, nb, im2col, mp))
@@ -317,7 +375,7 @@ def dz_folds(g: torch.Tensor, w: torch.Tensor, frow: torch.Tensor,
 
 
 def _aligned(t: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
-    """``t`` at a 16-byte aligned address (K6/K7 copy 16-byte units)."""
+    """``t`` at a 16-byte aligned address (K5/K6/K7 copy 16-byte units)."""
     if t is None or t.data_ptr() % 16 == 0:
         return t
     return t.clone()
@@ -453,19 +511,22 @@ def conv3x3_fwd(x1: torch.Tensor, w: torch.Tensor, *,
         return conv3x3_fwd_plain(x1, w, x2=x2, scale=scale, shift=shift,
                                  x2_half_h=x2_half_h)
     n, h, wd, c1 = x1.shape
-    wk = _pad_to(w.reshape(groups, 9 * cin, o).to(BF16), _cols(o))
+    plan = fwd_plan(n, h, wd, c1, cin - c1, o)
+    wpk = pack_fwd_weights(w, plan)
     sc, sh = _prologue_args(scale, shift)
-    _build.require_cuda(*[t for t in (x1, x2, wk, sc, sh) if t is not None])
+    _build.require_cuda(*[t for t in (x1, x2, wpk, sc, sh) if t is not None])
     _build.require_cuda(*[t for t in (x1, x2) if t is not None], dtype=BF16)
+    x1, x2 = _aligned(x1), _aligned(x2)
     lo_h, fa, fb = _half_args(x2_half_h, h, x1.device)
     y = torch.empty((n, h, wd, o), device=x1.device, dtype=BF16)
-    psum = torch.empty((_tiles(n, h, wd), o), device=x1.device, dtype=torch.float32)
+    psum = torch.empty((n * plan.chunks, o), device=x1.device, dtype=torch.float32)
     psq = torch.empty_like(psum)
-    _build.launch("mimo_conv3x3_fwd", x1.device, _ptr(x1), _ptr(x2), _ptr(wk),
+    _build.launch("mimo_conv3x3_fwd", x1.device, _ptr(x1), _ptr(x2), _ptr(wpk),
                   _ptr(sc), _ptr(sh), _ptr(lo_h), _ptr(fa), _ptr(fb), _ptr(y),
                   _ptr(psum), _ptr(psq), n, h, wd, c1, cin - c1,
                   0 if x2 is None else x2.shape[0], o, groups,
-                  int(sc is not None), int(x2_half_h))
+                  int(sc is not None), int(x2_half_h), plan.th, plan.cb,
+                  plan.nb, plan.span, int(plan.im2col))
     conv3x3_fwd.launches += 1
     return y, reduce_groups(psum, groups), reduce_groups(psq, groups)
 

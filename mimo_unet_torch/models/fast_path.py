@@ -65,7 +65,7 @@ route: the TPU's lane conditions are not ported, so 256x256 patches and
             in the JAX package, :1276-1300) the x2-half decoder instead:
             UpsampleW2x (K4, backward K4b) at half height, and conv1 with
             ``x2_half_h`` (its forward and dw kernels lerp the rows as they
-            gather, its backward takes the x2 cotangent to half height
+            stage them, its backward takes the x2 cotangent to half height
             with K14), so the full-res upsampled tensor never exists; the
             step is bit for bit the default one
 

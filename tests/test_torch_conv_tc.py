@@ -1,6 +1,6 @@
-"""What the tensor-core train conv kernels K6 (dx) and K7 (dw) take from the
-host, on the CPU: the tile plans, K6's packed weights and reflect-fold
-tables, and K6's sum written with those tables (``dz_folds``: the zero-pad
+"""What the tensor-core train conv kernels K5 (fwd), K6 (dx) and K7 (dw)
+take from the host, on the CPU: the tile plans, K5's and K6's packed
+weights, K6's reflect-fold tables, and K6's sum written with those tables (``dz_folds``: the zero-pad
 full conv plus one term per fold, each a single g value) held against the
 plain transpose (``_dz_plain``, autograd through the reflect conv) and
 against the JAX package's Pallas dx kernels (``_conv_dx``,
@@ -85,6 +85,33 @@ def test_pack_dx_weights_round_trip(c, o, groups):
     # everything past the real channels and outputs is zero
     full = wpk.transpose(1, 2).reshape(groups, 9, plan.ncs * plan.cb, ws)
     assert not bool(full[:, :, c:].any()) and not bool(full[..., o:].any())
+
+
+@pytest.mark.parametrize("c,o,groups", [(3, 21, 2), (7, 9, 1), (21, 21, 2), (63, 31, 2),
+                                        (40, 80, 2), (120, 60, 3), (256, 256, 1)])
+def test_pack_fwd_weights_round_trip(c, o, groups):
+    rng = np.random.default_rng(c * 3 + o)
+    w = _t(_bf16(rng, (groups, 3, 3, c, o)), torch.float32)
+    plan = CT.fwd_plan(2, 8, 8, c, 0, o)
+    wpk = CT.pack_fwd_weights(w, plan)
+    ws = wpk.shape[-1]
+    rows = plan.mp if plan.im2col else 9 * plan.ncs * plan.cb
+    assert wpk.dtype == BF and wpk.is_contiguous()
+    assert tuple(wpk.shape) == (groups, plan.nos, rows, ws)
+    # the staged row stride: the output slice, an odd number of 16-byte units
+    assert ws >= plan.nb and ws % 8 == 0 and (ws // 8) % 2 == 1
+    assert torch.equal(CT.unpack_fwd_weights(wpk, plan, c, o), w.to(BF))
+    # row k of a slice is tap k // (ncs*cb), channel k % (ncs*cb) (im2col:
+    # tap k // c, channel k % c); everything past the real ones is zero
+    full = wpk[..., :plan.nb].transpose(1, 2).reshape(groups, rows, -1)
+    assert not bool(full[..., o:].any()) and not bool(wpk[..., plan.nb:].any())
+    if plan.im2col:
+        assert torch.equal(full[:, :9 * c, :o], w.to(BF).reshape(groups, 9 * c, o))
+        assert not bool(full[:, 9 * c:].any())
+    else:
+        taps = full.reshape(groups, 9, plan.ncs * plan.cb, -1)
+        assert torch.equal(taps[:, 4, :c, :o], w.to(BF)[:, 1, 1])
+        assert not bool(taps[:, :, c:].any())
 
 
 # ------------------------------------------------------------ fold tables
@@ -224,7 +251,8 @@ PLANS = [(8, 480, 640, 3, 0, 21, 2), (8, 480, 640, 21, 42, 31, 2),
 def test_tile_plans(shape):
     n, h, w, c1, c2, o, groups = shape
     cin = c1 + c2
-    for plan in (CT.dw_plan(n, h, w, c1, c2, o, groups), CT.dx_plan(h, w, o, cin)):
+    for plan in (CT.dw_plan(n, h, w, c1, c2, o, groups), CT.dx_plan(h, w, o, cin),
+                 CT.fwd_plan(n, h, w, c1, c2, o)):
         assert plan.th in (1, 2, 4, 8) and 0 < plan.smem <= CT.SMEM_MAX
         # the tiles cover each pixel of an image exactly once
         assert plan.tiles_w == -(-w // CT.TW)
@@ -249,6 +277,16 @@ def test_tile_plans(shape):
     dx = CT.dx_plan(h, w, o, cin)
     assert dx.cb % 8 == 0 and dx.cb <= 64 and dx.cb * dx.ncs >= cin
     assert dx.chunks == -(-dx.tpi // dx.span)  # prologue partial rows: n * chunks
+    fw = CT.fwd_plan(n, h, w, c1, c2, o)
+    # the staged z as K7 takes it; output slices of at most 8 n-tiles
+    assert (fw.im2col, fw.cb, fw.ncs, fw.mp) == (dw.im2col, dw.cb, dw.ncs, dw.mp)
+    assert fw.nb % 8 == 0 and fw.nb <= 64 and fw.nb * fw.nos >= o > fw.nb * (fw.nos - 1)
+    # blocks of span tiles of one image (statistics rows: n * chunks)
+    assert 1 <= fw.span <= min(CT.FWD_SPAN, fw.tpi)
+    assert fw.chunks == -(-fw.tpi // fw.span) and (fw.chunks - 1) * fw.span < fw.tpi
+    assert fw.smem == CT._fwd_smem(fw.th, c1, c2, fw.cb, fw.ncs, fw.nb, fw.im2col, fw.mp)
+    if max(cin, o) <= 64:  # the flagship's widths: tall tiles, two blocks a multiprocessor
+        assert fw.th == 8 and fw.nos == 1 and fw.smem <= CT.SMEM_TWO
 
 
 def test_tile_plans_raise_past_the_channel_limit():
@@ -256,3 +294,7 @@ def test_tile_plans_raise_past_the_channel_limit():
         CT.dw_plan(2, 8, 8, 200, 57, 8, 1)
     with pytest.raises(ValueError, match="at most 256"):
         CT.dx_plan(8, 8, 257, 8)
+    with pytest.raises(ValueError, match="at most 256"):
+        CT.fwd_plan(2, 8, 8, 200, 57, 8)
+    with pytest.raises(ValueError, match="at most 256"):
+        CT.fwd_plan(2, 8, 8, 8, 0, 257)

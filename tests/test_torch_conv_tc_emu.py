@@ -1,4 +1,4 @@
-"""The tensor-core train conv kernels K6 (dx) and K7 (dw) of
+"""The tensor-core train conv kernels K5 (fwd), K6 (dx) and K7 (dw) of
 ``mimo_unet_torch/csrc/conv3x3_train.cu``, compiled with g++ against a CPU
 stand-in of the CUDA runtime (``tests/cuda_emu``: a host thread per CUDA
 thread, ldmatrix and mma.sync by their fragment layouts), held against
@@ -9,7 +9,10 @@ output slices and blocks of several tiles.  What the card alone can show
 
 Tolerances: bf16 outputs within one bf16 ulp of the larger magnitude (the
 f32 sums run in another order and may round to the neighbouring bf16),
-f32 outputs within 1e-5 of the largest value.
+f32 outputs within 1e-5 of the largest value.  K5's statistics are held
+against the same sums of its own y: they are defined on the rounded y,
+and one y rounded to the neighbouring bf16 moves a sum by more than
+1e-5 of the largest.
 """
 
 import ctypes
@@ -23,6 +26,8 @@ import torch
 
 from mimo_unet_torch.kernels import _build
 from mimo_unet_torch.kernels import conv3x3_train as CT
+from mimo_unet_torch.kernels.fused_double_conv import lerp_h2x_plain
+from mimo_unet_torch.kernels.train_elem import group_sum
 from mimo_unet_torch.kernels.upsample2x import _h_tables
 
 BF = torch.bfloat16
@@ -56,7 +61,7 @@ def lib(tmp_path_factory):
                     os.path.join(EMU, "main.cpp"), "-o", str(so)],
                    check=True, capture_output=True, text=True)
     dll = ctypes.CDLL(str(so))
-    for name in ("mimo_conv3x3_dx", "mimo_conv3x3_dw"):
+    for name in ("mimo_conv3x3_fwd", "mimo_conv3x3_dx", "mimo_conv3x3_dw"):
         fn = getattr(dll, name)
         fn.argtypes = _build._SIGNATURES[name]
         fn.restype = ctypes.c_int
@@ -90,6 +95,39 @@ def _ulp_close(got, want):
 def _f32_close(got, want):
     scale = float(want.abs().max()) or 1.0
     assert float((got - want).abs().max()) <= 1e-5 * scale
+
+
+def _fwd(lib, x1, w, *, x2=None, sc=None, sh=None, x2h=False):
+    """K5 through the emulation, as the wrapper launches it: (y, sum,
+    sumsq), the per-block statistics summed per group."""
+    n, h, wd, c1 = x1.shape
+    groups, o = w.shape[0], w.shape[-1]
+    c2 = 0 if x2 is None else x2.shape[-1]
+    plan = CT.fwd_plan(n, h, wd, c1, c2, o)
+    wpk = CT.pack_fwd_weights(w, plan)
+    lo = fa = fb = None
+    if x2h:
+        lo, fa, fb = _h_tables(h // 2, torch.device("cpu"))[:3]
+    y = torch.full((n, h, wd, o), float("nan"), dtype=BF)
+    ps = torch.full((n * plan.chunks, o), float("nan"))
+    pq = torch.full_like(ps, float("nan"))
+    _call(lib, "mimo_conv3x3_fwd", plan, _p(x1), _p(x2), _p(wpk), _p(sc), _p(sh), _p(lo),
+          _p(fa), _p(fb), _p(y), _p(ps), _p(pq), n, h, wd, c1, c2,
+          0 if x2 is None else x2.shape[0], o, groups, int(sc is not None), int(x2h),
+          plan.th, plan.cb, plan.nb, plan.span, int(plan.im2col))
+    assert bool(torch.isfinite(ps).all() and torch.isfinite(pq).all()), \
+        "a statistics row was not written"
+    return y, ps.view(groups, -1, o).sum(1), pq.view(groups, -1, o).sum(1)
+
+
+def _fwd_close(got, want, groups):
+    """y within one ulp of the plain y; the statistics within 1e-5 of the
+    plain version's sums of the kernel's own y."""
+    y = got[0]
+    assert bool(torch.isfinite(y.float()).all()), "a y value was not written"
+    _ulp_close(y, want[0])
+    _f32_close(got[1], group_sum(y.float(), groups))
+    _f32_close(got[2], group_sum(y.float() * y.float(), groups))
 
 
 def _dx(lib, g, w, *, x1=None, sc=None, sh=None, c1=None, n2=None):
@@ -136,6 +174,39 @@ def _dw(lib, g, x1, groups, *, x2=None, sc=None, sh=None, x2h=False):
           plan.span, int(plan.im2col))
     assert bool(torch.isfinite(part).all()), "a partial row was not written"
     return part.view(groups, plan.chunks, -1).sum(1).view(groups, 3, 3, cin, o)
+
+
+# (h, w, c1, c2, o, groups, images per group, prologue, x2_half_h): the
+# im2col form (C_in = 3), the prologue, x2 with period N2 < N and its
+# half-height form, several n-tiles (42, odd: 63), two output slices (80),
+# two channel slices (70; fbc 40's decoder conv1, 40 + 80 -> 60), partial
+# tiles (W = 17, 19, 20; H = 9: a second tile row of one row), H, W = 3
+FWD_SHAPES = [(3, 3, 3, 0, 5, 2, 1, False, False), (5, 20, 3, 0, 21, 1, 2, False, False),
+              (6, 19, 21, 0, 21, 2, 1, True, False), (3, 3, 4, 6, 7, 2, 2, False, False),
+              (4, 17, 5, 9, 31, 2, 2, False, False), (6, 18, 5, 9, 11, 2, 1, False, True),
+              (4, 5, 3, 6, 7, 1, 2, False, True), (9, 16, 42, 0, 42, 1, 2, False, False),
+              (5, 7, 21, 0, 63, 2, 1, True, False), (4, 6, 40, 0, 80, 2, 1, False, False),
+              (5, 5, 70, 0, 40, 1, 1, True, False), (4, 4, 40, 80, 60, 2, 1, False, True)]
+
+
+@pytest.mark.parametrize("shape", FWD_SHAPES)
+def test_fwd_kernel_emulated(lib, shape):
+    h, w, c1, c2, o, groups, per, pro, x2h = shape
+    gen = torch.Generator().manual_seed(h * 100 + w * 10 + c1 + o)
+    n = groups * per
+    x1 = _bf(gen, n, h, w, c1)
+    x2 = _bf(gen, per, h // 2 if x2h else h, w, c2) if c2 else None
+    wt = _bf(gen, groups, 3, 3, c1 + c2, o, scale=0.3).float()
+    sc = sh = None
+    if pro:
+        sc = torch.rand((groups, c1), generator=gen) + 0.5
+        sh = torch.randn((groups, c1), generator=gen) * 0.1
+    got = _fwd(lib, x1, wt, x2=x2, sc=sc, sh=sh, x2h=x2h)
+    _fwd_close(got, CT.conv3x3_fwd_plain(x1, wt, x2=x2, scale=sc, shift=sh,
+                                         x2_half_h=x2h), groups)
+    if x2h:  # bit for bit the full-res form fed the upsampled x2
+        for a, b in zip(got, _fwd(lib, x1, wt, x2=lerp_h2x_plain(x2).contiguous())):
+            assert torch.equal(a, b)
 
 
 # (h, w, o, cin, groups, images per group): H, W = 3 (the folds of both
@@ -198,11 +269,13 @@ def test_dw_kernel_emulated(lib, shape):
 
 
 def test_kernels_emulated_with_blocks_of_several_tiles(lib, monkeypatch):
-    """One K7 chunk per group and three K6 tiles a block: the next tile's
-    copies started while this one multiplies, the fold form's S images a
-    block in turn, the prologue partials over several tiles."""
+    """One K7 chunk per group, three K6 tiles a block and K5's longest
+    blocks: the next tile's copies started while this one multiplies, the
+    fold form's S images a block in turn, the prologue partials and K5's
+    statistics over several tiles, K5's channel slices restaged per tile."""
     monkeypatch.setattr(CT, "DW_BLOCKS", 1)
     monkeypatch.setattr(CT, "DX_SPAN", 3)
+    monkeypatch.setattr(CT, "FWD_BLOCKS", 1)
     gen = torch.Generator().manual_seed(5)
     groups, per, h, w = 2, 2, 20, 35
     n = groups * per
@@ -211,6 +284,17 @@ def test_kernels_emulated_with_blocks_of_several_tiles(lib, monkeypatch):
     assert CT.dw_plan(n, h, w, 7, 10, 13, groups).span > 1
     _f32_close(_dw(lib, g, x1, groups, x2=x2, x2h=True),
                CT.conv3x3_dw_plain(g, x1, groups, x2=x2, x2_half_h=True))
+    assert CT.fwd_plan(n, h, w, 7, 10, 13).span == CT.FWD_SPAN
+    wf = _bf(gen, groups, 3, 3, 17, 13, scale=0.3).float()
+    _fwd_close(_fwd(lib, x1, wf, x2=x2, x2h=True),
+               CT.conv3x3_fwd_plain(x1, wf, x2=x2, x2_half_h=True), groups)
+    x70 = _bf(gen, n, h, w, 70)
+    w70 = _bf(gen, groups, 3, 3, 70, 13, scale=0.2).float()
+    sc70 = torch.rand((groups, 70), generator=gen) + 0.5
+    sh70 = torch.randn((groups, 70), generator=gen) * 0.1
+    assert CT.fwd_plan(n, h, w, 70, 0, 13).ncs == 2
+    _fwd_close(_fwd(lib, x70, w70, sc=sc70, sh=sh70),
+               CT.conv3x3_fwd_plain(x70, w70, scale=sc70, shift=sh70), groups)
     wt = _bf(gen, groups, 3, 3, 17, 13).float()
     for a, b in zip(_dx(lib, g, wt, c1=7, n2=per), CT.conv3x3_dx_fold_plain(g, wt, 7, per)):
         _ulp_close(a, b)
@@ -226,7 +310,8 @@ def test_kernels_emulated_with_blocks_of_several_tiles(lib, monkeypatch):
 
 def test_entries_refuse_past_the_channel_limit(lib):
     """The kernels' own checks: more than 256 outputs (dx's K) or input
-    channels (dw's M) is refused with an error, nothing launched."""
+    channels (dw's M, fwd's K) is refused with an error, nothing
+    launched."""
     g = torch.zeros((2, 4, 4, 8), dtype=BF)
     x = torch.zeros((2, 4, 4, 257), dtype=BF)
     frow, fcol = CT.fold_table(4), CT.fold_table(4)
@@ -238,3 +323,7 @@ def test_entries_refuse_past_the_channel_limit(lib):
     assert lib.mimo_conv3x3_dw(_p(x), None, _p(g), None, None, None, None, None,
                                _p(part), 2, 4, 4, 257, 0, 0, 8, 1, 0, 0, 8, 64, 8, 1,
                                0, None) != 0
+    y = torch.zeros((2, 4, 4, 8), dtype=BF)
+    assert lib.mimo_conv3x3_fwd(_p(x), None, _p(wpk), None, None, None, None, None,
+                                _p(y), _p(part), _p(part), 2, 4, 4, 257, 0, 0, 8, 1, 0,
+                                0, 8, 64, 8, 1, 0, None) != 0

@@ -4,10 +4,12 @@
     python3 tools/conv_tc_phases.py
 
 Builds a copy of ``mimo_unet_torch/csrc/conv3x3_train.cu`` with
-``clock64()`` counters around each phase of K6 (dx: copy issue, mma loop,
-epilogue, wait and barrier, repack) and K7 (dw: copy issue, mma loop,
-wait and barrier, repack and barrier) into a library of its own under the
-git-ignored ``mimo_unet_torch/_build/``, runs both at the 640x480 B=4
+``clock64()`` counters around each phase of K5 (fwd: copy issue, mma
+loop, epilogue with the statistics, wait and barrier, repack and
+barrier), K6 (dx: copy issue, mma loop, epilogue, wait and barrier,
+repack) and K7 (dw: copy issue, mma loop, wait and barrier, repack and
+barrier) into a library of its own under the
+git-ignored ``mimo_unet_torch/_build/``, runs them at the 640x480 B=4
 call sites of ``chip_smoke.py`` phase 5, and prints each site's time and
 its cycles per warp by phase with their shares.  The counters cost a few
 per cent; the shares, not the times, are what the script is for.  Exits
@@ -22,6 +24,7 @@ import subprocess
 import sys
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+NPHASE = 24  # counters: dx 0-4 and 15, dw 8-11 and 14, fwd 16-21
 
 
 def _sub(s: str, old: str, new: str) -> str:
@@ -32,11 +35,32 @@ def _sub(s: str, old: str, new: str) -> str:
 
 def instrumented(src: str) -> str:
     """The kernel source with per-warp phase counters summed into a device
-    array ``g_phase`` (dx: 0-4, blocks' warps 15; dw: 8-11, 14) and an
-    entry ``mimo_phase`` that resets or reads it."""
-    s = _sub(src, "namespace {\n\nconstexpr int BM = 128;",
-             "__device__ unsigned long long g_phase[16];\n"
-             "namespace {\n\nconstexpr int BM = 128;")
+    array ``g_phase`` (dx: 0-4, blocks' warps 15; dw: 8-11, 14; fwd: 16-20,
+    21) and an entry ``mimo_phase`` that resets or reads it."""
+    s = _sub(src, "namespace {\n\n__device__ __forceinline__ int reflect",
+             "__device__ unsigned long long g_phase[NPHASE];\n"
+             "namespace {\n\n__device__ __forceinline__ int reflect")
+    # K5
+    s = _sub(s, "  for (int t = t0; t < t1; ++t) {\n    const TileAt tl = tile_at(p, img, t);",
+             "  long long ph[5] = {0, 0, 0, 0, 0};\n"
+             "  for (int t = t0; t < t1; ++t) {\n    const TileAt tl = tile_at(p, img, t);")
+    s = _sub(s, "      const bool last = cs + 1 == nsl;\n",
+             "      const bool last = cs + 1 == nsl;\n      long long q0 = clock64();\n")
+    s = _sub(s, "      if (live) fwd_compute(p, smem_addr(sm), warp, lane, cs, ntn, acc);\n",
+             "      long long q1 = clock64(); ph[0] += q1 - q0;\n"
+             "      if (live) fwd_compute(p, smem_addr(sm), warp, lane, cs, ntn, acc);\n"
+             "      long long q2 = clock64(); ph[1] += q2 - q1;\n")
+    s = _sub(s, "      cp_async_wait_all();\n      __syncthreads();\n      if (!last) {",
+             "      long long q3 = clock64(); ph[2] += q3 - q2;\n"
+             "      cp_async_wait_all();\n      __syncthreads();\n"
+             "      long long q4 = clock64(); ph[3] += q4 - q3;\n      if (!last) {")
+    s = _sub(s, "        z_repack<X2H, FWD_THREADS>(p, sm, tile_at(p, img, t + 1), 0, min(p.cb, cin), tid);\n"
+                "        __syncthreads();\n      }\n    }\n  }\n",
+             "        z_repack<X2H, FWD_THREADS>(p, sm, tile_at(p, img, t + 1), 0, min(p.cb, cin), tid);\n"
+             "        __syncthreads();\n      }\n      ph[4] += clock64() - q4;\n    }\n  }\n"
+             "  if (lane == 0) {\n    for (int k = 0; k < 5; ++k)\n"
+             "      atomicAdd(&g_phase[16 + k], (unsigned long long)ph[k]);\n"
+             "    atomicAdd(&g_phase[21], 1ull);\n  }\n")
     # K6
     s = _sub(s, "  for (int s = 0; s < nsteps; ++s) {\n    const TileAt tl = tile_of(s);",
              "  long long ph[5] = {0, 0, 0, 0, 0};\n"
@@ -76,13 +100,13 @@ def instrumented(src: str) -> str:
              "    if (lane == 0) {\n      for (int k = 0; k < 4; ++k)\n"
              "        atomicAdd(&g_phase[8 + k], (unsigned long long)ph[k]);\n"
              "      atomicAdd(&g_phase[14], 1ull);\n    }\n")
-    return s + '''
+    return f"#define NPHASE {NPHASE}\n" + s + '''
 extern "C" int mimo_phase(unsigned long long* out, int reset) {
   if (reset) {
-    unsigned long long z[16] = {};
+    unsigned long long z[NPHASE] = {};
     return (int)cudaMemcpyToSymbol(g_phase, z, sizeof(z));
   }
-  return (int)cudaMemcpyFromSymbol(out, g_phase, sizeof(unsigned long long) * 16);
+  return (int)cudaMemcpyFromSymbol(out, g_phase, sizeof(unsigned long long) * NPHASE);
 }
 '''
 
@@ -125,7 +149,7 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     sites = [st for st in cs.train_sites(dev, torch.Generator(device=dev).manual_seed(1))
              if st.name in cs.TC_KERNELS]
-    buf = (ctypes.c_ulonglong * 16)()
+    buf = (ctypes.c_ulonglong * NPHASE)()
     for st in sites:
         st.kern()
         torch.cuda.synchronize()
@@ -135,6 +159,9 @@ def main() -> int:
         v = list(buf)
         if st.name == "conv3x3_dw":
             labels, first, warps = ["issue", "mma", "wait+barrier", "repack+barrier"], 8, v[14]
+        elif st.name == "conv3x3_fwd":
+            labels, first, warps = ["issue", "mma", "epilogue+statistics", "wait+barrier",
+                                    "repack+barrier"], 16, v[21]
         else:
             labels, first, warps = ["issue", "mma", "epilogue", "wait+barrier",
                                     "repack+barrier"], 0, v[15]
