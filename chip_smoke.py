@@ -9,19 +9,33 @@ Run from the root of the repository.  Phases, each raising on failure:
    --format=csv,noheader``) and the CUDA version.
 2. Build the hand-written kernels from ``mimo_unet_torch/csrc`` (one nvcc
    per source, in parallel) and print the build time, ptxas's registers,
-   shared memory and spills of the train conv kernels, and the HMMA
-   (tensor-core mma) instructions of each in the library's SASS
-   (cuobjdump); raise if K5 (fwd), K6 (dx) or K7 (dw) has none.
+   shared memory and spills of the tensor-core kernels (the train convs
+   K5-K7 and the fused DoubleConv K1/K2), and the HMMA (tensor-core mma)
+   instructions of each in the library's SASS (cuobjdump); raise if K5
+   (fwd), K6 (dx), K7 (dw) or K1/K2 (``fused_double_conv_tc``) has none.
 3. Eval kernels: call each at its flagship serving call sites (S=2, fbc=21,
    256x256, B=32, bf16) and hold it against its plain PyTorch version
    (float32, TF32 off): pool_w and upsample_w2x bitwise, the DoubleConv
-   kernels at max abs <= 1e-2 * max|ref| and mean abs <= 1e-3 * max|ref|.
+   kernels (tensor cores) at max abs <= 1e-2 * max|ref| and mean abs <=
+   1e-3 * max|ref| and bitwise from one launch to the next, their times
+   printed beside those of the f32 CUDA-core kernel they replaced
+   (``CUDA_CORE_MS``) and of the same DoubleConv as a sequence of bf16
+   cuDNN calls (``cudnn_seq_ms``: reflect pad, conv, affine + ReLU, twice,
+   and the 1x1 where fused; a yardstick, no one call computes the fused
+   function).  Then K1/K2 at partial tiles with fbc 40's widths (24x40
+   images, B=3) and at BASELINE 5a's and 5b's up3 widths (B=2), the same
+   checks, times printed but not summed; and up3's ``x2_half_h`` bitwise
+   against its full-res form fed the lerped x2.
 4. Serve: the flagship MimoUnetTask's model (seeded weights, random
    BatchNorm statistics) in an Ensemble answers three predict calls of 32
    random 256x256x3 images and one of a single image through the kernel
    path; the eval kernels' launch counters must show each ran, the
    outputs must be finite with variances >= 0, and they must match the
-   plain model (ct_kernels="off") within 3e-2 * max|ref|.
+   plain model (ct_kernels="off") within 3e-2 * max|ref|.  Then one
+   ``predict`` each of BASELINE 5a (S=3, fbc 30) and 5b (S=4, fbc 30), B=2
+   at 256x256, on the kernel route (counters show K1 and K2) against the
+   plain model at the same tolerance; and a ``torch.profiler`` table of
+   one flagship B=32 forward: K2, K1 by site, the core and the rest.
 5. Train kernels: every train kernel at its 640x480 call sites (NYUv2
    frames, S=2, fbc=21, B=4; down1's at 320x240), each output and
    gradient against its plain version at the same tolerance as phase 3;
@@ -149,10 +163,12 @@ KERNEL_INFO = {
     "lerp_h2x_transpose": ("mimo_unet_torch/csrc/upsample2x.cu", _E + "ct_resize.py:295"),
 }
 X2_HALF = "MIMO_CT_TRAIN_X2_HALF"  # the x2-half train decoder's switch
-# K5, K6 and K7 as f32 CUDA-core kernels, before their tensor-core redesign
-# (PERF.md section 6), ms at the phase-5 sites by site label prefix; those
-# kernels are not built any more
+# K1, K2, K5, K6 and K7 as f32 CUDA-core kernels, before their tensor-core
+# redesign (PERF.md section 6), ms at the phase-3 and phase-5 sites by site
+# label prefix; those kernels are not built any more
 CUDA_CORE_MS = {
+    ("fused_double_conv9", "in_conv"): 3.650, ("fused_double_conv", "down1"): 3.532,
+    ("fused_double_conv", "up3"): 10.977, ("fused_double_conv", "decoder"): 14.948,
     ("conv3x3_fwd", "in_conv.conv1"): 0.589, ("conv3x3_fwd", "in_conv.conv2"): 2.611,
     ("conv3x3_fwd", "down1.conv1"): 1.174, ("conv3x3_fwd", "down1.conv2"): 2.498,
     ("conv3x3_fwd", "decoder conv1"): 9.063, ("conv3x3_fwd", "decoder conv2"): 3.796,
@@ -163,7 +179,8 @@ CUDA_CORE_MS = {
     ("conv3x3_dx", "down1.conv2"): 2.888, ("conv3x3_dx", "decoder conv2"): 3.076,
     ("conv3x3_dx_fold", "decoder conv1"): 8.488,
 }
-TC_KERNELS = ("conv3x3_fwd", "conv3x3_dx", "conv3x3_dx_fold", "conv3x3_dw")  # tensor cores
+TC_KERNELS = ("conv3x3_fwd", "conv3x3_dx", "conv3x3_dx_fold", "conv3x3_dw",
+              "fused_double_conv", "fused_double_conv9")  # tensor cores
 # the documented MC-dropout recipe (reference Readme.md:82)
 MC_RECIPE = dict(encoder_dropout_rate=0.1, core_dropout_rate=0.1,
                  decoder_dropout_rate=0.1)
@@ -185,6 +202,8 @@ class Site:
     library: object = None
     before: object = None   # the replaced kernel's time (PERF.md), where redesigned
     repeat: bool = False    # two launches must agree bitwise
+    seq: object = None      # K1/K2: the same DoubleConv as bf16 cuDNN calls (yardstick)
+    fdc: object = None      # K1/K2: the call's (x1, DoubleConv arguments, options)
 
 
 def cuda_ms(fn, iters):
@@ -243,6 +262,90 @@ def _nbytes(*shapes_and_sizes):
     return float(total)
 
 
+def _dc(dev, gen, g, cin, m, o):
+    """Seeded grouped DoubleConv arguments (w1, s1, sh1, w2, s2, sh2)."""
+    import torch
+
+    w1 = (torch.rand((g, 3, 3, cin, m), device=dev, generator=gen) * 2 - 1) / (9 * cin) ** 0.5
+    w2 = (torch.rand((g, 3, 3, m, o), device=dev, generator=gen) * 2 - 1) / (9 * m) ** 0.5
+    s1 = torch.rand((g, m), device=dev, generator=gen) + 0.5
+    s2 = torch.rand((g, o), device=dev, generator=gen) + 0.5
+    sh1 = torch.randn((g, m), device=dev, generator=gen) * 0.1
+    sh2 = torch.randn((g, o), device=dev, generator=gen) * 0.1
+    return w1, s1, sh1, w2, s2, sh2
+
+
+def cudnn_seq(x1, dc, x2=None, x2_half_h=False, wo=None, bo=None, **_):
+    """The DoubleConv of a K1/K2 site as bf16 cuDNN calls on the
+    channels-last tensor with the groups on channels: reflect pad, conv,
+    affine + ReLU, reflect pad, conv, affine + ReLU, and the 1x1 where the
+    kernel fuses it.  The concat input (x2 lerped and tiled) is made once,
+    outside the timed call.  A yardstick only."""
+    import torch
+    import torch.nn.functional as Fn
+    from mimo_unet_torch.kernels.fused_double_conv import lerp_h2x_plain
+
+    bf = torch.bfloat16
+    w1, s1, sh1, w2, s2, sh2 = dc
+    g = w1.shape[0]
+    n, h, w, _ = x1.shape
+    per = n // g
+    z = x1
+    if x2 is not None:
+        xb = lerp_h2x_plain(x2) if x2_half_h else x2
+        z = torch.cat([x1, xb.repeat(n // x2.shape[0], 1, 1, 1)], -1)
+    zl = (z.view(g, per, h, w, -1).permute(1, 0, 4, 2, 3).reshape(per, -1, h, w)
+          .contiguous(memory_format=torch.channels_last))
+
+    def lw(t):  # [G, 3, 3, C, O] -> [G*O, C, 3, 3]
+        return t.permute(0, 4, 3, 1, 2).reshape(-1, t.shape[3], 3, 3).to(bf).contiguous(
+            memory_format=torch.channels_last)
+
+    def la(t):
+        return t.reshape(1, -1, 1, 1).to(bf)
+
+    wl1, wl2, a1, b1, a2, b2 = lw(w1), lw(w2), la(s1), la(sh1), la(s2), la(sh2)
+    wol = bol = None
+    if wo is not None:
+        wol = wo.permute(0, 2, 1).reshape(-1, wo.shape[1], 1, 1).to(bf)
+        bol = bo.reshape(-1).to(bf)
+
+    def run():
+        y = Fn.conv2d(Fn.pad(zl, (1, 1, 1, 1), mode="reflect"), wl1, groups=g)
+        y = torch.relu_(torch.addcmul(b1, y, a1))
+        y = Fn.conv2d(Fn.pad(y, (1, 1, 1, 1), mode="reflect"), wl2, groups=g)
+        y = torch.relu_(torch.addcmul(b2, y, a2))
+        return y if wol is None else Fn.conv2d(y, wol, bol, groups=g)
+
+    return run
+
+
+def fdc_site(label, x1, dc, **kw):
+    """A K1 (or, for a 3-channel single input, K2) site: the kernel, its
+    plain version, its work (conv FLOPs; activations, weights and outputs
+    once) and its cuDNN sequence; ``kw`` the wrapper's options (x2,
+    x2_half_h, wo, bo, emit_hpool, group_rows_out)."""
+    from mimo_unet_torch import kernels as K
+
+    w1, _, _, w2, _, _ = dc
+    g, cin, m = w1.shape[0], w1.shape[3], w1.shape[4]
+    o = w2.shape[4]
+    n, h, w, _ = x1.shape
+    nine = kw.get("x2") is None and cin <= 8
+    kern = K.fused_double_conv9 if nine else K.fused_double_conv
+    plain = K.fused_double_conv9_plain if nine else K.fused_double_conv_plain
+    oc = 0 if kw.get("wo") is None else kw["wo"].shape[2]
+    px = n * h * w
+    flops = 2.0 * px * (9 * cin * m + 9 * m * o + o * oc)
+    ins = [x1.shape] + ([kw["x2"].shape] if kw.get("x2") is not None else [])
+    outs = [(n, h, w, oc or o)] + ([(n, h // 2, w, o)] if kw.get("emit_hpool") else [])
+    wbytes = g * 9 * (cin * m + m * o) * 2 + g * o * oc * 2
+    return Site(kern.__name__, label, lambda: kern(x1, *dc, **kw),
+                lambda: plain(x1, *dc, **kw), False, flops,
+                _nbytes(*[(t, 2) for t in ins + outs]) + wbytes,
+                seq=cudnn_seq(x1, dc, **kw), fdc=(x1, dc, kw))
+
+
 def eval_sites(dev, gen):
     """The eval kernels at the flagship call-site shapes of
     mimo_unet_torch/models/fast_path.py ``mimo_unet_apply_fast``."""
@@ -256,48 +359,23 @@ def eval_sites(dev, gen):
     def act(*shape):
         return torch.randn(shape, device=dev, generator=gen).to(bf)
 
-    def dc(g, cin, m, o):
-        w1 = (torch.rand((g, 3, 3, cin, m), device=dev, generator=gen) * 2 - 1) / (9 * cin) ** 0.5
-        w2 = (torch.rand((g, 3, 3, m, o), device=dev, generator=gen) * 2 - 1) / (9 * m) ** 0.5
-        s1 = torch.rand((g, m), device=dev, generator=gen) + 0.5
-        s2 = torch.rand((g, o), device=dev, generator=gen) + 0.5
-        sh1 = torch.randn((g, m), device=dev, generator=gen) * 0.1
-        sh2 = torch.randn((g, o), device=dev, generator=gen) * 0.1
-        return w1, s1, sh1, w2, s2, sh2
-
-    def dc_work(px, cin, m, o, g, ins, outs, oc=0):
-        flops = 2.0 * px * (9 * cin * m + 9 * m * o + o * oc)
-        wbytes = g * 9 * (cin * m + m * o) * 2 + g * o * oc * 2
-        return flops, _nbytes(*[(s, 2) for s in ins + outs]) + wbytes
-
     def nchw(t):
         return t.permute(0, 3, 1, 2)
 
     n = S * B
     sites = []
     x = act(n, HW, HW, 3)
-    a = dc(S, 3, F, F)
-    sites.append(Site("fused_double_conv9", "in_conv 3->21->21 @256 +hpool",
-                      lambda: K.fused_double_conv9(x, *a, emit_hpool=True),
-                      lambda: K.fused_double_conv9_plain(x, *a, emit_hpool=True),
-                      False, *dc_work(n * HW * HW, 3, F, F, S, [x.shape],
-                                      [(n, HW, HW, F), (n, HW // 2, HW, F)])))
+    sites.append(fdc_site("in_conv 3->21->21 @256 +hpool", x, _dc(dev, gen, S, 3, F, F),
+                          emit_hpool=True))
     hp1 = act(n, HW // 2, HW, F)
     sites.append(Site("pool_w", "down1 pool [64,128,256,21]",
                       lambda: K.pool_w(hp1), lambda: K.pool_w_plain(hp1), True,
                       hp1.numel() / 2, _nbytes((hp1.shape, 2)) * 1.5,
                       lambda: Fn.max_pool2d(nchw(hp1), (1, 2))))
     p1 = act(n, HW // 2, HW // 2, F)
-    d = dc(S, F, 2 * F, 2 * F)
-    sites.append(Site("fused_double_conv",
-                      "down1 21->42->42 @128 +hpool +group_rows_out",
-                      lambda: K.fused_double_conv(p1, *d, emit_hpool=True,
-                                                  group_rows_out=True),
-                      lambda: K.fused_double_conv_plain(p1, *d, emit_hpool=True,
-                                                        group_rows_out=True),
-                      False, *dc_work(n * (HW // 2) ** 2, F, 2 * F, 2 * F, S,
-                                      [p1.shape], [(B, HW // 2, HW // 2, 2 * fs),
-                                                   (B, HW // 4, HW // 2, 2 * fs)])))
+    sites.append(fdc_site("down1 21->42->42 @128 +hpool +group_rows_out", p1,
+                          _dc(dev, gen, S, F, 2 * F, 2 * F), emit_hpool=True,
+                          group_rows_out=True))
     hp2 = act(B, HW // 4, HW // 2, 2 * fs)
     sites.append(Site("pool_w", "core pool [32,64,128,84]",
                       lambda: K.pool_w(hp2), lambda: K.pool_w_plain(hp2), True,
@@ -311,14 +389,8 @@ def eval_sites(dev, gen):
                       lambda: Fn.interpolate(nchw(xu2), size=(HW // 4, HW // 2),
                                              mode="bilinear", align_corners=True)))
     x2cat, xu2w = act(B, HW // 2, HW // 2, 2 * fs), act(B, HW // 4, HW // 2, 2 * fs)
-    u = dc(1, 4 * fs, 2 * fs, fs)
-    sites.append(Site("fused_double_conv", "up3 (84+84)->84->42 @128 +x2_half_h",
-                      lambda: K.fused_double_conv(x2cat, *u, x2=xu2w, x2_half_h=True),
-                      lambda: K.fused_double_conv_plain(x2cat, *u, x2=xu2w,
-                                                        x2_half_h=True),
-                      False, *dc_work(B * (HW // 2) ** 2, 4 * fs, 2 * fs, fs, 1,
-                                      [x2cat.shape, xu2w.shape],
-                                      [(B, HW // 2, HW // 2, fs)])))
+    sites.append(fdc_site("up3 (84+84)->84->42 @128 +x2_half_h", x2cat,
+                          _dc(dev, gen, 1, 4 * fs, 2 * fs, fs), x2=xu2w, x2_half_h=True))
     xup = act(B, HW // 2, HW // 2, fs)
     sites.append(Site("upsample_w2x", "decoder W-half [32,128,128,42]",
                       lambda: K.upsample_w2x(xup),
@@ -327,20 +399,63 @@ def eval_sites(dev, gen):
                       lambda: Fn.interpolate(nchw(xup), size=(HW // 2, HW),
                                              mode="bilinear", align_corners=True)))
     x1s, xupw = act(n, HW, HW, F), act(B, HW // 2, HW, fs)
-    e = dc(S, F + fs, (F + fs) // 2, F)
     wo = (torch.rand((S, F, 2), device=dev, generator=gen) * 2 - 1) / F ** 0.5
     bo = torch.randn((S, 2), device=dev, generator=gen) * 0.1
-    sites.append(Site("fused_double_conv",
-                      "decoder (21+42)->31->21->2 @256 +x2_half_h +out-conv",
-                      lambda: K.fused_double_conv(x1s, *e, x2=xupw, x2_half_h=True,
-                                                  wo=wo, bo=bo),
-                      lambda: K.fused_double_conv_plain(x1s, *e, x2=xupw,
-                                                        x2_half_h=True, wo=wo,
-                                                        bo=bo),
-                      False, *dc_work(n * HW * HW, F + fs, (F + fs) // 2, F, S,
-                                      [x1s.shape, xupw.shape], [(n, HW, HW, 2)],
-                                      oc=2)))
-    return sites
+    sites.append(fdc_site("decoder (21+42)->31->21->2 @256 +x2_half_h +out-conv", x1s,
+                          _dc(dev, gen, S, F + fs, (F + fs) // 2, F), x2=xupw,
+                          x2_half_h=True, wo=wo, bo=bo))
+    return _tc_marked(sites)
+
+
+def eval_extra_sites(dev, gen):
+    """K1/K2 where their tiles do not divide the image (24x40 images, B=3,
+    at fbc 40's widths: in_conv 3->40->40, down1 40->80->80 at 12x20, up3
+    (160+160)->160->80 and the decoder (40+80)->60->40 (with and without
+    the out-conv, as MC serving runs it)), and up3 at BASELINE 5a's (S=3,
+    fbc 30: (180+180)->180->90) and 5b's (S=4: (240+240)->240->120)
+    widths, B=2 at 256x256; the list of (name, x2_half_h call, its
+    full-res form) for up3's bitwise check."""
+    import torch
+    from mimo_unet_torch import kernels as K
+    from mimo_unet_torch.kernels.fused_double_conv import lerp_h2x_plain
+
+    bf = torch.bfloat16
+
+    def act(*shape):
+        return torch.randn(shape, device=dev, generator=gen).to(bf)
+
+    sites, same = [], []
+    f, s, b, h, w = 40, 2, 3, 24, 40
+    n, fs = s * b, f * s
+    sites.append(fdc_site(f"fbc40 {w}x{h} in_conv 3->40->40 +hpool", act(n, h, w, 3),
+                          _dc(dev, gen, s, 3, f, f), emit_hpool=True))
+    sites.append(fdc_site(f"fbc40 {w // 2}x{h // 2} down1 40->80->80 +hpool +group_rows_out",
+                          act(n, h // 2, w // 2, f), _dc(dev, gen, s, f, 2 * f, 2 * f),
+                          emit_hpool=True, group_rows_out=True))
+    sites.append(fdc_site(f"fbc40 {w // 2}x{h // 2} up3 (160+160)->160->80 +x2_half_h",
+                          act(b, h // 2, w // 2, 2 * fs), _dc(dev, gen, 1, 4 * fs, 2 * fs, fs),
+                          x2=act(b, h // 4, w // 2, 2 * fs), x2_half_h=True))
+    x1s, xupw = act(n, h, w, f), act(b, h // 2, w, fs)
+    dec = _dc(dev, gen, s, f + fs, (f + fs) // 2, f)
+    wo = (torch.rand((s, f, 2), device=dev, generator=gen) * 2 - 1) / f ** 0.5
+    bo = torch.randn((s, 2), device=dev, generator=gen) * 0.1
+    sites.append(fdc_site(f"fbc40 {w}x{h} decoder (40+80)->60->40->2 +out-conv", x1s, dec,
+                          x2=xupw, x2_half_h=True, wo=wo, bo=bo))
+    sites.append(fdc_site(f"fbc40 {w}x{h} decoder (40+80)->60->40 (MC serving)", x1s, dec,
+                          x2=xupw, x2_half_h=True))
+    for tag, s5 in (("5a", 3), ("5b", 4)):
+        fs5 = 30 * s5
+        x2cat, xu2w = act(2, HW // 2, HW // 2, 2 * fs5), act(2, HW // 4, HW // 2, 2 * fs5)
+        u = _dc(dev, gen, 1, 4 * fs5, 2 * fs5, fs5)
+        sites.append(fdc_site(f"{tag} up3 ({2 * fs5}+{2 * fs5})->{2 * fs5}->{fs5} @128 B=2 "
+                              f"+x2_half_h", x2cat, u, x2=xu2w, x2_half_h=True))
+        full = lerp_h2x_plain(xu2w).contiguous()
+        same.append((f"{tag} up3",
+                     lambda x2cat=x2cat, u=u, xu2w=xu2w: K.fused_double_conv(
+                         x2cat, *u, x2=xu2w, x2_half_h=True),
+                     lambda x2cat=x2cat, u=u, full=full: K.fused_double_conv(
+                         x2cat, *u, x2=full)))
+    return _tc_marked(sites), same
 
 
 def train_sites(dev, gen):
@@ -808,6 +923,7 @@ def check_kernels(sites, card):
         iters = 20 if st.exact else 5
         ms, plain_ms = cuda_ms(st.kern, iters), cuda_ms(st.plain, iters)
         lib_ms = cuda_ms(st.library, iters) if st.library is not None else None
+        seq_ms = cuda_ms(st.seq, iters) if st.seq is not None else None
         t_ops, t_bytes = st.flops / PEAK_FLOPS * 1e3, st.nbytes / PEAK_BYTES * 1e3
         bound = max(t_ops, t_bytes)
         rec = stats.setdefault(st.name, {
@@ -824,9 +940,10 @@ def check_kernels(sites, card):
         lib = f", library {lib_ms:.4f} ms" if lib_ms is not None else ""
         old = f" (CUDA-core kernel {st.before} ms, PERF.md)" if st.before else ""
         rpt = ", launch to launch bitwise" if st.repeat else ""
+        seq = f", cudnn_seq_ms {seq_ms:.4f}" if seq_ms is not None else ""
         print(f"kernel {st.name} [{st.site}]: max_abs_err {err} "
               f"({'bitwise' if st.exact else 'tolerance'}{rpt}), {ms:.4f} ms{old} vs "
-              f"plain {plain_ms:.4f} ms{lib}, bound {bound:.4f} ms "
+              f"plain {plain_ms:.4f} ms{lib}{seq}, bound {bound:.4f} ms "
               f"({'bytes' if t_bytes >= t_ops else 'operations'}) ({card})",
               flush=True)
     for rec in stats.values():
@@ -835,8 +952,8 @@ def check_kernels(sites, card):
 
 
 def _tc_marked(sites):
-    """K5/K6/K7 sites with their CUDA-core kernels' time and the
-    launch-to-launch check."""
+    """Tensor-core kernel sites (K1/K2, K5/K6/K7) with their CUDA-core
+    kernels' time and the launch-to-launch check."""
     for st in sites:
         if st.name in TC_KERNELS:
             st.repeat = True
@@ -846,21 +963,23 @@ def _tc_marked(sites):
 
 
 def tensor_core_report():
-    """Print ptxas's registers, shared memory and spills of the train conv
-    kernels (this build's nvcc -Xptxas -v) and the HMMA (tensor-core mma)
-    instructions of each in the library's SASS (cuobjdump, where the
-    toolkit has it); raise if K5, K6 or K7 has none."""
+    """Print ptxas's registers, shared memory and spills of the tensor-core
+    kernels (this build's nvcc -Xptxas -v: the train convs and the fused
+    DoubleConv) and the HMMA (tensor-core mma) instructions of each in the
+    library's SASS (cuobjdump, where the toolkit has it); raise if K5, K6,
+    K7 or K1/K2 has none."""
     import re
     import shutil
     from mimo_unet_torch.kernels import _build
 
-    fn = None
-    for line in _build.build_log.get("conv3x3_train", "").splitlines():
-        m = re.search(r"entry function '(\S+)'", line)
-        if m:
-            fn = m.group(1)
-        elif fn and ("registers" in line or "spill" in line):
-            print(f"ptxas {fn}: {line.split(':', 1)[-1].strip()}")
+    for stem in ("conv3x3_train", "fused_double_conv"):
+        fn = None
+        for line in _build.build_log.get(stem, "").splitlines():
+            m = re.search(r"entry function '(\S+)'", line)
+            if m:
+                fn = m.group(1)
+            elif fn and ("registers" in line or "spill" in line):
+                print(f"ptxas {fn}: {line.split(':', 1)[-1].strip()}")
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not os.path.exists(tool):
         print("cuobjdump: not in this toolkit; HMMA count not measured")
@@ -876,22 +995,22 @@ def tensor_core_report():
             counts[fn] = 0
         elif fn and "HMMA" in line:
             counts[fn] += 1
-    for kern in ("conv_fwd_tc", "conv_dx_tc", "conv_dw_tc"):
+    for kern in ("conv_fwd_tc", "conv_dx_tc", "conv_dw_tc", "fused_double_conv_tc"):
         got = {k: v for k, v in counts.items() if kern in k}
         print(f"SASS HMMA instructions in {kern}: {sorted(got.values())}")
         if not got or min(got.values()) == 0:
             raise AssertionError(f"{kern}: no tensor-core (HMMA) instructions")
 
 
-def _flagship(dev, **rates):
-    """The flagship serving task (S=2, fbc=21, bf16, Laplace NLL) with
-    dropout ``rates`` and its model: seeded weights, random BatchNorm
-    statistics."""
+def _flagship(dev, s=S, f=F, **rates):
+    """The flagship serving task (S=2, fbc=21, bf16, Laplace NLL; or ``s``
+    subnetworks of ``f`` filters) with dropout ``rates`` and its model:
+    seeded weights, random BatchNorm statistics."""
     import torch
     from mimo_unet_torch.tasks.mimo import MimoUnetTask
 
-    task = MimoUnetTask(in_channels=3, out_channels=2, num_subnetworks=S,
-                        filter_base_count=F, loss="laplace_nll",
+    task = MimoUnetTask(in_channels=3, out_channels=2, num_subnetworks=s,
+                        filter_base_count=f, loss="laplace_nll",
                         compute_dtype="bfloat16", **rates)
     cpu_gen = torch.Generator().manual_seed(1)
     model = task.build_model(dev, cpu_gen)
@@ -945,15 +1064,23 @@ def serve(dev, card):
     if missing:
         raise AssertionError(f"kernels not launched on the serving path: {missing}")
 
-    off = Ensemble([_plain_copy(task, model, dev)])
+    _hold_to_plain(Ensemble([_plain_copy(task, model, dev)]), requests, answers, "serve")
+    return launches
+
+
+def _hold_to_plain(off, requests, answers, tag):
+    """Each answer finite, of its request's shape, variances >= 0, and
+    within 3e-2 * max|ref| of the plain ensemble ``off``'s."""
+    import torch
+
     for req, (mean, ale, epi) in zip(requests, answers):
         for name, arr in (("mean", mean), ("aleatoric", ale), ("epistemic", epi)):
             if arr.shape != (req.shape[0], HW, HW, 1):
-                raise AssertionError(f"{name}: shape {arr.shape}")
+                raise AssertionError(f"{tag} {name}: shape {arr.shape}")
             if not torch.isfinite(torch.from_numpy(arr)).all():
-                raise AssertionError(f"{name}: non-finite values")
+                raise AssertionError(f"{tag} {name}: non-finite values")
         if (ale < 0).any() or (epi < 0).any():
-            raise AssertionError("negative variance")
+            raise AssertionError(f"{tag}: negative variance")
         ref_mean, ref_ale, ref_epi = off.predict(req, batch_size=req.shape[0])
         # the epistemic variance of near-equal subnetwork predictions is the
         # square of a small difference: it is held as a standard deviation,
@@ -964,12 +1091,88 @@ def serve(dev, card):
                 ("aleatoric var", ale, ref_ale, float(abs(ref_ale).max()) or 1.0),
                 ("epistemic std", epi ** 0.5, ref_epi ** 0.5, pred_scale)):
             err = float(abs(got - want).max())
-            print(f"serve B={req.shape[0]} {name}: max abs vs ct_kernels=off "
+            print(f"{tag} B={req.shape[0]} {name}: max abs vs ct_kernels=off "
                   f"{err} (scale {scale})")
             if err > 3e-2 * scale:
-                raise AssertionError(f"{name}: kernel path vs plain {err} > "
+                raise AssertionError(f"{tag} {name}: kernel path vs plain {err} > "
                                      f"3e-2 * {scale}")
-    return launches
+
+
+def serve_baselines(dev, card):
+    """BASELINE 5a (S=3, fbc 30) and 5b (S=4, fbc 30): one B=2 256x256
+    ``predict`` each on the kernel route, whose counters must show K1 and
+    K2, against the plain model."""
+    import torch
+    from mimo_unet_torch import kernels as K
+    from mimo_unet_torch.models.ensemble import Ensemble
+
+    rng = torch.Generator().manual_seed(7)
+    for tag, s5 in (("5a", 3), ("5b", 4)):
+        task, model = _flagship(dev, s=s5, f=30)
+        ens = Ensemble([(task, model)])
+        req = torch.rand((2, HW, HW, 3), generator=rng).numpy()
+        ens.predict(req, batch_size=2)  # warm-up: cuDNN plans
+        torch.cuda.synchronize()
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        answer = ens.predict(req, batch_size=2)
+        dt = time.perf_counter() - t0
+        launches = K.launch_counts()
+        print(f"{tag} predict B=2: {dt * 1e3:.3f} ms; launches {launches} ({card})")
+        if launches["fused_double_conv"] != 3 or launches["fused_double_conv9"] != 1:
+            raise AssertionError(f"{tag}: not on the kernel route: {launches}")
+        _hold_to_plain(Ensemble([_plain_copy(task, model, dev)]), [req], [answer], tag)
+        del task, model, ens
+        torch.cuda.empty_cache()
+
+
+def serve_profile(dev, card):
+    """A torch.profiler table of one flagship B=32 forward
+    (``Ensemble.raw_forward``): the device time of K2 and of K1 at each
+    site (the fused kernel's launches in path order: in_conv, down1, up3,
+    decoder), of pool_w and upsample_w2x, of the core (every other kernel
+    between down1 and up3) and of the rest."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from mimo_unet_torch.models.ensemble import Ensemble
+
+    task, model = _flagship(dev)
+    ens = Ensemble([(task, model)])
+    image = torch.rand((B, HW, HW, 3), device=dev, generator=torch.Generator(dev).manual_seed(8))
+    ens.raw_forward(image)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        ens.raw_forward(image)
+        torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    kernels = sorted((ev for ev in prof.events()
+                      if ev.device_type == torch.autograd.DeviceType.CUDA
+                      and ev.time_range.elapsed_us() > 0),
+                     key=lambda ev: ev.time_range.start)
+    sites = ("K2 in_conv", "K1 down1", "K1 up3", "K1 decoder")
+    parts = {k: 0.0 for k in sites + ("pool_w + upsample_w2x", "core", "rest")}
+    fused = 0
+    for ev in kernels:
+        us = ev.time_range.elapsed_us()
+        if "fused_double_conv_tc" in ev.name:
+            parts[sites[min(fused, 3)]] += us
+            fused += 1
+        elif "pool_w" in ev.name or "upsample_w2x" in ev.name:
+            parts["pool_w + upsample_w2x"] += us
+        elif fused == 2:  # after down1, before up3
+            parts["core"] += us
+        else:
+            parts["rest"] += us
+    if fused != 4:
+        raise AssertionError(f"serve profile: {fused} fused DoubleConv launches, not 4")
+    busy = sum(parts.values()) / 1e3
+    print(f"serve profile B={B} forward (profiled wall {wall:.1f} ms, device busy "
+          f"{busy:.3f} ms): " + ", ".join(f"{k} {v / 1e3:.3f} ms" for k, v in parts.items())
+          + f" ({card})")
+    print(prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=15,
+                                    max_name_column_width=60))
+    del task, model, ens
 
 
 def serve_mc(dev, card):
@@ -1710,7 +1913,17 @@ def main() -> int:
     stats = check_kernels(
         eval_sites(dev, torch.Generator(device=dev).manual_seed(0)), card)
     torch.cuda.empty_cache()
+    extra, same = eval_extra_sites(dev, torch.Generator(device=dev).manual_seed(9))
+    check_kernels(extra, card)  # times of these sites: printed, not summed
+    for name, half, full in same:
+        compare(f"{name} x2_half_h vs its full-res form", half(), full(), True)
+        print(f"{name} x2_half_h: bitwise its full-res form fed the lerped x2")
+    del extra, same
+    torch.cuda.empty_cache()
     served = serve(dev, card)
+    torch.cuda.empty_cache()
+    serve_baselines(dev, card)
+    serve_profile(dev, card)
     torch.cuda.empty_cache()
     stats.update(check_kernels(_tc_marked(
         train_sites(dev, torch.Generator(device=dev).manual_seed(1))), card))

@@ -64,3 +64,56 @@ static inline bool row_grid(int64_t rows, int64_t len, dim3* grid) {
   *grid = dim3((unsigned)rows, (unsigned)(want < chunks ? want : chunks));
   return true;
 }
+
+// ---- staged tiles (the tensor-core conv kernels)
+
+// row stride (elements) of a staged tile with c (a multiple of 8) channels:
+// an odd number of 16-byte units, so ldmatrix's eight rows miss each other
+__host__ __device__ __forceinline__ int stride8(int c) { return 8 * ((c / 8) | 1); }
+
+// bytes of the raw buffer of one run of px pixels of c bf16 channels copied
+// in 16-byte units from any element offset
+__host__ __device__ __forceinline__ int run_bytes(int px, int c) {
+  return 16 * ((px * c * 2 + 15) / 16 + 1);
+}
+
+__host__ __device__ __forceinline__ int align16(int b) { return (b + 15) & ~15; }
+
+// reflect padding by one: index -1 reads 1, index n reads n - 2
+__device__ __forceinline__ int reflect(int i, int n) {
+  return i < 0 ? -i : (i >= n ? 2 * n - 2 - i : i);
+}
+
+__device__ __forceinline__ float relu(float v) { return v < 0.f ? 0.f : v; }
+
+// eight values (bf16-exact) as one 16-byte shared-memory store
+__device__ __forceinline__ void st8(bf16* dst, const float v[8]) {
+  uint4 u;
+  __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&u);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) h[i] = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
+  *reinterpret_cast<uint4*>(dst) = u;
+}
+
+// up to eight bf16 (bit copies) from src at any 2-byte alignment, zeros
+// from n on, as one 16-byte unit
+__device__ __forceinline__ uint4 ld8(const bf16* src, int n) {
+  uint32_t w[4];
+  if (n >= 8 && ((uintptr_t)src & 3) == 0) {
+    const uint32_t* q = reinterpret_cast<const uint32_t*>(src);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) w[i] = q[i];
+  } else {
+    const uint16_t* q = reinterpret_cast<const uint16_t*>(src);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      w[i] = (2 * i < n ? (uint32_t)q[2 * i] : 0u) |
+             (2 * i + 1 < n ? (uint32_t)q[2 * i + 1] << 16 : 0u);
+  }
+  uint4 u;
+  u.x = w[0];
+  u.y = w[1];
+  u.z = w[2];
+  u.w = w[3];
+  return u;
+}

@@ -85,14 +85,9 @@
 // inside a block, lanes by shuffles and warps in order through shared
 // memory: results do not change from run to run.
 #include "common.cuh"
+#include "ptx.cuh"
 
 namespace {
-
-__device__ __forceinline__ int reflect(int i, int n) {
-  return i < 0 ? -i : (i >= n ? 2 * n - 2 - i : i);
-}
-
-__device__ __forceinline__ float relu(float v) { return v < 0.f ? 0.f : v; }
 
 // relu(x*scale + shift) rounded to bf16, as the prologue z
 __device__ __forceinline__ float prologue_z(float x, float s, float b) {
@@ -110,75 +105,10 @@ constexpr int MT_DW = 4, NT_DW = 4; // dw mma tiles per warp: 64 ch x 32 outputs
 constexpr int NT_DX = 8;            // dx mma n-tiles per warp: 64 channels
 constexpr int SMEM_MAX = 232448;    // dynamic shared memory of one block
 
-// row stride (elements) of a staged tile with c (a multiple of 8) channels:
-// an odd number of 16-byte units, so ldmatrix's eight rows miss each other
-__host__ __device__ __forceinline__ int stride8(int c) { return 8 * ((c / 8) | 1); }
-
-// bytes of the raw buffer of one run of px pixels of c bf16 channels copied
-// in 16-byte units from any element offset
-__host__ __device__ __forceinline__ int run_bytes(int px, int c) {
-  return 16 * ((px * c * 2 + 15) / 16 + 1);
-}
-
-__host__ __device__ __forceinline__ int align16(int b) { return (b + 15) & ~15; }
-
 // where the prologue's shift starts in the staged affine table [scale |
 // shift], each part c1 floats padded to 8, so eight channels from any
 // multiple of 8 load as two 16-byte units of each
 __host__ __device__ __forceinline__ int shift_at(int c1) { return (c1 + 7) & ~7; }
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)),
-               "l"(src));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
-// four (two) 8x8 b16 matrices; lane l gives the shared-space address of
-// row l % 8 of matrix l / 8
-__device__ __forceinline__ void ldsm_x4(uint32_t r[4], uint32_t a) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(a));
-}
-
-__device__ __forceinline__ void ldsm_x2(uint32_t r[2], uint32_t a) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
-               : "=r"(r[0]), "=r"(r[1])
-               : "r"(a));
-}
-
-__device__ __forceinline__ void ldsm_x4_t(uint32_t r[4], uint32_t a) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(a));
-}
-
-__device__ __forceinline__ void ldsm_x2_t(uint32_t r[2], uint32_t a) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
-               : "=r"(r[0]), "=r"(r[1])
-               : "r"(a));
-}
-
-// d += a . b: a 16x16 bf16 (row), b 16x8 bf16 (col), d 16x8 f32
-__device__ __forceinline__ void mma16816(float d[4], const uint32_t a[4],
-                                         const uint32_t b[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
 
 struct TcConv {
   const bf16* x1;     // fwd, dw: [n, h, w, c1]; dx: the prologue's x1 or null
@@ -307,38 +237,6 @@ __device__ __forceinline__ float z_val(const TcConv& p, const ZSrc<X2H>& z,
   if constexpr (X2H)
     return bf2f(f2bf(__fadd_rn(__fmul_rn(va, z.fa), __fmul_rn(bf2f(z.b2[c - p.c1]), z.fb))));
   return va;
-}
-
-// eight values (bf16-exact) as one 16-byte shared-memory store
-__device__ __forceinline__ void st8(bf16* dst, const float v[8]) {
-  uint4 u;
-  __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&u);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) h[i] = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
-  *reinterpret_cast<uint4*>(dst) = u;
-}
-
-// up to eight bf16 (bit copies) from src at any 2-byte alignment, zeros
-// from n on, as one 16-byte unit
-__device__ __forceinline__ uint4 ld8(const bf16* src, int n) {
-  uint32_t w[4];
-  if (n >= 8 && ((uintptr_t)src & 3) == 0) {
-    const uint32_t* q = reinterpret_cast<const uint32_t*>(src);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) w[i] = q[i];
-  } else {
-    const uint16_t* q = reinterpret_cast<const uint16_t*>(src);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-      w[i] = (2 * i < n ? (uint32_t)q[2 * i] : 0u) |
-             (2 * i + 1 < n ? (uint32_t)q[2 * i + 1] << 16 : 0u);
-  }
-  uint4 u;
-  u.x = w[0];
-  u.y = w[1];
-  u.z = w[2];
-  u.w = w[3];
-  return u;
 }
 
 // The staged z from the raw runs, by NTH threads: [(th+2) x 18 halo

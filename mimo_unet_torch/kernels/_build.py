@@ -39,10 +39,10 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # flagship in_conv output alone holds 352 M elements
 _P, _I = ctypes.c_void_p, ctypes.c_int64
 _SIGNATURES = {
-    # x1, x2, w1, s1, sh1, w2, s2, sh2, wo, bo, out, hpool, lo_h, fb,
+    # x1, x2, wpk, s1, sh1, s2, sh2, wo, bo, out, hpool, lo_h, fa, fb,
     # n, h, w, c1, c2, n2, x2_half_h, m, o, oc, groups, group_rows_out,
-    # fixed_cin (0 = runtime channel count), stream
-    "mimo_fused_double_conv": [_P] * 14 + [_I] * 13 + [_P],
+    # th, tw, im2col, cb, nb1, wn1, cb2, nb2, wn2, threads, blocks, stream
+    "mimo_fused_double_conv": [_P] * 14 + [_I] * 23 + [_P],
     # x, out, rows, w, c, stream
     "mimo_pool_w": [_P, _P, _I, _I, _I, _P],
     # x, lo, w0, w1, out, rows, w2, c, stream

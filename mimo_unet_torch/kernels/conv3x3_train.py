@@ -68,7 +68,12 @@ import torch
 import torch.nn.functional as F
 
 from mimo_unet_torch.kernels import _build
-from mimo_unet_torch.kernels.fused_double_conv import lerp_h2x_plain
+from mimo_unet_torch.kernels.fused_double_conv import (
+    _run_bytes,
+    _stride8,
+    _up,
+    lerp_h2x_plain,
+)
 from mimo_unet_torch.kernels.train_elem import (
     g_eff,
     group_sum,
@@ -120,23 +125,6 @@ def _check(x1, w, x2, scale, shift, x2_half_h=False) -> Tuple[int, int, int]:
 
 
 # ---------------------------------------------------------------- K5/K6/K7 plans
-
-def _up(a: int, b: int) -> int:
-    return -(-a // b) * b
-
-
-def _stride8(c: int) -> int:
-    """Row stride (elements) of a staged tile of c (a multiple of 8)
-    channels: an odd number of 16-byte units (ldmatrix without bank
-    conflicts)."""
-    return 8 * ((c // 8) | 1)
-
-
-def _run_bytes(px: int, c: int) -> int:
-    """Raw bytes of one run of px pixels of c bf16 channels copied in
-    16-byte units from any element offset."""
-    return 16 * ((px * c * 2 + 15) // 16 + 1)
-
 
 @dataclasses.dataclass(frozen=True)
 class TilePlan:

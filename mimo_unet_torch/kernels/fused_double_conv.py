@@ -18,11 +18,22 @@ affine and relu on the f32 accumulator, the mid activation rounded to bf16
 before conv2, the output rounded to bf16; the fused 1x1 out-conv takes the
 bf16 output and bf16 weights, adds its f32 bias and rounds the logits to
 bf16 (ct_conv.py:294-299).
+
+The kernel runs both convs on the tensor cores from tiles staged in shared
+memory (the source's header says how).  What it takes from the host is
+built here, where the CPU tests reach it: the launch plan (``plan_of``:
+the output tile, conv1's input channel slices or its (tap, channel) fold,
+the mid's slices, the warp grids and passes of both convs, the shared
+memory they need) and the weights packed for it (``pack_weights``).  A
+channel count no plan fits raises, naming the limit: the eval route plans
+each of its sites before it takes a forward (``fast_path.check_eval_plans``).
 """
 
 from __future__ import annotations
 
-from typing import Optional
+import dataclasses
+from functools import lru_cache
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -31,6 +42,21 @@ from mimo_unet_torch.kernels import _build
 from mimo_unet_torch.kernels.upsample2x import _h_tables
 
 BF16 = torch.bfloat16
+MTW, NTW = 3, 6        # mma m-tiles (16 pixels) and n-tiles (8 channels) a warp holds
+CMAX = (64, 32, 16)    # channel slice widths tried, widest first
+SMEM_MAX = 232448      # dynamic shared memory of one H100 block
+SMEM_TWO = 113 * 1024  # ... of each of two blocks on one multiprocessor
+# (shared memory limit, output tile rows x columns, warps a block) in the
+# order plan_of tries them: two blocks of eight warps a multiprocessor
+# first, then one of sixteen, then one of eight (whose narrower warp grid
+# may take more passes over conv1's K, but fits where sixteen's wider
+# weight chunks do not); the larger tiles first (the mid's recompute 1.27x
+# at 16x16, 1.33x at 8x32, 1.41x at 8x16).  Im2col plans (C_in <= 7) take
+# 8x32 before 16x16.  Chosen by measurement (tools/fused_tc_plans.py;
+# PERF.md).
+TILES = ((16, 16), (8, 32), (8, 16))
+PLAN_ORDER = tuple((lim, tile, warps) for lim, warps in (
+    (SMEM_TWO, 8), (SMEM_MAX, 16), (SMEM_MAX, 8)) for tile in TILES)
 
 
 def _as_bf16_f32(t: torch.Tensor) -> torch.Tensor:
@@ -144,36 +170,212 @@ def fused_double_conv_plain(x1, w1, s1, sh1, w2, s2, sh2, *, x2=None,
     return (y2.contiguous(), hp.contiguous()) if emit_hpool else y2.contiguous()
 
 
-def _launch(x1, w1, s1, sh1, w2, s2, sh2, x2, x2_half_h, wo, bo, emit_hpool,
-            group_rows_out, fixed_cin):
-    """Pack the weights as the kernel reads them and launch it."""
+# ---------------------------------------------------------------- the plan
+
+def _up(a: int, b: int) -> int:
+    return -(-a // b) * b
+
+
+def _stride8(c: int) -> int:
+    """Row stride (elements) of a staged tile of c (a multiple of 8)
+    channels: an odd number of 16-byte units (ldmatrix without bank
+    conflicts)."""
+    return 8 * ((c // 8) | 1)
+
+
+def _run_bytes(px: int, c: int) -> int:
+    """Raw bytes of one run of px pixels of c bf16 channels copied in
+    16-byte units from any element offset."""
+    return 16 * ((px * c * 2 + 15) // 16 + 1)
+
+
+@dataclasses.dataclass(frozen=True)
+class FdcPlan:
+    """A launch of the fused DoubleConv kernel: ``th`` x ``tw`` output
+    tiles; conv1's K in ``ncs`` slices of ``cb`` input channels (or, with
+    ``im2col``, the (tap, channel) pairs padded to ``cb``); its N (the mid
+    channels) in ``np1`` passes of ``nb1`` over a warp grid with ``wn1``
+    warps along N; conv2's K (the mid) in ``ncs2`` slices of ``cb2`` and
+    its N in ``np2`` passes of ``nb2`` (``wn2``); ``warps`` a block (8
+    where two blocks fit a multiprocessor, else 16 or 8); ``smem`` bytes
+    of dynamic shared memory (the source's ``layout``)."""
+    th: int
+    tw: int
+    im2col: bool
+    cb: int
+    ncs: int
+    nb1: int
+    np1: int
+    wn1: int
+    cb2: int
+    ncs2: int
+    nb2: int
+    np2: int
+    wn2: int
+    warps: int
+    smem: int
+
+    @property
+    def ws1(self) -> int:
+        return _stride8(self.nb1)
+
+    @property
+    def ws2(self) -> int:
+        return _stride8(self.nb2)
+
+
+def _warp_grid(px: int, nch: int, warps: int) -> Optional[int]:
+    """Warps along N of a conv with ``px`` pixels and ``nch`` output
+    channels in a block of ``warps``: the fewest (1, 2, 4, ...) that hold
+    every n-tile in one pass, as far as the m-tiles still fit the warps
+    along M (MTW each); None if even one warp along N leaves too many
+    m-tiles."""
+    mt, nt = -(-px // 16), -(-nch // 8)
+    best = None
+    for wn in (1, 2, 4, 8, 16)[:warps.bit_length()]:
+        if -(-mt // (warps // wn)) > MTW:
+            break
+        best = wn
+        if wn * NTW >= nt:
+            break
+    return best
+
+
+def _smem(th, tw, c1, c2, o, im2col, cb, ncs, nb1, cb2, mp2, nb2) -> int:
+    """The source's ``layout``: two weight buffers, the mid, the slab (the
+    output tile in its place), the raw runs."""
+    a16 = lambda b: _up(b, 16)  # noqa: E731
+    srows, scols, mid_px = th + 4, tw + 4, (th + 2) * (tw + 2)
+    chunk1 = (cb if im2col else 9 * cb) * _stride8(nb1)
+    chunk2 = 9 * cb2 * _stride8(nb2)
+    rowrun = ncs == 1
+    rx1 = _run_bytes(scols, c1) if rowrun else _run_bytes(1, min(cb, c1))
+    rx2 = 0 if c2 == 0 else (_run_bytes(scols, c2) if rowrun
+                             else _run_bytes(1, min(cb, c2)))
+    rpr = 1 if rowrun else scols
+    z = a16((mid_px if im2col else srows * scols) * _stride8(cb) * 2)
+    return (2 * 2 * max(chunk1, chunk2) + a16(mid_px * _stride8(mp2) * 2)
+            + max(z, a16(th * tw * o * 2)) + srows * rpr * (rx1 + rx2))
+
+
+def plans(c1: int, c2: int, m: int, o: int):
+    """Every launch of the kernel for C_in = c1 + c2 -> M -> O, in the
+    order ``plan_of`` prefers them: ``PLAN_ORDER``'s (shared memory limit,
+    tile, warps; im2col plans swap its first two), and within each the
+    widest channel slices that fit.  At C_in <= 7 without x2 conv1 folds (tap,
+    channel) into one K of 9*C_in padded to 16."""
+    cin = c1 + c2
+    im2col = c2 == 0 and 9 * c1 <= 64
+    slices1 = [(1, _up(9 * c1, 16))] if im2col else [
+        (-(-cin // cm), _up(-(-cin // -(-cin // cm)), 16)) for cm in CMAX]
+    order = PLAN_ORDER[1::-1] + PLAN_ORDER[2:] if im2col else PLAN_ORDER
+    for lim, (th, tw), warps in order:
+        wn1 = _warp_grid((th + 2) * (tw + 2), m, warps)
+        wn2 = _warp_grid(th * tw, o, warps)
+        if wn1 is None or wn2 is None:
+            continue
+        nb1, nb2 = min(_up(m, 8), wn1 * NTW * 8), min(_up(o, 8), wn2 * NTW * 8)
+        for ncs, cb in slices1:
+            for cm2 in CMAX:
+                ncs2 = -(-m // cm2)
+                cb2 = _up(-(-m // ncs2), 16)
+                smem = _smem(th, tw, c1, c2, o, im2col, cb, ncs, nb1, cb2,
+                             ncs2 * cb2, nb2)
+                if smem <= lim:
+                    yield FdcPlan(th, tw, im2col, cb, ncs, nb1, -(-m // nb1), wn1,
+                                  cb2, ncs2, nb2, -(-o // nb2), wn2, warps, smem)
+
+
+@lru_cache(maxsize=64)
+def plan_of(c1: int, c2: int, m: int, o: int) -> FdcPlan:
+    """The kernel's launch for C_in = c1 + c2 -> M -> O: the first of
+    ``plans``.  It does not depend on x2_half_h, H, W or N.  Raises
+    ValueError, naming the limit, where nothing fits."""
+    for plan in plans(c1, c2, m, o):
+        return plan
+    raise ValueError(f"the fused DoubleConv kernel takes at most {SMEM_MAX} bytes "
+                     f"of shared memory a block; {c1 + c2} -> {m} -> {o} channels "
+                     f"need more in every plan")
+
+
+def pack_weights(w1: torch.Tensor, w2: torch.Tensor, plan: FdcPlan) -> torch.Tensor:
+    """[G, 3, 3, C_in, M] and [G, 3, 3, M, O] -> the kernel's [G, wtot]
+    bf16: conv1's chunks, pass-major, each [9][cb][ws1] (im2col: [cb][ws1],
+    row tap * C_in + c) of its k-slice and pass, then conv2's, each
+    [9][cb2][ws2]; zeros in every padding (a chunk is a flat copy into
+    shared memory, the B operand of its step)."""
+    g, _, _, cin, m = w1.shape
+    o = w2.shape[4]
+    p = plan
+    if p.im2col:
+        a = F.pad(w1.to(BF16).reshape(g, 9 * cin, m),
+                  (0, p.np1 * p.nb1 - m, 0, p.cb - 9 * cin))
+        a = F.pad(a.reshape(g, p.cb, p.np1, p.nb1), (0, p.ws1 - p.nb1))
+        a = a.permute(0, 2, 1, 3)
+    else:
+        a = F.pad(w1.to(BF16).reshape(g, 9, cin, m),
+                  (0, p.np1 * p.nb1 - m, 0, p.ncs * p.cb - cin))
+        a = F.pad(a.reshape(g, 9, p.ncs, p.cb, p.np1, p.nb1), (0, p.ws1 - p.nb1))
+        a = a.permute(0, 4, 2, 1, 3, 5)
+    b = F.pad(w2.to(BF16).reshape(g, 9, m, o),
+              (0, p.np2 * p.nb2 - o, 0, p.ncs2 * p.cb2 - m))
+    b = F.pad(b.reshape(g, 9, p.ncs2, p.cb2, p.np2, p.nb2), (0, p.ws2 - p.nb2))
+    b = b.permute(0, 4, 2, 1, 3, 5)
+    return torch.cat([a.reshape(g, -1), b.reshape(g, -1)], 1).contiguous()
+
+
+def unpack_weights(wpk: torch.Tensor, plan: FdcPlan, cin: int, m: int, o: int):
+    """Inverse of ``pack_weights``: -> (w1 [G, 3, 3, C_in, M], w2
+    [G, 3, 3, M, O])."""
+    g, p = wpk.shape[0], plan
+    rows1 = p.cb if p.im2col else 9 * p.cb
+    n1 = p.np1 * p.ncs * rows1 * p.ws1
+    a, b = wpk[:, :n1], wpk[:, n1:]
+    if p.im2col:
+        a = a.reshape(g, p.np1, p.cb, p.ws1)[..., :p.nb1].permute(0, 2, 1, 3)
+        w1 = a.reshape(g, p.cb, -1)[:, :9 * cin, :m].reshape(g, 3, 3, cin, m)
+    else:
+        a = a.reshape(g, p.np1, p.ncs, 9, p.cb, p.ws1)[..., :p.nb1]
+        a = a.permute(0, 3, 2, 4, 1, 5).reshape(g, 9, p.ncs * p.cb, -1)
+        w1 = a[:, :, :cin, :m].reshape(g, 3, 3, cin, m)
+    b = b.reshape(g, p.np2, p.ncs2, 9, p.cb2, p.ws2)[..., :p.nb2]
+    b = b.permute(0, 3, 2, 4, 1, 5).reshape(g, 9, p.ncs2 * p.cb2, -1)
+    return w1, b[:, :, :m, :o].reshape(g, 3, 3, m, o)
+
+
+def _blocks(plan: FdcPlan, tiles: int, device: torch.device) -> int:
+    """The grid: one block for each slot the card has for it (two of eight
+    warps a multiprocessor where the plan leaves room, else one), each
+    taking every blocks-th tile; on the CPU (the tests' emulation) two
+    multiprocessors, so a block takes several tiles."""
+    sms = (torch.cuda.get_device_properties(device).multi_processor_count
+           if device.type == "cuda" else 2)
+    return min(tiles, sms * (2 if plan.warps == 8 and plan.smem <= SMEM_TWO else 1))
+
+
+def kernel_args(x1, w1, s1, sh1, w2, s2, sh2, x2, x2_half_h, wo, bo, emit_hpool,
+                group_rows_out, plan: Optional[FdcPlan] = None):
+    """What the wrapper hands the kernel, on the inputs' device: (plan, the
+    entry's arguments but the stream, the outputs (out, hpool or None), the
+    tensors the pointers refer to).  ``plan``: ``plan_of``'s unless given."""
     n, h, w, c1 = x1.shape
     g, m, o = w1.shape[0], w1.shape[4], w2.shape[4]
     c2 = 0 if x2 is None else x2.shape[-1]
-    mp, op = -(-m // 8) * 8, -(-o // 8) * 8
     dev = x1.device
-
-    def pad(t, k):  # last dim -> k, zeros
-        return F.pad(t, (0, k - t.shape[-1])).contiguous()
-
-    w1k = pad(w1.reshape(g, 9, c1 + c2, m).to(BF16), mp)
-    w2k = pad(w2.reshape(g, 9, m, o).to(BF16), op)
-    s1k, sh1k = pad(s1.float(), mp), pad(sh1.float(), mp)
-    s2k, sh2k = pad(s2.float(), op), pad(sh2.float(), op)
-    tensors = [x1, w1k, s1k, sh1k, w2k, s2k, sh2k]
+    plan = plan or plan_of(c1, c2, m, o)
+    # the kernel copies 16-byte units: packed weights and activations
+    # 16-byte aligned
+    x1 = x1.contiguous() if x1.data_ptr() % 16 == 0 else x1.clone()
+    if x2 is not None:
+        x2 = x2.contiguous() if x2.data_ptr() % 16 == 0 else x2.clone()
+    keep = [x1, x2, pack_weights(w1, w2, plan), s1.float().contiguous(),
+            sh1.float().contiguous(), s2.float().contiguous(), sh2.float().contiguous()]
     oc = 0
     if wo is not None:
         oc = wo.shape[2]
-        wo = wo.to(BF16).contiguous()
-        bo = bo.float().contiguous()
-        tensors += [wo, bo]
-    if x2 is not None:
-        tensors.append(x2)
-    _build.require_cuda(*tensors)
-    for t in [x1] + ([x2] if x2 is not None else []):
-        if t.dtype != BF16:
-            raise TypeError(f"activations must be bf16, got {t.dtype}")
-
+        keep += [wo.to(BF16).contiguous(), bo.float().contiguous()]
+    else:
+        keep += [None, None]
     hp = None
     if group_rows_out:
         out = torch.empty((n // g, h, w, g * o), device=dev, dtype=BF16)
@@ -183,19 +385,28 @@ def _launch(x1, w1, s1, sh1, w2, s2, sh2, x2, x2_half_h, wo, bo, emit_hpool,
         out = torch.empty((n, h, w, oc or o), device=dev, dtype=BF16)
         if emit_hpool:
             hp = torch.empty((n, h // 2, w, o), device=dev, dtype=BF16)
+    keep += [out, hp]
+    keep += list(_h_tables(h // 2, dev)[:3]) if x2_half_h else [None] * 3
+    args = [None if t is None else t.data_ptr() for t in keep]
+    args += [n, h, w, c1, c2, 0 if x2 is None else x2.shape[0], int(x2_half_h), m, o,
+             oc, g, int(group_rows_out), plan.th, plan.tw, int(plan.im2col), plan.cb,
+             plan.nb1, plan.wn1, plan.cb2, plan.nb2, plan.wn2, 32 * plan.warps,
+             _blocks(plan, n * -(-h // plan.th) * -(-w // plan.tw), dev)]
+    return plan, args, (out, hp), keep
 
-    def ptr(t):
-        return None if t is None else t.data_ptr()
 
-    lo_h = fb = None
-    if x2_half_h:
-        lo_h, _, fb, _ = _h_tables(h // 2, dev)
-    _build.launch(
-        "mimo_fused_double_conv", dev,
-        ptr(x1), ptr(x2), ptr(w1k), ptr(s1k), ptr(sh1k), ptr(w2k), ptr(s2k),
-        ptr(sh2k), ptr(wo), ptr(bo), ptr(out), ptr(hp), ptr(lo_h), ptr(fb),
-        n, h, w, c1, c2, 0 if x2 is None else x2.shape[0], int(x2_half_h),
-        m, o, oc, g, int(group_rows_out), fixed_cin)
+def _launch(x1, w1, s1, sh1, w2, s2, sh2, x2, x2_half_h, wo, bo, emit_hpool,
+            group_rows_out):
+    """Plan the launch, pack the weights as the kernel reads them and
+    launch it."""
+    for t in [x1] + ([x2] if x2 is not None else []):
+        if t.dtype != BF16:
+            raise TypeError(f"activations must be bf16, got {t.dtype}")
+    _build.require_cuda(*[t.contiguous() for t in (x1, x2, w1, s1, sh1, w2, s2, sh2,
+                                                   wo, bo) if t is not None])
+    _, args, (out, hp), _ = kernel_args(x1, w1, s1, sh1, w2, s2, sh2, x2, x2_half_h,
+                                        wo, bo, emit_hpool, group_rows_out)
+    _build.launch("mimo_fused_double_conv", x1.device, *args)
     return (out, hp) if emit_hpool else out
 
 
@@ -226,7 +437,7 @@ def fused_double_conv(x1: torch.Tensor, w1: torch.Tensor, s1: torch.Tensor,
     _check(x1, w1, s1, sh1, w2, s2, sh2, x2, x2_half_h, wo, bo, emit_hpool,
            group_rows_out)
     out = _launch(x1, w1, s1, sh1, w2, s2, sh2, x2, x2_half_h, wo, bo,
-                  emit_hpool, group_rows_out, fixed_cin=0)
+                  emit_hpool, group_rows_out)
     fused_double_conv.launches += 1
     return out
 
@@ -241,8 +452,8 @@ def fused_double_conv9(x: torch.Tensor, w1: torch.Tensor, s1: torch.Tensor,
                        sh1: torch.Tensor, w2: torch.Tensor, s2: torch.Tensor,
                        sh2: torch.Tensor, *, emit_hpool: bool = False):
     """The fused DoubleConv for C_in <= 8, the network's in_conv (K2): one
-    input, conv1's channel loop unrolled for the exact C_in.  Arguments and
-    results as ``fused_double_conv``."""
+    input; at C_in <= 7 conv1 folds (tap, channel) into one K of 9*C_in
+    padded to 16.  Arguments and results as ``fused_double_conv``."""
     if x.ndim != 4 or not 1 <= x.shape[-1] <= 8:
         raise ValueError(f"fused_double_conv9 takes [N, H, W, C<=8], got {tuple(x.shape)}")
     if x.device.type == "cpu":
@@ -251,7 +462,7 @@ def fused_double_conv9(x: torch.Tensor, w1: torch.Tensor, s1: torch.Tensor,
     _check(x, w1, s1, sh1, w2, s2, sh2, None, False, None, None, emit_hpool,
            False)
     out = _launch(x, w1, s1, sh1, w2, s2, sh2, None, False, None, None,
-                  emit_hpool, False, fixed_cin=x.shape[-1])
+                  emit_hpool, False)
     fused_double_conv9.launches += 1
     return out
 

@@ -90,6 +90,7 @@ from typing import Sequence, Tuple
 import torch
 
 from mimo_unet_torch.kernels import conv3x3_train
+from mimo_unet_torch.kernels.fused_double_conv import plan_of
 from mimo_unet_torch.kernels import (
     AffineRelu,
     Conv1x1,
@@ -142,6 +143,21 @@ def check_channels(cfg: MimoUNetConfig, *, convs: bool = True) -> None:
                          f"configuration needs {f} and {cfg.out_channels}")
 
 
+def check_eval_plans(cfg: MimoUNetConfig) -> None:
+    """Plan the fused DoubleConv kernel (K1/K2) at each site of the eval
+    route: in_conv C_in -> F -> F, down1 F -> 2F -> 2F, up3 (2FS + 2FS) ->
+    2FS -> 2FS/2 and the decoder (F + C_up) -> mid -> F.  Raises, naming
+    the shared-memory limit, where a site's channel counts fit no plan (a
+    configuration that routes to the kernels runs on them or fails, it
+    never falls back); BASELINE 5a and 5b fit."""
+    f, fs = cfg.filter_base_count, cfg.filter_base_count * cfg.num_subnetworks
+    c_up = 2 * fs // cfg.factor
+    for c1, c2, m, o in ((cfg.in_channels, 0, f, f), (f, 0, 2 * f, 2 * f),
+                         (2 * fs, 2 * fs, 2 * fs, 2 * fs // cfg.factor),
+                         (f, c_up, (f + c_up) // 2, f)):
+        plan_of(c1, c2, m, o)
+
+
 def x2_half_route() -> bool:
     """Whether the train decoder takes the x2-half route: the environment
     variable MIMO_CT_TRAIN_X2_HALF set to anything but "0", read per call
@@ -159,8 +175,10 @@ def fast_path_supported(cfg: MimoUNetConfig, x_shape: Tuple[int, ...],
     version).  Gates on what the kernels need: eval, bf16, bilinear, and
     H, W multiples of 16 (four pool levels, no pad-to-match).  Every
     MC-dropout site is supported; at the up4 or final site a channel count
-    beyond the grouped 1x1 kernel raises (``check_channels``).  Nothing
-    here catches a kernel failure: a CUDA launch that fails raises.
+    beyond the grouped 1x1 kernel raises (``check_channels``), and so does
+    a site whose channels fit no plan of the fused DoubleConv kernel
+    (``check_eval_plans``).  Nothing here catches a kernel failure: a CUDA
+    launch that fails raises.
     """
     if cfg.ct_kernels == "off":
         return False
@@ -177,6 +195,7 @@ def fast_path_supported(cfg: MimoUNetConfig, x_shape: Tuple[int, ...],
         return False
     if mc_dropout and (cfg.decoder_dropout_rate > 0 or cfg.final_dropout_rate > 0):
         check_channels(cfg, convs=False)
+    check_eval_plans(cfg)
     return True
 
 

@@ -44,6 +44,7 @@ inline cudaError_t cudaFuncSetAttribute(T, cudaFuncAttribute, int) { return 0; }
 bool emu_take_fault();
 void emu_fault(const char* what);
 inline cudaError_t cudaGetLastError() { return emu_take_fault() ? 1 : 0; }
+inline const char* cudaGetErrorString(cudaError_t e) { return e ? "emulated fault" : "no error"; }
 inline float __fmul_rn(float a, float b) { return a * b; }
 inline float __fadd_rn(float a, float b) { return a + b; }
 inline float __uint_as_float(uint32_t u) { float f; std::memcpy(&f, &u, 4); return f; }

@@ -1,4 +1,4 @@
-// The PTX helpers of csrc/conv3x3_train.cu (same names and arguments) as
+// The PTX helpers of csrc/ptx.cuh (same names and arguments) as
 // host code: cp.async as a plain copy, ldmatrix and mma.sync m16n8k16 by
 // their fragment layouts (PTX ISA), each warp's lanes exchanging operands
 // between two warp barriers.

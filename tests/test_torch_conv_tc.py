@@ -1,5 +1,8 @@
-"""What the tensor-core train conv kernels K5 (fwd), K6 (dx) and K7 (dw)
-take from the host, on the CPU: the tile plans, K5's and K6's packed
+"""What the tensor-core kernels take from the host, on the CPU: the fused
+eval DoubleConv's (K1/K2) launch plans and packed weights, and the eval
+route's repair at BASELINE 5a's and 5b's up3 widths (the CUDA-core
+kernel's shared memory formula refused them on the card); the train conv
+kernels' K5 (fwd), K6 (dx) and K7 (dw) tile plans, K5's and K6's packed
 weights, K6's reflect-fold tables, and K6's sum written with those tables (``dz_folds``: the zero-pad
 full conv plus one term per fold, each a single g value) held against the
 plain transpose (``_dz_plain``, autograd through the reflect conv) and
@@ -14,6 +17,8 @@ largest value, as ``tests/test_torch_train_kernels.py`` holds the plain
 versions (the TPU kernel adds the H folds in its bf16 staging buffer).
 """
 
+import sys
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -24,9 +29,14 @@ from mimo_unet_tpu.ops.pallas.ct_conv import align8, pack_w3x3
 from mimo_unet_tpu.ops.pallas.ct_train import conv3x3_ct_train, pick_th_train
 
 from mimo_unet_torch.kernels import conv3x3_train as CT
+from mimo_unet_torch.kernels import fused_double_conv as _fdc  # noqa: F401
 from mimo_unet_torch.kernels.train_elem import group_sum, per_image
+from mimo_unet_torch.models.fast_path import check_eval_plans, fast_path_supported
+from mimo_unet_torch.models.mimo_unet import MimoUNetConfig
+from mimo_unet_torch.tasks.mimo import MimoUnetTask
 
 BF = torch.bfloat16
+FDC = sys.modules["mimo_unet_torch.kernels.fused_double_conv"]
 
 
 def _bf16(rng, shape, scale=1.0):
@@ -298,3 +308,133 @@ def test_tile_plans_raise_past_the_channel_limit():
         CT.fwd_plan(2, 8, 8, 200, 57, 8)
     with pytest.raises(ValueError, match="at most 256"):
         CT.fwd_plan(2, 8, 8, 8, 0, 257)
+
+
+# ------------------------------------------------------------ K1/K2 plans
+
+# (c1, c2, m, o): the flagship's in_conv, down1, up3 and decoder; fbc 40's
+# up3 and decoder; BASELINE 5a's and 5b's up3 and decoder; a 1-channel
+# conv
+FDC_SITES = [(3, 0, 21, 21), (21, 0, 42, 42), (84, 84, 84, 42), (21, 42, 31, 21),
+             (160, 160, 160, 80), (40, 80, 60, 40), (180, 180, 180, 90),
+             (30, 90, 60, 30), (240, 240, 240, 120), (30, 120, 75, 30), (1, 0, 1, 1)]
+
+
+@pytest.mark.parametrize("site", FDC_SITES)
+def test_fused_plans(site):
+    c1, c2, m, o = site
+    cin = c1 + c2
+    plan = FDC.plan_of(c1, c2, m, o)
+    th, tw = plan.th, plan.tw
+    assert plan == next(FDC.plans(c1, c2, m, o))  # the first that fits
+    assert any(plan.smem <= lim and (th, tw) == tile and plan.warps == warps
+               for lim, tile, warps in FDC.PLAN_ORDER)
+    assert th % 2 == 0  # row pairs for the H half-pool
+    assert 0 < plan.smem <= FDC.SMEM_MAX
+    assert plan.smem == FDC._smem(th, tw, c1, c2, o, plan.im2col, plan.cb, plan.ncs,
+                                  plan.nb1, plan.cb2, plan.ncs2 * plan.cb2, plan.nb2)
+    assert plan.im2col == (c2 == 0 and 9 * c1 <= 64)
+    if plan.im2col:  # (tap, channel) folded into one K padded to 16
+        assert (plan.ncs, plan.cb) == (1, -(-9 * c1 // 16) * 16)
+    else:  # K slices of whole k-steps covering C_in, none empty
+        assert plan.cb % 16 == 0 and plan.cb <= 64
+        assert plan.cb * plan.ncs >= cin > plan.cb * (plan.ncs - 1)
+    assert plan.cb2 % 16 == 0 and plan.cb2 * plan.ncs2 >= m > plan.cb2 * (plan.ncs2 - 1)
+    # each conv's warp grid holds a whole tile's m-tiles, MTW a warp, and
+    # its passes cover the channels, NTW n-tiles a warp
+    for px, wn, nb, npass, nch in (((th + 2) * (tw + 2), plan.wn1, plan.nb1, plan.np1, m),
+                                   (th * tw, plan.wn2, plan.nb2, plan.np2, o)):
+        assert wn in (1, 2, 4, 8, 16) and wn <= plan.warps
+        assert -(-px // 16) <= FDC.MTW * (plan.warps // wn)
+        assert nb % 8 == 0 and nb <= wn * FDC.NTW * 8
+        assert nb * npass >= nch > nb * (npass - 1)
+    assert plan.warps == 8 or plan.smem > FDC.SMEM_TWO  # sixteen warps: one block
+    if max(cin, m, o) <= 64:  # the flagship's narrow sites: two blocks a multiprocessor
+        assert plan.smem <= FDC.SMEM_TWO
+
+
+@pytest.mark.parametrize("site,groups", [((3, 0, 21, 21), 2), ((21, 42, 31, 21), 2),
+                                         ((84, 84, 84, 42), 1), ((30, 90, 60, 30), 3),
+                                         ((240, 240, 240, 120), 1)])
+def test_fused_pack_weights_round_trip(site, groups):
+    c1, c2, m, o = site
+    cin = c1 + c2
+    rng = np.random.default_rng(cin + m)
+    w1 = _t(_bf16(rng, (groups, 3, 3, cin, m)), torch.float32)
+    w2 = _t(_bf16(rng, (groups, 3, 3, m, o)), torch.float32)
+    plan = FDC.plan_of(c1, c2, m, o)
+    wpk = FDC.pack_weights(w1, w2, plan)
+    rows1 = plan.cb if plan.im2col else 9 * plan.cb
+    n1 = plan.np1 * plan.ncs * rows1 * plan.ws1
+    assert wpk.dtype == BF and wpk.is_contiguous()
+    assert tuple(wpk.shape) == (groups, n1 + plan.np2 * plan.ncs2 * 9 * plan.cb2 * plan.ws2)
+    for ws in (plan.ws1, plan.ws2):  # staged rows: an odd number of 16-byte units
+        assert ws % 8 == 0 and (ws // 8) % 2 == 1
+    a, b = FDC.unpack_weights(wpk, plan, cin, m, o)
+    assert torch.equal(a, w1.to(BF)) and torch.equal(b, w2.to(BF))
+    # conv1's chunk (pass p, slice ks) is [9][cb][ws1] (im2col [cb][ws1],
+    # row tap * C_in + c): row (t, c), column n holds w1[t, ks*cb + c,
+    # p*nb1 + n]; conv2's chunks follow, [9][cb2][ws2]
+    p, ks = plan.np1 - 1, plan.ncs - 1
+    chunk = wpk[0, (p * plan.ncs + ks) * rows1 * plan.ws1:][:rows1 * plan.ws1]
+    chunk = chunk.view(rows1, plan.ws1)
+    wt = w1.to(BF)[0].reshape(9 * cin if plan.im2col else 9, -1 if plan.im2col else cin, m)
+    if plan.im2col:
+        want = wt.reshape(9 * cin, m)[:, p * plan.nb1:(p + 1) * plan.nb1]
+        assert torch.equal(chunk[:9 * cin, :want.shape[1]], want)
+        assert not bool(chunk[9 * cin:].any())
+    else:
+        c0 = ks * plan.cb
+        want = wt[:, c0:c0 + plan.cb, p * plan.nb1:(p + 1) * plan.nb1]
+        got = chunk.view(9, plan.cb, plan.ws1)
+        assert torch.equal(got[:, :want.shape[1], :want.shape[2]], want)
+        assert not bool(got[:, want.shape[1]:].any()) and not bool(got[..., want.shape[2]:].any())
+    q = wpk[0, n1:n1 + 9 * plan.cb2 * plan.ws2].view(9, plan.cb2, plan.ws2)
+    want = w2.to(BF)[0].reshape(9, m, o)[:, :plan.cb2, :plan.nb2]
+    assert torch.equal(q[:, :want.shape[1], :want.shape[2]], want)
+
+
+def _cuda_core_smem(cin, m, o):
+    """The CUDA-core K1's shared memory (fused_double_conv.cu before the
+    tensor-core kernel): the slab or output tile, the mid, the lerp table
+    of an 8x16 tile."""
+    slab, tile = cin * 12 * 20 * 2, 8 * 16 * o * 2
+    return -(-max(slab, tile) // 16) * 16 + m * 10 * 18 * 2 + 4 * 2 * 12
+
+
+@pytest.mark.parametrize("s,want", [(3, 237696), (4, 316896)])
+def test_baseline_up3_widths_fit_the_new_plan(s, want):
+    """BASELINE 5a (S=3) and 5b (S=4) at fbc 30: their up3 DoubleConv
+    (2FS + 2FS -> 2FS -> FS, as the model builds it) needed more shared
+    memory than a block has in the CUDA-core kernel, which refused the
+    launch on the card ("invalid argument"); the tensor-core plan fits it,
+    and the eval route takes the configuration."""
+    task = MimoUnetTask(in_channels=3, out_channels=2, num_subnetworks=s,
+                        filter_base_count=30, loss="laplace_nll", compute_dtype="bfloat16",
+                        ct_kernels="force")
+    model = task.build_model(torch.device("cpu"), torch.Generator().manual_seed(0))
+    c1, _, _, c2, _, _ = model.core.up3.conv.double_conv
+    cin, m, o = c1.in_channels, c1.out_channels, c2.out_channels
+    assert (cin, m, o) == (120 * s, 60 * s, 30 * s)
+    assert _cuda_core_smem(cin, m, o) == want > FDC.SMEM_MAX
+    plan = FDC.plan_of(cin // 2, cin // 2, m, o)
+    assert plan.smem <= FDC.SMEM_MAX
+    cfg = task.model_config
+    check_eval_plans(cfg)
+    assert fast_path_supported(cfg, (2, s, 32, 256, 3), torch.device("cpu"), training=False)
+
+
+def test_eval_route_raises_past_the_plan_limit():
+    """A configuration whose up3 fits no plan (S=4, fbc 60: 960 -> 480 ->
+    240) raises at routing, naming the limit, on the CPU with "force" and
+    for CUDA inputs under "auto"; the plain model takes it only under
+    "off"."""
+    shape = (2, 4, 32, 256, 3)
+    for ct, dev in (("force", "cpu"), ("auto", "cuda")):
+        cfg = MimoUNetConfig(in_channels=3, out_channels=2, num_subnetworks=4,
+                             filter_base_count=60, compute_dtype="bfloat16", ct_kernels=ct)
+        with pytest.raises(ValueError, match="takes at most 232448 bytes"):
+            fast_path_supported(cfg, shape, torch.device(dev), training=False)
+    cfg = MimoUNetConfig(in_channels=3, out_channels=2, num_subnetworks=4,
+                         filter_base_count=60, compute_dtype="bfloat16", ct_kernels="off")
+    assert not fast_path_supported(cfg, shape, torch.device("cuda"), training=False)

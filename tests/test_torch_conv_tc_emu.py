@@ -35,11 +35,11 @@ EMU = os.path.join(os.path.dirname(os.path.abspath(__file__)), "cuda_emu")
 
 
 def _host_source(src: str) -> str:
-    """The kernel source as host C++: the PTX helpers replaced by
-    ``ptx.h``, shared memory made block-wide, launches made calls."""
-    a = src.index("__device__ __forceinline__ uint32_t smem_addr")
-    b = src.index("struct TcConv {")
-    src = src[:a] + '#include "ptx.h"\n' + src[b:]
+    """The kernel source as host C++: the PTX header (``csrc/ptx.cuh``)
+    replaced by ``ptx.h``, shared memory made block-wide, launches made
+    calls."""
+    assert '#include "ptx.cuh"' in src
+    src = src.replace('#include "ptx.cuh"', '#include "ptx.h"')
     src = re.sub(r"extern __shared__ (?:__align__\(16\) )?(\w+) (\w+)\[\];",
                  r"\1* \2 = (\1*)emu_dyn_smem();", src)
     src = src.replace("__shared__", "static")
@@ -47,27 +47,34 @@ def _host_source(src: str) -> str:
                   r"emu_launch(\1, \2, \3);", src)
 
 
-@pytest.fixture(scope="module")
-def lib(tmp_path_factory):
+def emu_library(tmp_path_factory, source: str, names):
+    """``csrc/<source>`` compiled with g++ against ``tests/cuda_emu`` and
+    loaded, with the C signatures of its entries ``names``."""
     cxx = shutil.which("g++")
     if cxx is None:
         pytest.skip("no g++ to build the CPU emulation of the kernels")
     out = tmp_path_factory.mktemp("cuda_emu")
-    src = out / "conv3x3_train.cpp"
-    src.write_text(_host_source((_build.CSRC_DIR / "conv3x3_train.cu").read_text()))
-    so = out / "libconv_emu.so"
+    src = out / (source.rsplit(".", 1)[0] + ".cpp")
+    src.write_text(_host_source((_build.CSRC_DIR / source).read_text()))
+    so = out / "libemu.so"
     subprocess.run([cxx, "-std=c++20", "-O1", "-fPIC", "-shared", "-ffp-contract=off",
                     "-pthread", "-I", EMU, "-I", str(_build.CSRC_DIR), str(src),
                     os.path.join(EMU, "main.cpp"), "-o", str(so)],
                    check=True, capture_output=True, text=True)
     dll = ctypes.CDLL(str(so))
-    for name in ("mimo_conv3x3_fwd", "mimo_conv3x3_dx", "mimo_conv3x3_dw"):
+    for name in names:
         fn = getattr(dll, name)
         fn.argtypes = _build._SIGNATURES[name]
         fn.restype = ctypes.c_int
     dll.emu_fault_text.restype = ctypes.c_char_p
     dll.emu_smem_bytes.restype = ctypes.c_size_t
     return dll
+
+
+@pytest.fixture(scope="module")
+def lib(tmp_path_factory):
+    return emu_library(tmp_path_factory, "conv3x3_train.cu",
+                       ("mimo_conv3x3_fwd", "mimo_conv3x3_dx", "mimo_conv3x3_dw"))
 
 
 def _call(lib, name, plan, *args):

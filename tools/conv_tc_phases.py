@@ -37,9 +37,9 @@ def instrumented(src: str) -> str:
     """The kernel source with per-warp phase counters summed into a device
     array ``g_phase`` (dx: 0-4, blocks' warps 15; dw: 8-11, 14; fwd: 16-20,
     21) and an entry ``mimo_phase`` that resets or reads it."""
-    s = _sub(src, "namespace {\n\n__device__ __forceinline__ int reflect",
+    s = _sub(src, "namespace {\n\n// relu(x*scale + shift)",
              "__device__ unsigned long long g_phase[NPHASE];\n"
-             "namespace {\n\n__device__ __forceinline__ int reflect")
+             "namespace {\n\n// relu(x*scale + shift)")
     # K5
     s = _sub(s, "  for (int t = t0; t < t1; ++t) {\n    const TileAt tl = tile_at(p, img, t);",
              "  long long ph[5] = {0, 0, 0, 0, 0};\n"
@@ -111,23 +111,23 @@ extern "C" int mimo_phase(unsigned long long* out, int reset) {
 '''
 
 
-def main() -> int:
-    import torch
-
-    if not torch.cuda.is_available():
-        raise RuntimeError("conv_tc_phases: CUDA is not available")
-    sys.path.insert(0, REPO)
-    import chip_smoke as cs
+def load_instrumented(stem: str, instrument, out_name: str) -> ctypes.CDLL:
+    """Build the kernel library with ``csrc/<stem>.cu`` replaced by
+    ``instrument`` of its text (headers included from ``csrc``) under the
+    git-ignored ``mimo_unet_torch/_build/<out_name>``, load it with the
+    entries' signatures and ``mimo_phase``, and make it the library the
+    wrappers launch."""
     from mimo_unet_torch.kernels import _build
 
-    out = _build.BUILD_DIR / "phases"
+    out = _build.BUILD_DIR / out_name
     out.mkdir(parents=True, exist_ok=True)
-    src = (_build.CSRC_DIR / "conv3x3_train.cu").read_text()
-    (out / "conv3x3_train.cu").write_text(instrumented(src).replace(
-        '#include "common.cuh"', f'#include "{_build.CSRC_DIR / "common.cuh"}"'))
+    src = instrument((_build.CSRC_DIR / f"{stem}.cu").read_text())
+    for hdr in ("common.cuh", "ptx.cuh"):
+        src = src.replace(f'#include "{hdr}"', f'#include "{_build.CSRC_DIR / hdr}"')
+    (out / f"{stem}.cu").write_text(src)
     nvcc = _build._nvcc()
-    srcs = [out / "conv3x3_train.cu"] + [p for p in sorted(_build.CSRC_DIR.glob("*.cu"))
-                                         if p.stem != "conv3x3_train"]
+    srcs = [out / f"{stem}.cu"] + [p for p in sorted(_build.CSRC_DIR.glob("*.cu"))
+                                   if p.stem != stem]
     objs = [str(out / (p.stem + ".o")) for p in srcs]
     _build._run_all([[nvcc] + _build.NVCC_FLAGS + ["-c", str(p), "-o", o]
                      for p, o in zip(srcs, objs)])
@@ -140,7 +140,19 @@ def main() -> int:
     lib.mimo_cuda_error_string.argtypes = [ctypes.c_int]
     lib.mimo_cuda_error_string.restype = ctypes.c_char_p
     lib.mimo_phase.argtypes = [ctypes.c_void_p, ctypes.c_int]
-    _build._lib = lib  # the wrappers launch the instrumented kernels
+    _build._lib = lib
+    return lib
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("conv_tc_phases: CUDA is not available")
+    sys.path.insert(0, REPO)
+    import chip_smoke as cs
+
+    lib = load_instrumented("conv3x3_train", instrumented, "phases")
 
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True, text=True,
