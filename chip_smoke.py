@@ -10,7 +10,8 @@ Run from the root of the repository.  Phases, each raising on failure:
 2. Build the hand-written kernels from ``mimo_unet_torch/csrc`` (one nvcc
    per source, in parallel) and print the build time, ptxas's registers,
    shared memory and spills of the tensor-core kernels (the train convs
-   K5-K7 and the fused DoubleConv K1/K2), and the HMMA (tensor-core mma)
+   K5-K7 and the fused DoubleConv K1/K2) and of ``train_elem.cu``'s
+   kernels (K8, K9, K11, K12), and the HMMA (tensor-core mma)
    instructions of each in the library's SASS (cuobjdump); raise if K5
    (fwd), K6 (dx), K7 (dw) or K1/K2 (``fused_double_conv_tc``) has none.
 3. Eval kernels: call each at its flagship serving call sites (S=2, fbc=21,
@@ -37,29 +38,35 @@ Run from the root of the repository.  Phases, each raising on failure:
    plain model at the same tolerance; and a ``torch.profiler`` table of
    one flagship B=32 forward: K2, K1 by site, the core and the rest.
 5. Train kernels: every train kernel at its 640x480 call sites (NYUv2
-   frames, S=2, fbc=21, B=4; down1's at 320x240), each output and
-   gradient against its plain version at the same tolerance as phase 3;
-   K5, K6 and K7 (tensor cores) also bitwise from one launch to the next,
-   their times printed beside those of the f32 CUDA-core kernels they
-   replaced (``CUDA_CORE_MS``, from PERF.md: those are not built any
-   more) and of their library calls.
+   frames, S=2, fbc=21, B=4; down1's at 320x240), and K8, K9 and K12 also
+   at the flagship 256x256 B=64 sites (N = 128; down1's at 128x128), each
+   output and gradient against its plain version at the same tolerance
+   as phase 3; K5, K6 and K7 (tensor cores) also bitwise from one launch
+   to the next, their times printed beside those of the f32 CUDA-core
+   kernels they replaced (``CUDA_CORE_MS``, from PERF.md: those are not
+   built any more) and of their library calls; K9 bitwise against its
+   plain version, K9 and K12's backward bitwise launch to launch, their
+   times beside their times before their redesign (``OLD_ELEM_MS``) and the
+   same function as eager bf16 calls (``bf16_seq_ms``, a yardstick), K12's
+   backward split into its kernel and its ``reduce_groups`` pass.
 6. Train: the NYUv2-depth task (S=2, fbc=21, bf16, Laplace NLL, lr 1e-3,
    loss buffer 10) at 640x480: ``init_state`` on the card, one step's loss
    and gradients against the plain model (ct_kernels="off", same weights:
    loss within 2e-2 relative, gradient cosine >= 0.99 per leaf above the
    noise threshold of tests/test_ct_train.py:228), then 3 ``train_step``s
    of B=16 seeded random uint8 frames whose launch counters must show
-   every train kernel (K10 and K13 included) ran and whose loss and
-   parameters stay finite; then
+   every train kernel (K10 and K13 included) ran, K9 six times and K12's
+   backward once a step, and whose loss and parameters stay finite; then
    a profile of one B=16 step (device time by phase and the top device
    operations) and step times at B=16 and B=64.
 7. Dropout kernels: the grouped 1x1 (K11) forward at the MC-serving
    decoder site (N=64 images of 256x256: 8 images x 4 MC passes x S=2)
    and forward and backward at the 640x480 B=4 train site; affine_relu
    (K8) and conv1x1_prelu (K12), forward and backward, with per-image
-   parameters (groups = N) at their 640x480 B=4 sites; each against its
-   plain version at phase 3's tolerance; library calls ``torch.baddbmm``
-   and, for K11's backward, its autograd backward.
+   parameters (groups = N) at their 640x480 B=4 and 256x256 B=64 sites;
+   each against its plain version at phase 3's tolerance (K12's backward
+   as in phase 5); library calls ``torch.baddbmm`` and, for K11's
+   backward, its autograd backward.
 8. MC serving: the flagship with the MC-dropout recipe (encoder, core and
    decoder Dropout2d at 0.1) in an ``Ensemble(monte_carlo_steps=4)``
    answers 8-image and 1-image ``predict`` requests (median latency); the
@@ -71,7 +78,8 @@ Run from the root of the repository.  Phases, each raising on failure:
    threshold, where the plain bf16 gradient is itself that close to the
    plain f32 model's; elsewhere no further from the f32 gradient than the
    plain bf16 model), 3 ``train_step``s of B=16 whose counters show the train
-   kernels with K8 and K12 launched at groups = N, step times at B=16
+   kernels with K8 and K12 launched at groups = N (K9 six times and K12's
+   backward once a step), step times at B=16
    (kernels vs plain); then one B=4 ``train_step`` of the final-dropout
    route whose counters show K11's forward and backward, and its
    gradient check against the plain model.
@@ -85,9 +93,9 @@ Run from the root of the repository.  Phases, each raising on failure:
    the train kernel route (``init_state`` on the card; one B=16 step's
    loss and gradients against the plain and f32 models as in phase 9),
    3 ``train_step``s at B=64 whose counters must show every train kernel
-   and exactly 2 K10 forward, 2 K10 backward, 1 K13 forward and 1 K13
-   backward launch per step, a profile of one B=64 step, and step times
-   at B=16 and B=64 (kernels vs plain).
+   and exactly 2 K10 forward, 2 K10 backward, 1 K13 forward, 1 K13
+   backward, 6 K9 and 1 K12 backward launch per step, a profile of one
+   B=64 step, and step times at B=16 and B=64 (kernels vs plain).
 12. Partial tiles: the train kernels where their blocks do not divide the
    pixels (down1 of a 48x48 step at B=3: 4.5 conv tiles per 24x24 image,
    6.75 reducing blocks per group, 2.25 per image), at fbc 40's channel
@@ -179,6 +187,29 @@ CUDA_CORE_MS = {
     ("conv3x3_dx", "down1.conv2"): 2.888, ("conv3x3_dx", "decoder conv2"): 3.076,
     ("conv3x3_dx_fold", "decoder conv1"): 8.488,
 }
+# K9 and K12's backward before their redesign for the memory system (one
+# bf16 element a thread with a 64-bit index division; 256-pixel blocks of
+# 32 x 8 lanes), ms at the phase-5 and phase-7 sites by site label: PERF.md
+# section 6, the 256x256 B=64 sites from tools/train_elem_ab.py
+OLD_ELEM_MS = {
+    ("g_eff", "in_conv.conv1 3->21: y 21 ch"): 0.200,
+    ("g_eff", "in_conv.conv2 21->21 +prologue: y 21 ch"): 0.199,
+    ("g_eff", "down1.conv1 21->42 @320x240: y 42 ch"): 0.102,
+    ("g_eff", "down1.conv2 42->42 +prologue @320x240: y 42 ch"): 0.102,
+    ("g_eff", "decoder conv1 (21+42)->31 x2 period 4: y 31 ch"): 0.292,
+    ("g_eff", "decoder conv2 31->21 +prologue: y 21 ch"): 0.201,
+    ("g_eff", "in_conv.conv1 3->21 @256x256 B=64: y 21 ch"): 0.6693,
+    ("g_eff", "in_conv.conv2 21->21 @256x256 B=64: y 21 ch"): 0.6722,
+    ("g_eff", "down1.conv1 21->42 @128x128 B=64: y 42 ch"): 0.3357,
+    ("g_eff", "down1.conv2 42->42 @128x128 B=64: y 42 ch"): 0.3363,
+    ("g_eff", "decoder conv1 (21+42)->31 @256x256 B=64: y 31 ch"): 0.9888,
+    ("g_eff", "decoder conv2 31->21 @256x256 B=64: y 21 ch"): 0.6720,
+    ("conv1x1_prelu_bwd", "decoder bn2 + ReLU + out-conv 21->2"): 0.501,
+    ("conv1x1_prelu_bwd", "decoder bn2 + ReLU + out-conv 21->2 @256 B=64"): 1.6355,
+    ("conv1x1_prelu_bwd", "decoder up4 Dropout2d + out-conv, groups=8"): 0.486,
+    ("conv1x1_prelu_bwd", "decoder up4 Dropout2d + out-conv, groups=128 @256"): 1.5838,
+}
+REDESIGNED = ("g_eff", "conv1x1_prelu_bwd")  # memory-system redesign
 TC_KERNELS = ("conv3x3_fwd", "conv3x3_dx", "conv3x3_dx_fold", "conv3x3_dw",
               "fused_double_conv", "fused_double_conv9")  # tensor cores
 # the documented MC-dropout recipe (reference Readme.md:82)
@@ -202,8 +233,10 @@ class Site:
     library: object = None
     before: object = None   # the replaced kernel's time (PERF.md), where redesigned
     repeat: bool = False    # two launches must agree bitwise
-    seq: object = None      # K1/K2: the same DoubleConv as bf16 cuDNN calls (yardstick)
+    seq: object = None      # the same function as eager bf16 calls (yardstick)
     fdc: object = None      # K1/K2: the call's (x1, DoubleConv arguments, options)
+    seq_label: str = "cudnn_seq_ms"
+    parts: object = None    # {part: call} timed one by one (K12's backward)
 
 
 def cuda_ms(fn, iters):
@@ -458,6 +491,144 @@ def eval_extra_sites(dev, gen):
     return _tc_marked(sites), same
 
 
+def g_eff_seq(dy, y, dsum, dsumsq):
+    """K9's function as eager bf16 calls (a yardstick)."""
+    import torch
+
+    bf = torch.bfloat16
+    g, o = dsum.shape
+    out = dy.view(g, -1, o) + dsum.to(bf)[:, None]
+    return out.add_((2 * y.view(g, -1, o)) * dsumsq.to(bf)[:, None])
+
+
+def prelu_bwd_seq(gl, y, scale, shift, wo):
+    """K12's backward as eager bf16 calls (a yardstick)."""
+    import torch
+
+    bf = torch.bfloat16
+    groups, c = scale.shape
+    yv, g = y.view(groups, -1, c), gl.view(groups, -1, gl.shape[-1])
+    sc = scale.to(bf)[:, None]
+    a = yv * sc + shift.to(bf)[:, None]
+    live = a > 0
+    da = torch.bmm(g, wo.to(bf).transpose(1, 2)) * live
+    return ((da * sc).view(y.shape), (da * yv).sum(1, dtype=torch.float32),
+            da.sum(1, dtype=torch.float32), torch.bmm((a * live).transpose(1, 2), g),
+            g.sum(1, dtype=torch.float32))
+
+
+def prelu_bwd_parts(gl, y, scale, shift, wo):
+    """K12's backward as its two launches, each callable alone: the kernel
+    (dy and the partial rows) and the reduce_groups pass over them."""
+    import torch
+    from mimo_unet_torch.kernels import _build
+    from mimo_unet_torch.kernels import train_elem as TE
+
+    n, h, w, c = y.shape
+    groups, oc = wo.shape[0], wo.shape[2]
+    sc, sh = scale.float().contiguous(), shift.float().contiguous()
+    wob = wo.to(torch.bfloat16).contiguous()
+    dy = torch.empty_like(y)
+    part = torch.empty((TE.prelu_bwd_blocks(n, h * w, c, oc, groups),
+                        c * oc + oc + 2 * c), device=y.device)
+
+    def kernel():
+        _build.launch("mimo_conv1x1_prelu_bwd", y.device, gl.data_ptr(), y.data_ptr(),
+                      sc.data_ptr(), sh.data_ptr(), wob.data_ptr(), dy.data_ptr(),
+                      part.data_ptr(), n, h * w, c, oc, groups)
+    return {"kernel": kernel, "reduce_groups": lambda: TE.reduce_groups(part, groups)}
+
+
+def _redesigned(sites):
+    """K9 and K12's backward: launch to launch bitwise, with their time
+    before the redesign."""
+    for st in sites:
+        if st.name in REDESIGNED:
+            st.repeat = True
+            st.before = OLD_ELEM_MS.get((st.name, st.site))
+    return sites
+
+
+def elem_sites_256(dev, gen):
+    """K8, K9 and K12 at their call sites of the flagship step at 256x256,
+    B=64 (models/fast_path.py ``mimo_unet_apply_train``: N = S*B = 128
+    images, down1's at 128x128): K9 on each of the six convs' outputs, K8
+    on in_conv's and down1's outputs, K12 on the decoder's last conv
+    output.  Eager bf16 sequences of K9 and K12's backward as yardsticks."""
+    import torch
+    from mimo_unet_torch import kernels as K
+
+    bf = torch.bfloat16
+    n, h2 = S * BIG_B, HW // 2
+    mid = (F + F * S) // 2
+
+    def act(*shape, scale=1.0):
+        return (torch.randn(shape, device=dev, generator=gen) * scale).to(bf)
+
+    def affine(c):
+        return (torch.rand((S, c), device=dev, generator=gen) + 0.5,
+                torch.randn((S, c), device=dev, generator=gen) * 0.1)
+
+    sites = []
+    for label, hh, o in (("in_conv.conv1 3->21", HW, F), ("in_conv.conv2 21->21", HW, F),
+                         ("down1.conv1 21->42", h2, 2 * F), ("down1.conv2 42->42", h2, 2 * F),
+                         ("decoder conv1 (21+42)->31", HW, mid),
+                         ("decoder conv2 31->21", HW, F)):
+        g, y = act(n, hh, hh, o, scale=0.01), act(n, hh, hh, o, scale=3.0)
+        ds = torch.randn((S, o), device=dev, generator=gen) * 1e-4
+        dq = torch.randn((S, o), device=dev, generator=gen) * 1e-6
+        px = n * hh * hh
+        sites.append(Site("g_eff", f"{label} @{hh}x{hh} B={BIG_B}: y {o} ch",
+                          lambda g=g, y=y, ds=ds, dq=dq: K.g_eff(g, y, ds, dq),
+                          lambda g=g, y=y, ds=ds, dq=dq: K.g_eff_plain(g, y, ds, dq),
+                          True, 3.0 * px * o, 3 * _nbytes(((n, hh, hh, o), 2)),
+                          seq=lambda g=g, y=y, ds=ds, dq=dq: g_eff_seq(g, y, ds, dq),
+                          seq_label="bf16_seq_ms"))
+    for label, hh, c in (("in_conv output x1s 21 ch", HW, F),
+                         ("down1 output 42 ch", h2, 2 * F)):
+        y2, dz = act(n, hh, hh, c, scale=3.0), act(n, hh, hh, c, scale=0.01)
+        sc2, sh2 = affine(c)
+        elem = _nbytes(((n, hh, hh, c), 2))
+        site = f"{label} @{hh}x{hh} B={BIG_B}"
+        sites.append(Site("affine_relu", site,
+                          lambda y2=y2, sc2=sc2, sh2=sh2: K.affine_relu(y2, sc2, sh2),
+                          lambda y2=y2, sc2=sc2, sh2=sh2: K.affine_relu_plain(y2, sc2, sh2),
+                          False, 3.0 * n * hh * hh * c, 2 * elem))
+        sites.append(Site("affine_relu_bwd", site,
+                          lambda dz=dz, y2=y2, sc2=sc2, sh2=sh2: K.affine_relu_bwd(dz, y2, sc2, sh2),
+                          lambda dz=dz, y2=y2, sc2=sc2, sh2=sh2: K.affine_relu_bwd_plain(dz, y2, sc2, sh2),
+                          False, 6.0 * n * hh * hh * c, 3 * elem))
+    sites += prelu_sites(act, n, HW, HW, S, affine, gen, dev,
+                         f"decoder bn2 + ReLU + out-conv 21->2 @256 B={BIG_B}")
+    return sites
+
+
+def prelu_sites(act, n, hh, ww, groups, affine, gen, dev, label):
+    """K12 forward and backward on a [n, hh, ww, F] decoder output with
+    [groups, F] affines: the backward with its kernel and reduce_groups
+    parts and its eager bf16 sequence."""
+    import torch
+    from mimo_unet_torch import kernels as K
+
+    px = n * hh * ww
+    elem, logits = _nbytes(((n, hh, ww, F), 2)), _nbytes(((n, hh, ww, 2), 2))
+    y6 = act(n, hh, ww, F, scale=3.0)
+    sc6, sh6 = affine(F)
+    wo = (torch.rand((groups, F, 2), device=dev, generator=gen) * 2 - 1) / F ** 0.5
+    bo = torch.randn((groups, 2), device=dev, generator=gen) * 0.1
+    gl_ = act(n, hh, ww, 2, scale=0.01)
+    return [Site("conv1x1_prelu", label,
+                 lambda: K.conv1x1_prelu(y6, sc6, sh6, wo, bo),
+                 lambda: K.conv1x1_prelu_plain(y6, sc6, sh6, wo, bo),
+                 False, px * (3.0 * F + 2.0 * F * 2), elem + logits),
+            Site("conv1x1_prelu_bwd", label,
+                 lambda: K.conv1x1_prelu_bwd(gl_, y6, sc6, sh6, wo),
+                 lambda: K.conv1x1_prelu_bwd_plain(gl_, y6, sc6, sh6, wo),
+                 False, px * (4.0 * F + 4.0 * F * 2), 2 * elem + logits,
+                 seq=lambda: prelu_bwd_seq(gl_, y6, sc6, sh6, wo), seq_label="bf16_seq_ms",
+                 parts=prelu_bwd_parts(gl_, y6, sc6, sh6, wo))]
+
+
 def train_sites(dev, gen):
     """The train kernels at their call sites of
     mimo_unet_torch/models/fast_path.py ``mimo_unet_apply_train`` at
@@ -467,7 +638,7 @@ def train_sites(dev, gen):
     from mimo_unet_torch import kernels as K
 
     bf = torch.bfloat16
-    n, px = S * TB, S * TB * TH * TW
+    n = S * TB
     c_up = F * S
     mid = (F + c_up) // 2
 
@@ -544,7 +715,9 @@ def train_sites(dev, gen):
             "g_eff", f"{label}: y {o} ch",
             lambda g=g, yk=yk, ds=ds, dq=dq: K.g_eff(g, yk, ds, dq),
             lambda g=g, yk=yk, ds=ds, dq=dq: K.g_eff_plain(g, yk, ds, dq),
-            False, 3.0 * cpx * o, 3 * y_bytes))
+            True, 3.0 * cpx * o, 3 * y_bytes,
+            seq=lambda g=g, yk=yk, ds=ds, dq=dq: g_eff_seq(g, yk, ds, dq),
+            seq_label="bf16_seq_ms"))
         dx_shape = (TB, S * cin, hh, ww)
         if a2 is not None:
             sites.append(Site(
@@ -586,29 +759,16 @@ def train_sites(dev, gen):
                           lambda dz=dz, y2=y2, sc2=sc2, sh2=sh2: K.affine_relu_bwd(dz, y2, sc2, sh2),
                           lambda dz=dz, y2=y2, sc2=sc2, sh2=sh2: K.affine_relu_bwd_plain(dz, y2, sc2, sh2),
                           False, 6.0 * n * hh * ww * c, 3 * elem))
-    elem = _nbytes(((n, TH, TW, F), 2))
-    y6 = act(n, TH, TW, F, scale=3.0)
-    sc6, sh6 = affine(F)
-    wo = (torch.rand((S, F, 2), device=dev, generator=gen) * 2 - 1) / F ** 0.5
-    bo = torch.randn((S, 2), device=dev, generator=gen) * 0.1
-    gl_ = act(n, TH, TW, 2, scale=0.01)
-    logits = _nbytes(((n, TH, TW, 2), 2))
-    sites.append(Site("conv1x1_prelu", "decoder bn2 + ReLU + out-conv 21->2",
-                      lambda: K.conv1x1_prelu(y6, sc6, sh6, wo, bo),
-                      lambda: K.conv1x1_prelu_plain(y6, sc6, sh6, wo, bo),
-                      False, px * (3.0 * F + 2.0 * F * 2), elem + logits))
-    sites.append(Site("conv1x1_prelu_bwd", "decoder bn2 + ReLU + out-conv 21->2",
-                      lambda: K.conv1x1_prelu_bwd(gl_, y6, sc6, sh6, wo),
-                      lambda: K.conv1x1_prelu_bwd_plain(gl_, y6, sc6, sh6, wo),
-                      False, px * (4.0 * F + 4.0 * F * 2), 2 * elem + logits))
-    return sites
+    return sites + prelu_sites(act, n, TH, TW, S, affine, gen, dev,
+                               "decoder bn2 + ReLU + out-conv 21->2")
 
 
 def dropout_kernel_sites(dev, gen):
     """K11 at its call sites (models/fast_path.py: the MC-dropout eval
     decoder, N = S*8*4 at 256x256; the final-dropout train decoder, N = S*4
     at 640x480) and K8/K12 with per-image parameters (groups = N) at their
-    640x480 B=4 train sites, as the Dropout2d sites fold into them."""
+    640x480 B=4 and 256x256 B=64 train sites, as the Dropout2d sites fold
+    into them."""
     import torch
     from mimo_unet_torch import kernels as K
 
@@ -657,12 +817,15 @@ def dropout_kernel_sites(dev, gen):
                       False, px * (4.0 * F * 2 + 2), 2 * elem + logits,
                       baddbmm_backward(gt, zt, wo, bo)))
 
-    # per-image affine: the per-group BN affine times each image's
-    # Dropout2d scale (0 or 1/keep)
-    keep = 0.9
-    m = (torch.rand((n, F), device=dev, generator=gen) < keep).float() / keep
-    sc = (torch.rand((S, F), device=dev, generator=gen) + 0.5).repeat_interleave(TB, 0) * m
-    sh = (torch.randn((S, F), device=dev, generator=gen) * 0.1).repeat_interleave(TB, 0) * m
+    def per_image_affine(n, b):
+        """The per-group BN affine times each image's Dropout2d scale (0 or
+        1/keep): [n, F], n = S * b."""
+        keep = 0.9
+        m = (torch.rand((n, F), device=dev, generator=gen) < keep).float() / keep
+        return ((torch.rand((S, F), device=dev, generator=gen) + 0.5).repeat_interleave(b, 0) * m,
+                (torch.randn((S, F), device=dev, generator=gen) * 0.1).repeat_interleave(b, 0) * m)
+
+    sc, sh = per_image_affine(n, TB)
     y = act(n, TH, TW, F, scale=3.0)
     dz = act(n, TH, TW, F, scale=0.01)
     wo_i, bo_i = wo.repeat_interleave(TB, 0), bo.repeat_interleave(TB, 0)
@@ -681,8 +844,26 @@ def dropout_kernel_sites(dev, gen):
     sites.append(Site("conv1x1_prelu_bwd", f"decoder up4 Dropout2d + out-conv, groups={n}",
                       lambda: K.conv1x1_prelu_bwd(gt, y, sc, sh, wo_i),
                       lambda: K.conv1x1_prelu_bwd_plain(gt, y, sc, sh, wo_i),
-                      False, px * (4.0 * F + 4.0 * F * 2), 2 * elem + logits))
-    return sites
+                      False, px * (4.0 * F + 4.0 * F * 2), 2 * elem + logits,
+                      seq=lambda: prelu_bwd_seq(gt, y, sc, sh, wo_i), seq_label="bf16_seq_ms",
+                      parts=prelu_bwd_parts(gt, y, sc, sh, wo_i)))
+
+    # the same per-image sites of the flagship 256x256 step at B=64
+    nb = S * BIG_B
+    yb, dzb = act(nb, HW, HW, F, scale=3.0), act(nb, HW, HW, F, scale=0.01)
+    scb, shb = per_image_affine(nb, BIG_B)
+    px, elem = nb * HW * HW, _nbytes(((nb, HW, HW, F), 2))
+    sites.append(Site("affine_relu", f"in_conv x1s 21 ch, groups={nb} @256",
+                      lambda: K.affine_relu(yb, scb, shb),
+                      lambda: K.affine_relu_plain(yb, scb, shb),
+                      False, 3.0 * px * F, 2 * elem))
+    sites.append(Site("affine_relu_bwd", f"in_conv x1s 21 ch, groups={nb} @256",
+                      lambda: K.affine_relu_bwd(dzb, yb, scb, shb),
+                      lambda: K.affine_relu_bwd_plain(dzb, yb, scb, shb),
+                      False, 6.0 * px * F, 3 * elem))
+    return sites + prelu_sites(act, nb, HW, HW, nb,
+                               lambda c: per_image_affine(nb, BIG_B), gen, dev,
+                               f"decoder up4 Dropout2d + out-conv, groups={nb} @256")
 
 
 def resample_sites(dev, gen):
@@ -938,9 +1119,12 @@ def check_kernels(sites, card):
         if lib_ms is not None:
             rec["library_ms"] = (rec["library_ms"] or 0.0) + lib_ms
         lib = f", library {lib_ms:.4f} ms" if lib_ms is not None else ""
-        old = f" (CUDA-core kernel {st.before} ms, PERF.md)" if st.before else ""
+        old = f" (before its redesign {st.before} ms, PERF.md)" if st.before else ""
         rpt = ", launch to launch bitwise" if st.repeat else ""
-        seq = f", cudnn_seq_ms {seq_ms:.4f}" if seq_ms is not None else ""
+        seq = f", {st.seq_label} {seq_ms:.4f}" if seq_ms is not None else ""
+        if st.parts is not None:
+            old += " (" + " + ".join(f"{k} {cuda_ms(fn, iters):.4f} ms"
+                                     for k, fn in st.parts.items()) + ")"
         print(f"kernel {st.name} [{st.site}]: max_abs_err {err} "
               f"({'bitwise' if st.exact else 'tolerance'}{rpt}), {ms:.4f} ms{old} vs "
               f"plain {plain_ms:.4f} ms{lib}{seq}, bound {bound:.4f} ms "
@@ -965,14 +1149,14 @@ def _tc_marked(sites):
 def tensor_core_report():
     """Print ptxas's registers, shared memory and spills of the tensor-core
     kernels (this build's nvcc -Xptxas -v: the train convs and the fused
-    DoubleConv) and the HMMA (tensor-core mma) instructions of each in the
+    DoubleConv) and of train_elem.cu's kernels, and the HMMA (tensor-core mma) instructions of each in the
     library's SASS (cuobjdump, where the toolkit has it); raise if K5, K6,
     K7 or K1/K2 has none."""
     import re
     import shutil
     from mimo_unet_torch.kernels import _build
 
-    for stem in ("conv3x3_train", "fused_double_conv"):
+    for stem in ("conv3x3_train", "fused_double_conv", "train_elem"):
         fn = None
         for line in _build.build_log.get(stem, "").splitlines():
             m = re.search(r"entry function '(\S+)'", line)
@@ -1379,6 +1563,16 @@ def _profile_step(task, state, batch, card, label):
     return phases
 
 
+def _per_step(launches, steps, where):
+    """K9 after each of the six convs and K12's backward once: their
+    launches over ``steps`` train steps, else raise."""
+    want = {"g_eff": 6, "conv1x1_prelu_bwd": 1}
+    wrong = {k: launches[k] for k, v in want.items() if launches[k] != steps * v}
+    if wrong:
+        raise AssertionError(f"{where}: launches {wrong} over {steps} steps "
+                             f"(want {want} a step)")
+
+
 def _time_steps(task, state, gen, b, steps, card, label, hw=NYU):
     import torch
 
@@ -1430,6 +1624,7 @@ def train(dev, card):
                if launches[k.__name__] <= 0]
     if missing:
         raise AssertionError(f"kernels not launched on the train path: {missing}")
+    _per_step(launches, 3, "640x480 train")
     bad = [k for k, p in state.model.named_parameters()
            if not bool(torch.isfinite(p).all())]
     if bad:
@@ -1500,6 +1695,7 @@ def train_patch(dev, card):
     if missing or wrong:
         raise AssertionError(f"256x256 train launches: missing {missing}, "
                              f"K10/K13 counts {wrong} (want {per_step} per step)")
+    _per_step(launches, 3, "256x256 train")
     if not all(bool(torch.isfinite(p).all()) for p in state.model.parameters()):
         raise AssertionError("non-finite parameters after 3 256x256 steps")
 
@@ -1843,6 +2039,7 @@ def train_mc(dev, card):
                if launches[k.__name__] <= 0]
     if missing:
         raise AssertionError(f"kernels not launched on the MC train path: {missing}")
+    _per_step(launches, 3, "MC-recipe train")
     not_per_image = [k for k, g in groups.items() if S * TRAIN_B not in g]
     if not_per_image:
         raise AssertionError(f"no launch at groups = N: {not_per_image}")
@@ -1925,13 +2122,14 @@ def main() -> int:
     serve_baselines(dev, card)
     serve_profile(dev, card)
     torch.cuda.empty_cache()
-    stats.update(check_kernels(_tc_marked(
-        train_sites(dev, torch.Generator(device=dev).manual_seed(1))), card))
+    stats.update(check_kernels(_redesigned(_tc_marked(
+        train_sites(dev, torch.Generator(device=dev).manual_seed(1))
+        + elem_sites_256(dev, torch.Generator(device=dev).manual_seed(11)))), card))
     torch.cuda.empty_cache()
     trained = train(dev, card)
     torch.cuda.empty_cache()
-    stats.update(check_kernels(
-        dropout_kernel_sites(dev, torch.Generator(device=dev).manual_seed(2)), card))
+    stats.update(check_kernels(_redesigned(
+        dropout_kernel_sites(dev, torch.Generator(device=dev).manual_seed(2))), card))
     torch.cuda.empty_cache()
     served_mc = serve_mc(dev, card)
     torch.cuda.empty_cache()

@@ -132,14 +132,14 @@ def _run_all(cmds):
     return [se + so for so, se in outs]
 
 
-def _build(out: Path) -> None:
+def _build(out: Path, src_dir: Path = CSRC_DIR) -> None:
     global build_seconds
     out.parent.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(dir=out.parent) as tmpdir:
         objs, cmds = [], []
-        srcs = sorted(CSRC_DIR.glob("*.cu"))
+        srcs = sorted(src_dir.glob("*.cu"))
         for src in srcs:
             obj = os.path.join(tmpdir, src.stem + ".o")
             objs.append(obj)
@@ -158,6 +158,18 @@ def library_path() -> Path:
     return BUILD_DIR / _digest() / LIB_NAME
 
 
+def bind(path: Path) -> ctypes.CDLL:
+    """A built kernel library, loaded with the entries' C signatures."""
+    lib = ctypes.CDLL(str(path))
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    lib.mimo_cuda_error_string.argtypes = [ctypes.c_int]
+    lib.mimo_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
 def load_library() -> ctypes.CDLL:
     """The kernel library, built first if this source tree has no build."""
     global _lib
@@ -166,14 +178,7 @@ def load_library() -> ctypes.CDLL:
             path = library_path()
             if not path.exists():
                 _build(path)
-            lib = ctypes.CDLL(str(path))
-            for name, argtypes in _SIGNATURES.items():
-                fn = getattr(lib, name)
-                fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
-            lib.mimo_cuda_error_string.argtypes = [ctypes.c_int]
-            lib.mimo_cuda_error_string.restype = ctypes.c_char_p
-            _lib = lib
+            _lib = bind(path)
         return _lib
 
 

@@ -21,8 +21,8 @@ uses group n // (N / G)); per-group parameters are f32 ``[G, C]``.
     ``Conv1x1`` is the ``autograd.Function``.  The dropout routes run it:
     a live dropout site between the decoder's DoubleConv and its out-conv
     keeps the 1x1 out of the fused kernels.  Replaces ``ct_elem.py:437``
-    ``conv1x1_ct`` and ``_conv1x1_bwd`` (:464); K12's kernels without the
-    prologue.
+    ``conv1x1_ct`` and ``_conv1x1_bwd`` (:464); the forward is K12's
+    kernel without the prologue.
 
 Parameters may be per image (G = N): the Dropout2d sites of the train
 path fold into the affine (``models/fast_path.py`` ``_per_image_affine``).
@@ -31,7 +31,9 @@ Rounding points (both versions, ct_elem.py:83-160, :527-600): the affine in
 f32 from the bf16 input as a multiply then an add; z rounded to bf16 before
 the 1x1 product; dy rounded once; the reductions in f32.  The kernels sum
 per block and reduce the blocks per group in a second, fixed-order pass
-(``reduce_groups``); the plain versions sum with torch.
+(``reduce_groups``); the plain versions sum with torch.  K8's and K11's
+backward give each group one block per 256 pixels (``_blocks``); K12's
+backward runs a few persistent blocks a group (``prelu_bwd_blocks``).
 """
 
 from __future__ import annotations
@@ -43,7 +45,10 @@ import torch
 from mimo_unet_torch.kernels import _build
 
 BF16 = torch.bfloat16
-PB = 256  # pixels per block of the reducing kernels
+PB = 256  # pixels per block of K8's and K11's reducing kernels
+# K12's backward (csrc/train_elem.cu): bytes of y and cotangent a staged
+# tile holds, blocks of a launch at most, tiles a block takes at least
+K12_TILE_BYTES, K12_BLOCKS, K12_MIN_TILES = 16384, 4 * 132, 4
 
 
 # ---------------------------------------------------------------- helpers
@@ -96,6 +101,15 @@ def _blocks(n: int, hw: int, groups: int) -> int:
     """Blocks of a reducing pass: ceil(group pixels / PB) per group (a
     group's last block takes what is left)."""
     return groups * -(-(n // groups * hw) // PB)
+
+
+def prelu_bwd_blocks(n: int, hw: int, c: int, oc: int, groups: int) -> int:
+    """Blocks of ``conv1x1_prelu_bwd``'s kernel, one partial row each:
+    K12_BLOCKS over the groups (at least one a group), each taking at
+    least K12_MIN_TILES tiles of K12_TILE_BYTES of y and cotangent."""
+    tile = max(8, (K12_TILE_BYTES // (2 * (c + oc))) & ~7)
+    tiles = -(-(n // groups * hw) // tile)
+    return groups * min(max(1, K12_BLOCKS // groups), -(-tiles // K12_MIN_TILES))
 
 
 def _f32(*ts):
@@ -286,8 +300,8 @@ def conv1x1_prelu_bwd(g: torch.Tensor, y: torch.Tensor, scale: torch.Tensor,
     n, h, w, c = y.shape
     oc = wo.shape[2]
     dy = torch.empty_like(y)
-    partial = torch.empty((_blocks(n, h * w, groups), c * oc + oc + 2 * c),
-                          device=y.device, dtype=torch.float32)
+    partial = torch.empty((prelu_bwd_blocks(n, h * w, c, oc, groups),
+                           c * oc + oc + 2 * c), device=y.device, dtype=torch.float32)
     _build.launch("mimo_conv1x1_prelu_bwd", y.device, g.data_ptr(),
                   y.data_ptr(), sc.data_ptr(), sh.data_ptr(), wob.data_ptr(),
                   dy.data_ptr(), partial.data_ptr(), n, h * w, c, oc, groups)

@@ -66,11 +66,15 @@ extern thread_local dim3 threadIdx, blockIdx;
 extern dim3 blockDim, gridDim;
 extern thread_local EmuBlock* emu_block;
 inline void __syncthreads() { emu_block->bar->arrive_and_wait(); }
-inline EmuWarp& emu_warp() { return *emu_block->warps[threadIdx.x >> 5]; }
+// a thread's index in its block, x fastest
+inline int emu_tid() {
+  return (int)(threadIdx.x + blockDim.x * (threadIdx.y + blockDim.y * threadIdx.z));
+}
+inline EmuWarp& emu_warp() { return *emu_block->warps[emu_tid() >> 5]; }
 inline uint8_t* emu_dyn_smem() { return emu_block->smem; }
 inline float __shfl_xor_sync(unsigned, float v, int m) {
   EmuWarp& w = emu_warp();
-  const int l = threadIdx.x & 31;
+  const int l = emu_tid() & 31;
   w.f[l] = v;
   w.bar.arrive_and_wait();
   const float r = w.f[l ^ m];
@@ -79,7 +83,7 @@ inline float __shfl_xor_sync(unsigned, float v, int m) {
 }
 inline bool __any_sync(unsigned, bool p) {
   EmuWarp& w = emu_warp();
-  const int l = threadIdx.x & 31;
+  const int l = emu_tid() & 31;
   w.i[l] = p;
   w.bar.arrive_and_wait();
   bool r = false;
@@ -96,11 +100,12 @@ bool emu_check_smem(const void* p, size_t bytes, const char* what);
 // the dynamic shared memory the last launch asked for
 extern size_t emu_launch_smem;
 
-// kernel<<<grid, threads, smem, stream>>>(args...), block by block
+// kernel<<<grid, block, smem, stream>>>(args...), block by block
 template <typename K, typename... A>
-void emu_launch(K kernel, dim3 grid, int threads, size_t smem, cudaStream_t, A... args) {
+void emu_launch(K kernel, dim3 grid, dim3 block, size_t smem, cudaStream_t, A... args) {
   emu_launch_smem = smem;
-  blockDim = dim3(threads);
+  blockDim = block;
+  const int threads = (int)(block.x * block.y * block.z);
   gridDim = grid;
   std::vector<uint8_t> buf(smem + 64);
   for (unsigned z = 0; z < grid.z; ++z)
@@ -116,7 +121,7 @@ void emu_launch(K kernel, dim3 grid, int threads, size_t smem, cudaStream_t, A..
         std::vector<std::thread> ts;
         for (int t = 0; t < threads; ++t)
           ts.emplace_back([&, t] {
-            threadIdx = dim3(t);
+            threadIdx = dim3(t % block.x, t / block.x % block.y, t / (block.x * block.y));
             blockIdx = dim3(x, y, z);
             emu_block = &blk;
             kernel(args...);

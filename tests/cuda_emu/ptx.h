@@ -15,7 +15,7 @@ inline void cp_async_wait_all() {}
 // T / 4, elements 2 (T % 4) and 2 (T % 4) + 1; trans: those of column T / 4
 inline void emu_ldsm(uint32_t* r, uint32_t a, int nmat, bool trans) {
   EmuWarp& w = emu_warp();
-  const int l = threadIdx.x & 31;
+  const int l = emu_tid() & 31;
   w.addr[l] = emu_block->smem + a;
   w.bar.arrive_and_wait();
   for (int i = 0; i < nmat; ++i) {
@@ -45,7 +45,7 @@ inline float emu_half(uint32_t r, int hi) {
 // b: b0 (k 2t.., column g), b1 (k 2t + 8..); d: rows g, g + 8, columns 2t, 2t + 1
 inline void mma16816(float d[4], const uint32_t a[4], const uint32_t b[2]) {
   EmuWarp& w = emu_warp();
-  const int l = threadIdx.x & 31;
+  const int l = emu_tid() & 31;
   for (int k = 0; k < 4; ++k) w.a[l][k] = a[k];
   w.b[l][0] = b[0];
   w.b[l][1] = b[1];

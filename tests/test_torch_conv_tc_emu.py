@@ -35,16 +35,15 @@ EMU = os.path.join(os.path.dirname(os.path.abspath(__file__)), "cuda_emu")
 
 
 def _host_source(src: str) -> str:
-    """The kernel source as host C++: the PTX header (``csrc/ptx.cuh``)
-    replaced by ``ptx.h``, shared memory made block-wide, launches made
-    calls."""
-    assert '#include "ptx.cuh"' in src
+    """The kernel source as host C++: the PTX header (``csrc/ptx.cuh``),
+    where included, replaced by ``ptx.h``, shared memory made block-wide,
+    launches (on one line or several) made calls."""
     src = src.replace('#include "ptx.cuh"', '#include "ptx.h"')
     src = re.sub(r"extern __shared__ (?:__align__\(16\) )?(\w+) (\w+)\[\];",
                  r"\1* \2 = (\1*)emu_dyn_smem();", src)
     src = src.replace("__shared__", "static")
     return re.sub(r"(\w+(?:<[^;<>()]*>)?)<<<(.*?)>>>\((.*?)\);",
-                  r"emu_launch(\1, \2, \3);", src)
+                  r"emu_launch(\1, \2, \3);", src, flags=re.S)
 
 
 def emu_library(tmp_path_factory, source: str, names):
