@@ -29,41 +29,45 @@
 // few flops against 2-6 bytes read and 2 written.  No atomics anywhere:
 // results do not change from run to run.
 //
-// g_eff (K9) moves 6 bytes an element, so it runs at the memory's rate only
-// if many bytes are in flight and the index arithmetic stays off the
-// critical path.  A thread moves 16-byte chunks (8 bf16 of dy, of y and of
-// g), GE_CHUNKS of them, neighbouring threads on neighbouring chunks; a
-// block issues its loads first and only then finds where its span starts
-// (one 64-bit division, by one thread), and each thread then walks its
-// chunks' channel and group by 32-bit increments: no division per element.
-// dsum/dsumsq come from a shared table of the block's first GE_GROUPS
-// groups, replicated to o + 8 entries a group so that a chunk's eight
-// channels read it without a wrap.  A chunk that a group boundary cuts, the
-// ragged end, an unaligned pointer and a group past the table take a
-// scalar path in the same kernel, with the same arithmetic.
+// g_eff (K9) and affine_relu (K8's forward) are one streaming pass,
+// chunk_kernel<Op> (Op: the element's f32 expression).  They run at the
+// memory's rate only if many bytes are in flight and the index arithmetic
+// stays off the critical path.  A thread moves 16-byte chunks (8 bf16 of
+// each input and of the output), GE_CHUNKS of them, neighbouring threads
+// on neighbouring chunks; a block issues its loads first and only then
+// finds where its span starts (one 64-bit division, by one thread), and
+// each thread then walks its chunks' channel and group by 32-bit
+// increments: no division per element.  The parameters come from a shared
+// table of the block's first GE_GROUPS groups, replicated to o + 8
+// entries a group so that a chunk's eight channels read it without a wrap.
+// A chunk that a group boundary cuts, the ragged end, an unaligned pointer
+// and a group past the table take a scalar path in the same kernel, with
+// the same arithmetic.
 //
-// conv1x1_prelu_bwd (K12's backward) reads y and the logits' cotangent and
-// writes dy, and reduces four sums per group.  Blocks are persistent within
-// a group (at most K12_BLOCKS a launch, each taking at least K12_MIN_TILES
-// tiles), so a launch writes a few hundred partial rows.  A tile is
-// K12_TILE_BYTES of y and cotangent, cut in bytes whatever C.  Both are
-// copied into shared memory as 16-byte units by cp.async (the next tile's
-// while this one is computed) and read there by threads laid out as
-// (pixel slice, channel) pairs over all 256 threads; dy is written back in
-// place and stored as 16-byte units.  Each thread keeps its channel's sums
-// in registers over all its block's tiles; the slices combine once at the
-// end, in a fixed order.
+// The backward of the BatchNorm affine and ReLU, affine_bwd_kernel<OC>,
+// serves K12 (OC > 0: the cotangent is the logits', and dz = wo . g is
+// the 1x1 out-conv's transpose) and K8 (OC = 0: dz is read).  It reads y
+// and the cotangent and writes dy, and reduces its sums per group.  Blocks
+// are persistent within a group (at most K12_BLOCKS a launch, each taking
+// at least K12_MIN_TILES tiles), so a launch writes a few hundred partial
+// rows.  A tile is K12_TILE_BYTES of y and cotangent, cut in bytes
+// whatever C.  Both are copied into shared memory as 16-byte units by
+// cp.async (the next tile's while this one is computed) and read there by
+// threads laid out as (pixel slice, channel) pairs over all 256 threads;
+// dy is written back in place and stored as 16-byte units.  Each thread
+// keeps its channel's sums in registers over all its block's tiles; the
+// slices combine once at the end, in a fixed order.
 //
-// The other reducing passes (K8's and K11's backward) give each block 256
-// pixels of one group and a 32 x 8 thread layout, channel x pixel lane;
-// the eight lanes combine in shared memory in a fixed order and the block
-// writes one partial per channel.
+// K11's backward gives each block 256 pixels of one group and a 32 x 8
+// thread layout, channel x pixel lane; the eight lanes combine in shared
+// memory in a fixed order and the block writes one partial per channel.
 #include "common.cuh"
 #include "ptx.cuh"
+#include "stage.cuh"
 
 namespace {
 
-constexpr int PB = 256;   // pixels per block of K8's and K11's reducing passes
+constexpr int PB = 256;   // pixels per block of K11's backward and the 1x1 forward
 constexpr int CMAX = 128;  // channels the 1x1 convs take (their shared tables)
 constexpr int OCMAX = 8;  // out-conv channels
 
@@ -83,9 +87,22 @@ __device__ __forceinline__ float affine(float y, float s, float b) {
   return __fadd_rn(__fmul_rn(y, s), b);
 }
 
-__device__ __forceinline__ float g_eff_of(float dy, float y, float ds, float dq) {
-  return __fadd_rn(__fadd_rn(dy, ds), __fmul_rn(2.f * y, dq));
-}
+// the elementwise functions of chunk_kernel: out = f(dy, y, p_g, q_g), one
+// f32 expression, rounded once
+struct g_eff_op {  // K9: dy + dsum + 2*y*dsumsq
+  static constexpr bool DY = true;  // reads dy beside y
+  __device__ static float f(float dy, float y, float ds, float dq) {
+    return __fadd_rn(__fadd_rn(dy, ds), __fmul_rn(2.f * y, dq));
+  }
+};
+
+struct affine_relu_op {  // K8: relu(y*scale + shift)
+  static constexpr bool DY = false;
+  __device__ static float f(float, float y, float sc, float sh) {
+    const float a = affine(y, sc, sh);
+    return a > 0.f ? a : 0.f;
+  }
+};
 
 // r, an offset into group gi, brought back into its group
 __device__ __forceinline__ void wrap_group(int64_t& r, int& gi, int64_t ge) {
@@ -100,11 +117,12 @@ __device__ __forceinline__ void wrap_group(int64_t& r, int& gi, int64_t ge) {
   }
 }
 
-// block GE_THREADS; grid ceil(total / GE_SPAN).  vec: dy, y and out are
-// 16-byte aligned.
-__global__ void __launch_bounds__(GE_THREADS) g_eff_kernel(
+// block GE_THREADS; grid ceil(total / GE_SPAN).  vec: dy (where read), y
+// and out are 16-byte aligned.
+template <class Op>
+__global__ void __launch_bounds__(GE_THREADS) chunk_kernel(
     const bf16* __restrict__ dy, const bf16* __restrict__ y,
-    const float* __restrict__ ds, const float* __restrict__ dq,
+    const float* __restrict__ p, const float* __restrict__ q,
     bf16* __restrict__ out, int64_t total, int64_t ge, int o, int groups, int vec) {
   __shared__ float tab[2][GE_GROUPS * (GE_OMAX + 8)];
   __shared__ int64_t head[3];
@@ -115,7 +133,7 @@ __global__ void __launch_bounds__(GE_THREADS) g_eff_kernel(
   for (int j = 0; j < GE_CHUNKS; ++j) {
     const int64_t e = base + 8 * (tid + j * GE_THREADS);
     if (vec && e + 8 <= total) {
-      va[j] = *reinterpret_cast<const uint4*>(dy + e);
+      if constexpr (Op::DY) va[j] = *reinterpret_cast<const uint4*>(dy + e);
       vb[j] = *reinterpret_cast<const uint4*>(y + e);
     }
   }
@@ -134,8 +152,8 @@ __global__ void __launch_bounds__(GE_THREADS) g_eff_kernel(
       const int gi = i / ow, g = g0 + gi;
       if (g < groups) {
         const int k = g * o + (i - gi * ow) % o;
-        tab[0][i] = ds[k];
-        tab[1][i] = dq[k];
+        tab[0][i] = p[k];
+        tab[1][i] = q[k];
       }
     }
   __syncthreads();
@@ -149,20 +167,22 @@ __global__ void __launch_bounds__(GE_THREADS) g_eff_kernel(
     const int64_t e = base + 8 * (tid + j * GE_THREADS);
     if (e >= total) break;
     if (vec && tabled && e + 8 <= total && gi < GE_GROUPS && r + 8 <= ge) {
-      const float* ts = tab[0] + gi * ow + c;
+      const float* tp = tab[0] + gi * ow + c;
       const float* tq = tab[1] + gi * ow + c;
-      float fa[8], fb[8], v[8];
-      unpack8(va[j], fa);
+      float fa[8] = {}, fb[8], v[8];
+      if constexpr (Op::DY) unpack8(va[j], fa);
       unpack8(vb[j], fb);
 #pragma unroll
-      for (int i = 0; i < 8; ++i) v[i] = g_eff_of(fa[i], fb[i], ts[i], tq[i]);
+      for (int i = 0; i < 8; ++i) v[i] = Op::f(fa[i], fb[i], tp[i], tq[i]);
       st8(out + e, v);
     } else {
       int64_t rr = r;
       int g = g0 + gi, cc = c;
       for (int i = 0; i < 8 && e + i < total; ++i) {
         const int k = g * o + cc;
-        out[e + i] = f2bf(g_eff_of(bf2f(dy[e + i]), bf2f(y[e + i]), ds[k], dq[k]));
+        float a = 0.f;
+        if constexpr (Op::DY) a = bf2f(dy[e + i]);
+        out[e + i] = f2bf(Op::f(a, bf2f(y[e + i]), p[k], q[k]));
         if (++cc == o) cc = 0;
         if (++rr == ge) {
           rr = 0;
@@ -192,20 +212,6 @@ __device__ __forceinline__ Span block_span(int64_t group_pixels) {
   return {g, g * group_pixels + local, (int)min((int64_t)PB, group_pixels - local)};
 }
 
-__global__ void affine_relu_kernel(const bf16* __restrict__ y,
-                                   const float* __restrict__ sc,
-                                   const float* __restrict__ sh,
-                                   bf16* __restrict__ z, int64_t total,
-                                   int64_t group_elems, int c) {
-  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  for (int64_t e = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; e < total;
-       e += stride) {
-    const int64_t k = (e / group_elems) * c + e % c;
-    const float a = affine(bf2f(y[e]), sc[k], sh[k]);
-    z[e] = f2bf(a > 0.f ? a : 0.f);
-  }
-}
-
 // sum v over the eight pixel lanes (threadIdx.y) in a fixed order; lane 0
 // receives it.  red: 8 x 32 floats.
 __device__ __forceinline__ float lane_sum(float* red, float v) {
@@ -216,38 +222,6 @@ __device__ __forceinline__ float lane_sum(float* red, float v) {
     for (int r = 0; r < 8; ++r) s += red[r * 32 + threadIdx.x];
   __syncthreads();
   return s;
-}
-
-// block (32, 8): channel lane x pixel lane; grid groups * ceil(group pixels / PB)
-__global__ void __launch_bounds__(256) affine_relu_bwd_kernel(
-    const bf16* __restrict__ dz, const bf16* __restrict__ y,
-    const float* __restrict__ sc, const float* __restrict__ sh,
-    bf16* __restrict__ dy, float* __restrict__ pdsc, float* __restrict__ pdsh,
-    int64_t group_pixels, int c) {
-  __shared__ float red[8 * 32];
-  const Span sp = block_span(group_pixels);
-  const int g = sp.g;
-  for (int c0 = 0; c0 < c; c0 += 32) {
-    const int ch = c0 + threadIdx.x;
-    float s = 0.f, q = 0.f;
-    if (ch < c) {
-      const float scv = sc[g * c + ch], shv = sh[g * c + ch];
-      for (int pp = threadIdx.y; pp < sp.count; pp += 8) {
-        const int64_t e = (sp.pix0 + pp) * c + ch;
-        const float yv = bf2f(y[e]);
-        const float da = affine(yv, scv, shv) > 0.f ? bf2f(dz[e]) : 0.f;
-        dy[e] = f2bf(__fmul_rn(da, scv));
-        s = fmaf(da, yv, s);
-        q += da;
-      }
-    }
-    s = lane_sum(red, s);
-    q = lane_sum(red, q);
-    if (threadIdx.y == 0 && ch < c) {
-      pdsc[blockIdx.x * (int64_t)c + ch] = s;
-      pdsh[blockIdx.x * (int64_t)c + ch] = q;
-    }
-  }
 }
 
 // one thread per pixel; block up to PB pixels of one group.  PRO: z is the
@@ -333,69 +307,40 @@ __global__ void __launch_bounds__(256) conv1x1_bwd_kernel(
   }
 }
 
-// ---- K12's backward: persistent blocks over staged tiles
+// ---- the affine + ReLU backward (K8, K12): persistent blocks over staged tiles
 
-// pixels of a tile: K12_TILE_BYTES of y (c channels) and the cotangent
-// (oc), a multiple of 8
-__host__ __device__ __forceinline__ int prelu_bwd_tile(int c, int oc) {
-  const int t = (K12_TILE_BYTES / (2 * (c + oc))) & ~7;
+// channels of the cotangent a pixel: the logits' OC (K12), or dz's c (K8)
+template <int OC>
+__host__ __device__ __forceinline__ int cot_channels(int c) {
+  return OC > 0 ? OC : c;
+}
+
+// pixels of a tile: K12_TILE_BYTES of y (c channels) and the cotangent (k
+// channels), a multiple of 8
+__host__ __device__ __forceinline__ int bwd_tile(int c, int k) {
+  const int t = (K12_TILE_BYTES / (2 * (c + k))) & ~7;
   return t < 8 ? 8 : t;
 }
 
-// 16-byte units that hold px runs of k bf16 from any element offset
-__host__ __device__ __forceinline__ int units_of(int px, int k) {
-  return (px * k + 7) / 8 + 1;
-}
-
-// copy elements [e0, e1) of src (tot elements) into dst as the 16-byte
-// units that hold them: dst[i] = src[8 * (e0 / 8) + i].  Whole units by
-// cp.async where src is 16-byte aligned (vec), the tensor's ragged end and
-// an unaligned src by ld8.
-__device__ __forceinline__ void stage_units(bf16* dst, const bf16* src, int64_t e0,
-                                            int64_t e1, int64_t tot, int vec, int tid) {
-  const int64_t u0 = e0 >> 3;
-  const int n = (int)(((e1 + 7) >> 3) - u0);
-  for (int i = tid; i < n; i += K12_THREADS) {
-    const int64_t e = (u0 + i) * 8;
-    if (vec && e + 8 <= tot)
-      cp_async16(dst + 8 * i, src + e);
-    else
-      *reinterpret_cast<uint4*>(dst + 8 * i) = ld8(src + e, (int)min((int64_t)8, tot - e));
-  }
-}
-
-// write elements [e0, e1) of dst from units staged as stage_units stages
-// them: whole units as 16-byte stores (vec), a unit the range cuts element
-// by element
-__device__ __forceinline__ void store_units(bf16* dst, const bf16* src, int64_t e0,
-                                            int64_t e1, int vec, int tid) {
-  const int64_t u0 = e0 >> 3;
-  const int n = (int)(((e1 + 7) >> 3) - u0);
-  for (int i = tid; i < n; i += K12_THREADS) {
-    const int64_t e = (u0 + i) * 8;
-    if (vec && e >= e0 && e + 8 <= e1) {
-      *reinterpret_cast<uint4*>(dst + e) = *reinterpret_cast<const uint4*>(src + 8 * i);
-    } else {
-      for (int k = 0; k < 8; ++k)
-        if (e + k >= e0 && e + k < e1) dst[e + k] = src[8 * i + k];
-    }
-  }
-}
-
 // block K12_THREADS; grid groups * bpg, block b of group b / bpg taking
-// the group's tiles b % bpg, + bpg, ...  Partial row of a block:
-// [dwo (c*OC), dbo (OC), dscale (c), dshift (c)].  vec: g, y and dy are
-// 16-byte aligned.
+// the group's tiles b % bpg, + bpg, ...  Partial row of a block, in
+// partial: [dwo (c*OC), dbo (OC), dscale (c), dshift (c)] (K12); at OC = 0
+// (K8) dscale in partial and dshift in partial2, c each.  gout: the
+// logits' cotangent (K12) or dz (K8).  vec: gout, y and dy are 16-byte
+// aligned.
 template <int OC>
-__global__ void __launch_bounds__(K12_THREADS, K12_PER_SM) conv1x1_prelu_bwd_kernel(
+__global__ void __launch_bounds__(K12_THREADS, K12_PER_SM) affine_bwd_kernel(
     const bf16* __restrict__ gout, const bf16* __restrict__ y,
     const float* __restrict__ sc, const float* __restrict__ sh,
     const bf16* __restrict__ wo, bf16* __restrict__ dy,
-    float* __restrict__ partial, int64_t pixels, int64_t gp, int c, int bpg, int vec) {
+    float* __restrict__ partial, float* __restrict__ partial2, int64_t pixels,
+    int64_t gp, int c, int bpg, int vec) {
   extern __shared__ uint4 k12_smem[];
+  constexpr int W = OC > 0 ? OC : 1;  // out-conv arrays (unused at OC = 0)
   const int tid = threadIdx.x;
-  const int tp = prelu_bwd_tile(c, OC);
-  const int yu = units_of(tp, c), gu = units_of(tp, OC);
+  const int k = cot_channels<OC>(c);
+  const int tp = bwd_tile(c, k);
+  const int yu = units_of(tp, c), gu = units_of(tp, k);
   const int grp = blockIdx.x / bpg;
   const int64_t ntiles = (gp + tp - 1) / tp;
   const int64_t first = blockIdx.x - (int64_t)grp * bpg;
@@ -403,12 +348,12 @@ __global__ void __launch_bounds__(K12_THREADS, K12_PER_SM) conv1x1_prelu_bwd_ker
   const int sl = tid / c, ch = tid - sl * c;
   const bool live = sl < ns;
 
-  float w[OC], dwo[OC], dbo[OC];
+  float w[W], dwo[W], dbo[W];
   float scv = 0.f, shv = 0.f, s = 0.f, q = 0.f;
 #pragma unroll
-  for (int k = 0; k < OC; ++k) {
-    w[k] = live ? bf2f(wo[((int64_t)grp * c + ch) * OC + k]) : 0.f;
-    dwo[k] = dbo[k] = 0.f;
+  for (int j = 0; j < W; ++j) {
+    w[j] = live && OC > 0 ? bf2f(wo[((int64_t)grp * c + ch) * OC + j]) : 0.f;
+    dwo[j] = dbo[j] = 0.f;
   }
   if (live) {
     scv = sc[grp * c + ch];
@@ -426,8 +371,8 @@ __global__ void __launch_bounds__(K12_THREADS, K12_PER_SM) conv1x1_prelu_bwd_ker
   auto stage = [&](int64_t t, int b) {
     int64_t p0;
     const int cnt = tile(t, p0);
-    stage_units(ybuf(b), y, p0 * c, (p0 + cnt) * c, pixels * c, vec, tid);
-    stage_units(gbuf(b), gout, p0 * OC, (p0 + cnt) * OC, pixels * OC, vec, tid);
+    stage_units(ybuf(b), y, p0 * c, (p0 + cnt) * c, pixels * c, vec, tid, K12_THREADS);
+    stage_units(gbuf(b), gout, p0 * k, (p0 + cnt) * k, pixels * k, vec, tid, K12_THREADS);
     cp_async_commit();
   };
 
@@ -440,58 +385,69 @@ __global__ void __launch_bounds__(K12_THREADS, K12_PER_SM) conv1x1_prelu_bwd_ker
     int64_t p0;
     const int cnt = tile(t, p0);
     bf16* ys = ybuf(b) + ((p0 * c) & 7);
-    const bf16* gs = gbuf(b) + ((p0 * OC) & 7);
+    const bf16* gs = gbuf(b) + ((p0 * k) & 7);
     if (live)
       for (int p = sl; p < cnt; p += ns) {
         bf16* yp = ys + p * c + ch;
         const float yv = bf2f(*yp);
-        float gk[OC];
-        if constexpr (OC % 2 == 0) {
-#pragma unroll
-          for (int k = 0; k < OC; k += 2) load_bf16<2>(gs + p * OC + k, gk + k);
-        } else {
-#pragma unroll
-          for (int k = 0; k < OC; ++k) gk[k] = bf2f(gs[p * OC + k]);
-        }
         const float a = affine(yv, scv, shv);
-        const float z = bf2f(f2bf(a > 0.f ? a : 0.f));
         float dz = 0.f;
+        if constexpr (OC == 0) {
+          dz = bf2f(gs[p * c + ch]);
+        } else {
+          float gk[OC];
+          if constexpr (OC % 2 == 0) {
 #pragma unroll
-        for (int k = 0; k < OC; ++k) {
-          dz = fmaf(w[k], gk[k], dz);
-          dwo[k] = fmaf(z, gk[k], dwo[k]);
+            for (int j = 0; j < OC; j += 2) load_bf16<2>(gs + p * OC + j, gk + j);
+          } else {
+#pragma unroll
+            for (int j = 0; j < OC; ++j) gk[j] = bf2f(gs[p * OC + j]);
+          }
+          const float z = bf2f(f2bf(a > 0.f ? a : 0.f));
+#pragma unroll
+          for (int j = 0; j < OC; ++j) {
+            dz = fmaf(w[j], gk[j], dz);
+            dwo[j] = fmaf(z, gk[j], dwo[j]);
+          }
+          if (ch == 0)
+#pragma unroll
+            for (int j = 0; j < OC; ++j) dbo[j] += gk[j];
         }
-        if (ch == 0)
-#pragma unroll
-          for (int k = 0; k < OC; ++k) dbo[k] += gk[k];
         const float da = a > 0.f ? dz : 0.f;
         *yp = f2bf(__fmul_rn(da, scv));  // dy in place of y
         s = fmaf(da, yv, s);
         q += da;
       }
     __syncthreads();
-    store_units(dy, ybuf(b), p0 * c, (p0 + cnt) * c, vec, tid);
+    store_units(dy, ybuf(b), p0 * c, (p0 + cnt) * c, vec, tid, K12_THREADS);
   }
   __syncthreads();  // the tiles' buffers become the slices' sums
 
   // each output's ns slice sums in order
   float* red = reinterpret_cast<float*>(k12_smem);
-  const int L = c * OC + OC + 2 * c;
+  const int co = c * OC + OC;  // dwo and dbo's entries
+  const int L = co + 2 * c;
   if (live) {
+    if constexpr (OC > 0) {
 #pragma unroll
-    for (int k = 0; k < OC; ++k) red[(ch * OC + k) * ns + sl] = dwo[k];
-    if (ch == 0)
+      for (int j = 0; j < OC; ++j) red[(ch * OC + j) * ns + sl] = dwo[j];
+      if (ch == 0)
 #pragma unroll
-      for (int k = 0; k < OC; ++k) red[(c * OC + k) * ns + sl] = dbo[k];
-    red[(c * OC + OC + ch) * ns + sl] = s;
-    red[(c * OC + OC + c + ch) * ns + sl] = q;
+        for (int j = 0; j < OC; ++j) red[(c * OC + j) * ns + sl] = dbo[j];
+    }
+    red[(co + ch) * ns + sl] = s;
+    red[(co + c + ch) * ns + sl] = q;
   }
   __syncthreads();
-  float* prow = partial + (int64_t)blockIdx.x * L;
   for (int l = tid; l < L; l += K12_THREADS) {
     float v = 0.f;
     for (int r = 0; r < ns; ++r) v += red[l * ns + r];
-    prow[l] = v;
+    if (OC > 0)
+      partial[(int64_t)blockIdx.x * L + l] = v;
+    else if (l < c)
+      partial[(int64_t)blockIdx.x * c + l] = v;
+    else
+      partial2[(int64_t)blockIdx.x * c + l - c] = v;
   }
 }
 
@@ -525,23 +481,54 @@ unsigned reducing_blocks(int64_t n, int64_t hw, int64_t groups) {
   return (unsigned)(groups * ((n / groups * hw + PB - 1) / PB));
 }
 
-// K12 backward's blocks a group: K12_BLOCKS over the groups, at least one,
-// and at most one per K12_MIN_TILES of the group's tiles
-// (kernels/train_elem.py prelu_bwd_blocks mirrors it)
-int64_t prelu_bwd_blocks(int64_t gp, int c, int oc, int64_t groups) {
-  const int tp = prelu_bwd_tile(c, oc);
+// the staged backward's blocks a group for k cotangent channels a pixel:
+// K12_BLOCKS over the groups, at least one, and at most one per
+// K12_MIN_TILES of the group's tiles (kernels/train_elem.py
+// prelu_bwd_blocks mirrors it)
+int64_t bwd_blocks(int64_t gp, int c, int k, int64_t groups) {
+  const int tp = bwd_tile(c, k);
   const int64_t tiles = (gp + tp - 1) / tp;
   const int64_t most = (tiles + K12_MIN_TILES - 1) / K12_MIN_TILES;
   const int64_t per = K12_BLOCKS / groups > 0 ? K12_BLOCKS / groups : 1;
   return per < most ? per : most;
 }
 
-// shared memory of K12 backward: two tiles' buffers, or the slices' sums
-size_t prelu_bwd_smem(int c, int oc) {
-  const int tp = prelu_bwd_tile(c, oc);
-  const size_t tiles = 2 * 16 * (size_t)(units_of(tp, c) + units_of(tp, oc));
-  const size_t sums = 4 * (size_t)(c * oc + oc + 2 * c) * (K12_THREADS / c);
+// shared memory of the staged backward: two tiles' buffers, or the
+// slices' sums
+template <int OC>
+size_t bwd_smem(int c) {
+  const int k = cot_channels<OC>(c);
+  const int tp = bwd_tile(c, k);
+  const size_t tiles = 2 * 16 * (size_t)(units_of(tp, c) + units_of(tp, k));
+  const size_t sums = 4 * (size_t)(c * OC + OC + 2 * c) * (K12_THREADS / c);
   return tiles > sums ? tiles : sums;
+}
+
+template <int OC>
+int bwd_launch(const void* g, const void* y, const void* sc, const void* sh,
+               const void* wo, void* dy, void* partial, void* partial2, int64_t n,
+               int64_t hw, int c, int64_t groups, cudaStream_t stream) {
+  const int64_t gp = n / groups * hw;
+  const int64_t bpg = bwd_blocks(gp, c, cot_channels<OC>(c), groups);
+  affine_bwd_kernel<OC><<<(unsigned)(groups * bpg), K12_THREADS, bwd_smem<OC>(c), stream>>>(
+      (const bf16*)g, (const bf16*)y, (const float*)sc, (const float*)sh, (const bf16*)wo,
+      (bf16*)dy, (float*)partial, (float*)partial2, n * hw, gp, c, (int)bpg,
+      (int)aligned16(g, y, dy));
+  return (int)cudaGetLastError();
+}
+
+template <class Op>
+int chunk_launch(const void* dy, const void* y, const void* p, const void* q, void* out,
+                 int64_t n, int64_t hw, int64_t o, int64_t groups, void* stream) {
+  if (n <= 0 || hw <= 0 || o <= 0 || groups <= 0 || n % groups) return bad();
+  const int64_t total = n * hw * o;
+  const int64_t blocks = (total + GE_SPAN - 1) / GE_SPAN;
+  if (blocks > 0x7fffffff || groups * o > 0x7fffffff) return bad();
+  chunk_kernel<Op><<<(unsigned)blocks, GE_THREADS, 0, (cudaStream_t)stream>>>(
+      (const bf16*)dy, (const bf16*)y, (const float*)p, (const float*)q, (bf16*)out,
+      total, n / groups * hw * o, (int)o, (int)groups,
+      (int)aligned16(Op::DY ? dy : y, y, out));
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -549,38 +536,26 @@ size_t prelu_bwd_smem(int c, int oc) {
 extern "C" int mimo_g_eff(const void* dy, const void* y, const void* dsum,
                           const void* dsumsq, void* out, int64_t n, int64_t hw,
                           int64_t o, int64_t groups, void* stream) {
-  if (n <= 0 || hw <= 0 || o <= 0 || groups <= 0 || n % groups) return bad();
-  const int64_t total = n * hw * o;
-  const int64_t blocks = (total + GE_SPAN - 1) / GE_SPAN;
-  if (blocks > 0x7fffffff || groups * o > 0x7fffffff) return bad();
-  g_eff_kernel<<<(unsigned)blocks, GE_THREADS, 0, (cudaStream_t)stream>>>(
-      (const bf16*)dy, (const bf16*)y, (const float*)dsum, (const float*)dsumsq,
-      (bf16*)out, total, n / groups * hw * o, (int)o, (int)groups,
-      (int)aligned16(dy, y, out));
-  return (int)cudaGetLastError();
+  return chunk_launch<g_eff_op>(dy, y, dsum, dsumsq, out, n, hw, o, groups, stream);
 }
 
 extern "C" int mimo_affine_relu(const void* y, const void* sc, const void* sh,
                                 void* z, int64_t n, int64_t hw, int64_t c,
                                 int64_t groups, void* stream) {
-  if (n <= 0 || hw <= 0 || c <= 0 || groups <= 0 || n % groups) return bad();
-  const int64_t total = n * hw * c;
-  affine_relu_kernel<<<elementwise_blocks(total, 256), 256, 0, (cudaStream_t)stream>>>(
-      (const bf16*)y, (const float*)sc, (const float*)sh, (bf16*)z, total,
-      n / groups * hw * c, (int)c);
-  return (int)cudaGetLastError();
+  return chunk_launch<affine_relu_op>(nullptr, y, sc, sh, z, n, hw, c, groups, stream);
 }
 
+// pdsc, pdsh: the partial rows of dscale and dshift, c each, one a block
+// (kernels/train_elem.py affine_relu_bwd_blocks)
 extern "C" int mimo_affine_relu_bwd(const void* dz, const void* y, const void* sc,
                                     const void* sh, void* dy, void* pdsc,
                                     void* pdsh, int64_t n, int64_t hw, int64_t c,
                                     int64_t groups, void* stream) {
-  if (n <= 0 || hw <= 0 || c <= 0 || groups <= 0 || n % groups) return bad();
-  affine_relu_bwd_kernel<<<reducing_blocks(n, hw, groups), dim3(32, 8), 0,
-                           (cudaStream_t)stream>>>(
-      (const bf16*)dz, (const bf16*)y, (const float*)sc, (const float*)sh,
-      (bf16*)dy, (float*)pdsc, (float*)pdsh, n / groups * hw, (int)c);
-  return (int)cudaGetLastError();
+  if (n <= 0 || hw <= 0 || c <= 0 || c > K12_THREADS || groups <= 0 || n % groups ||
+      groups > 0x7fffffff / K12_BLOCKS)
+    return bad();
+  return bwd_launch<0>(dz, y, sc, sh, nullptr, dy, pdsc, pdsh, n, hw, (int)c, groups,
+                       (cudaStream_t)stream);
 }
 
 namespace {
@@ -602,20 +577,6 @@ int conv1x1_launch(const void* y, const void* sc, const void* sh, const void* wo
   return (int)cudaGetLastError();
 }
 
-template <int OC>
-int prelu_bwd_launch(const void* g, const void* y, const void* sc, const void* sh,
-                     const void* wo, void* dy, void* partial, int64_t n, int64_t hw,
-                     int c, int64_t groups, cudaStream_t stream) {
-  const int64_t gp = n / groups * hw;
-  const int64_t bpg = prelu_bwd_blocks(gp, c, OC, groups);
-  conv1x1_prelu_bwd_kernel<OC><<<(unsigned)(groups * bpg), K12_THREADS,
-                                  prelu_bwd_smem(c, OC), stream>>>(
-      (const bf16*)g, (const bf16*)y, (const float*)sc, (const float*)sh,
-      (const bf16*)wo, (bf16*)dy, (float*)partial, n * hw, gp, c, (int)bpg,
-      (int)aligned16(g, y, dy));
-  return (int)cudaGetLastError();
-}
-
 }  // namespace
 
 extern "C" int mimo_conv1x1_prelu(const void* y, const void* sc, const void* sh,
@@ -634,14 +595,14 @@ extern "C" int mimo_conv1x1_prelu_bwd(const void* g, const void* y,
   if (bad_1x1(n, hw, c, oc, groups) || groups > 0x7fffffff / K12_BLOCKS) return bad();
   const cudaStream_t st = (cudaStream_t)stream;
   switch (oc) {
-    case 1: return prelu_bwd_launch<1>(g, y, sc, sh, wo, dy, partial, n, hw, (int)c, groups, st);
-    case 2: return prelu_bwd_launch<2>(g, y, sc, sh, wo, dy, partial, n, hw, (int)c, groups, st);
-    case 3: return prelu_bwd_launch<3>(g, y, sc, sh, wo, dy, partial, n, hw, (int)c, groups, st);
-    case 4: return prelu_bwd_launch<4>(g, y, sc, sh, wo, dy, partial, n, hw, (int)c, groups, st);
-    case 5: return prelu_bwd_launch<5>(g, y, sc, sh, wo, dy, partial, n, hw, (int)c, groups, st);
-    case 6: return prelu_bwd_launch<6>(g, y, sc, sh, wo, dy, partial, n, hw, (int)c, groups, st);
-    case 7: return prelu_bwd_launch<7>(g, y, sc, sh, wo, dy, partial, n, hw, (int)c, groups, st);
-    default: return prelu_bwd_launch<8>(g, y, sc, sh, wo, dy, partial, n, hw, (int)c, groups, st);
+    case 1: return bwd_launch<1>(g, y, sc, sh, wo, dy, partial, nullptr, n, hw, (int)c, groups, st);
+    case 2: return bwd_launch<2>(g, y, sc, sh, wo, dy, partial, nullptr, n, hw, (int)c, groups, st);
+    case 3: return bwd_launch<3>(g, y, sc, sh, wo, dy, partial, nullptr, n, hw, (int)c, groups, st);
+    case 4: return bwd_launch<4>(g, y, sc, sh, wo, dy, partial, nullptr, n, hw, (int)c, groups, st);
+    case 5: return bwd_launch<5>(g, y, sc, sh, wo, dy, partial, nullptr, n, hw, (int)c, groups, st);
+    case 6: return bwd_launch<6>(g, y, sc, sh, wo, dy, partial, nullptr, n, hw, (int)c, groups, st);
+    case 7: return bwd_launch<7>(g, y, sc, sh, wo, dy, partial, nullptr, n, hw, (int)c, groups, st);
+    default: return bwd_launch<8>(g, y, sc, sh, wo, dy, partial, nullptr, n, hw, (int)c, groups, st);
   }
 }
 

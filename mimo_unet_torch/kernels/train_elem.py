@@ -31,9 +31,11 @@ Rounding points (both versions, ct_elem.py:83-160, :527-600): the affine in
 f32 from the bf16 input as a multiply then an add; z rounded to bf16 before
 the 1x1 product; dy rounded once; the reductions in f32.  The kernels sum
 per block and reduce the blocks per group in a second, fixed-order pass
-(``reduce_groups``); the plain versions sum with torch.  K8's and K11's
-backward give each group one block per 256 pixels (``_blocks``); K12's
-backward runs a few persistent blocks a group (``prelu_bwd_blocks``).
+(``reduce_groups``); the plain versions sum with torch.  K11's backward
+gives each group one block per 256 pixels (``_blocks``); K8's and K12's
+backward, one kernel, run a few persistent blocks a group
+(``prelu_bwd_blocks``, ``affine_relu_bwd_blocks``).  K8's backward takes
+C <= 256, as K5, which writes its input, does.
 """
 
 from __future__ import annotations
@@ -45,10 +47,12 @@ import torch
 from mimo_unet_torch.kernels import _build
 
 BF16 = torch.bfloat16
-PB = 256  # pixels per block of K8's and K11's reducing kernels
-# K12's backward (csrc/train_elem.cu): bytes of y and cotangent a staged
-# tile holds, blocks of a launch at most, tiles a block takes at least
+PB = 256  # pixels per block of K11's reducing kernel
+# K8's and K12's backward (csrc/train_elem.cu affine_bwd_kernel): bytes of
+# y and cotangent a staged tile holds, blocks of a launch at most, tiles a
+# block takes at least, and K8's channels at most (threads a block)
 K12_TILE_BYTES, K12_BLOCKS, K12_MIN_TILES = 16384, 4 * 132, 4
+K8_CMAX = 256
 
 
 # ---------------------------------------------------------------- helpers
@@ -106,10 +110,17 @@ def _blocks(n: int, hw: int, groups: int) -> int:
 def prelu_bwd_blocks(n: int, hw: int, c: int, oc: int, groups: int) -> int:
     """Blocks of ``conv1x1_prelu_bwd``'s kernel, one partial row each:
     K12_BLOCKS over the groups (at least one a group), each taking at
-    least K12_MIN_TILES tiles of K12_TILE_BYTES of y and cotangent."""
+    least K12_MIN_TILES tiles of K12_TILE_BYTES of y and cotangent (oc
+    channels a pixel)."""
     tile = max(8, (K12_TILE_BYTES // (2 * (c + oc))) & ~7)
     tiles = -(-(n // groups * hw) // tile)
     return groups * min(max(1, K12_BLOCKS // groups), -(-tiles // K12_MIN_TILES))
+
+
+def affine_relu_bwd_blocks(n: int, hw: int, c: int, groups: int) -> int:
+    """Blocks of ``affine_relu_bwd``'s kernel, one partial row each: K12's
+    backward kernel with dz (c channels) for its cotangent."""
+    return prelu_bwd_blocks(n, hw, c, c, groups)
 
 
 def _f32(*ts):
@@ -195,19 +206,23 @@ def affine_relu_bwd(dz: torch.Tensor, y: torch.Tensor, scale: torch.Tensor,
         raise ValueError("dz and y differ in shape")
     if y.device.type == "cpu":
         return affine_relu_bwd_plain(dz, y, scale, shift)
+    if y.shape[-1] > K8_CMAX:
+        raise ValueError(f"affine_relu_bwd takes C <= {K8_CMAX}, got {tuple(y.shape)}")
     sc, sh = _f32(scale, shift)
     _build.require_cuda(dz, y, sc, sh)
     _build.require_cuda(dz, y, dtype=BF16)
     n, h, w, c = y.shape
     dy = torch.empty_like(y)
-    blocks = _blocks(n, h * w, groups)
-    pdsc = torch.empty((blocks, c), device=y.device, dtype=torch.float32)
-    pdsh = torch.empty_like(pdsc)
+    rows = affine_relu_bwd_blocks(n, h * w, c, groups)
+    # dscale's partial rows, then dshift's: one reduce_groups pass over
+    # 2 * groups groups of rows
+    part = torch.empty((2, rows, c), device=y.device, dtype=torch.float32)
     _build.launch("mimo_affine_relu_bwd", y.device, dz.data_ptr(), y.data_ptr(),
-                  sc.data_ptr(), sh.data_ptr(), dy.data_ptr(), pdsc.data_ptr(),
-                  pdsh.data_ptr(), n, h * w, c, groups)
+                  sc.data_ptr(), sh.data_ptr(), dy.data_ptr(), part[0].data_ptr(),
+                  part[1].data_ptr(), n, h * w, c, groups)
     affine_relu_bwd.launches += 1
-    return dy, reduce_groups(pdsc, groups), reduce_groups(pdsh, groups)
+    red = reduce_groups(part.view(2 * rows, c), 2 * groups)
+    return dy, red[:groups], red[groups:]
 
 
 class AffineRelu(torch.autograd.Function):

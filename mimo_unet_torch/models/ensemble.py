@@ -20,6 +20,7 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from mimo_unet_torch.models.mimo_unet import eval_mode
 from mimo_unet_torch.ops.dropout import DropoutSource
 from mimo_unet_torch.transforms import compute_uncertainties, repeat_subnetworks
 
@@ -57,7 +58,10 @@ class Ensemble:
     @torch.no_grad()
     def raw_forward(self, image: torch.Tensor
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """[B,H,W,C] -> (p1, p2) each [B, output_width, H, W, C_out/2]."""
+        """[B,H,W,C] -> (p1, p2) each [B, output_width, H, W, C_out/2].
+        Each member runs in eval mode, whatever mode it is in (restored
+        after): BatchNorm by its running statistics, which stay as they
+        are; the MC passes' dropout is live through ``mc_dropout``."""
         mc = max(1, self.monte_carlo_steps)
         live = self.monte_carlo_steps > 0
         source = DropoutSource(generator=self.generator) if live else None
@@ -67,7 +71,8 @@ class Ensemble:
             x = repeat_subnetworks(image, task.num_subnetworks)
             if mc > 1:
                 x = x.repeat(mc, 1, 1, 1, 1)  # pass-major batch
-            p1, p2 = task.forward(model, x, mc_dropout=live, dropout=source)
+            with eval_mode(model):
+                p1, p2 = task.forward(model, x, mc_dropout=live, dropout=source)
             if mc > 1:
                 # [mc*B, S, ...] -> [B, mc*S, ...]: column j*S + s is pass j
                 # of subnetwork s

@@ -27,6 +27,7 @@ a train forward that would need it raises ``NotImplementedError``.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Dict, Optional, Tuple
 
@@ -145,6 +146,21 @@ def dropout_sites(cfg: MimoUNetConfig, b: int, h: int, w: int
         add(f"decoder.{i}.up4", (b, f), cfg.decoder_dropout_rate)
         add(f"decoder.{i}.final", (b, h, w, f), cfg.final_dropout_rate)
     return sites
+
+
+@contextlib.contextmanager
+def eval_mode(model: nn.Module):
+    """``model`` in eval mode inside the block, then back in the mode it
+    was in.  Validation and serving run so whatever mode the caller left
+    the model in: BatchNorm normalizes by the running statistics and
+    leaves them unchanged, and dropout is live only through
+    ``mc_dropout`` (the JAX package passes ``train=False`` there)."""
+    was = model.training
+    model.eval()
+    try:
+        yield model
+    finally:
+        model.train(was)
 
 
 def resolve_device(device) -> torch.device:

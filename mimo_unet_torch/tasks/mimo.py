@@ -32,7 +32,7 @@ from mimo_unet_torch.loss_buffer import (
 )
 from mimo_unet_torch.losses import UncertaintyLoss
 from mimo_unet_torch.metrics import compute_regression_metrics
-from mimo_unet_torch.models.mimo_unet import MimoUNet, MimoUNetConfig
+from mimo_unet_torch.models.mimo_unet import MimoUNet, MimoUNetConfig, eval_mode
 from mimo_unet_torch.ops.dropout import DropoutSource
 from mimo_unet_torch.train.optim import adam_with_steplr
 from mimo_unet_torch.transforms import (
@@ -240,10 +240,14 @@ class MimoUnetTask:
     def val_step(self, model: MimoUNet, batch: Dict[str, torch.Tensor]
                  ) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
         """Validation step.  ``batch``: image/label [B,H,W,C], optional mask
-        [B,H,W,1] and ``valid`` [B] (0/1): padded rows get weight 0 in every
-        logged statistic.  Returns (logs, outputs)."""
+        [B,H,W,1] and ``valid`` [B] (0/1), on any device (moved to the
+        model's): padded rows get weight 0 in every logged statistic.  The
+        model runs in eval mode, whatever mode it is in (restored after).
+        Returns (logs, outputs)."""
         loss_fn = self.loss_fn
-        batch = device_normalize(batch)
+        dev = next(model.parameters()).device
+        batch = device_normalize({k: None if v is None else v.to(dev)
+                                  for k, v in batch.items()})
         s = self.num_subnetworks
         image = repeat_subnetworks(batch["image"], s)
         label = repeat_subnetworks(batch["label"], s)
@@ -257,7 +261,8 @@ class MimoUnetTask:
             w = valid.to(x.dtype).reshape((-1,) + (1,) * (x.ndim - 1))
             return (x * w).sum() / (valid.sum() * (x.numel() // x.shape[0]))
 
-        p1, p2 = self.forward(model, image)
+        with eval_mode(model):
+            p1, p2 = self.forward(model, image)
         per_px = loss_fn(p1, p2, label, mask=mask_t, reduce_mean=False)
         if valid is None:
             val_loss = per_px.mean(dim=(0, 2, 3, 4))

@@ -5,6 +5,7 @@ Same numpy inputs into both; model weights transplanted from the JAX
 package's pytree (see tests/test_torch_slice.py).
 """
 
+import copy
 import dataclasses
 import functools
 
@@ -155,3 +156,67 @@ def test_ensemble_predict_matches_jax():
         assert a.shape == (3, 32, 256, 1)
         _close(a, b)
     assert np.all(got[1] >= 0) and np.all(got[2] >= 0)
+
+
+# ---- validation and serving run in eval mode, whatever mode the model is in
+
+def _trained(**rates):
+    """The plain f32 task (S=2, fbc 6) after one train_step at 32x32 on
+    the CPU: its model is left in train mode, as train_step leaves it."""
+    task = MimoUnetTask(**TASK, ct_kernels="off", **rates)
+    state = task.init_state(4, device="cpu")
+    rng = np.random.default_rng(7)
+    batch = {"image": torch.from_numpy(rng.integers(0, 256, (2, 32, 32, 3), dtype=np.uint8)),
+             "label": torch.from_numpy(rng.uniform(0, 1, (2, 32, 32, 1)).astype(np.float32))}
+    task.train_step(state, batch)
+    assert all(m.training for m in state.model.modules())
+    return task, state.model, batch
+
+
+def _buffers(model):
+    return {k: v.clone() for k, v in model.named_buffers()}
+
+
+def _assert_unmoved(model, before):
+    """Every BatchNorm buffer bitwise as it was, the model still in train
+    mode."""
+    assert all(m.training for m in model.modules())
+    now = dict(model.named_buffers())
+    assert now.keys() == before.keys() and len(now) == 72
+    moved = [k for k, v in now.items() if not torch.equal(v, before[k])]
+    assert not moved, moved
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_val_step_after_train_step_runs_in_eval_mode(rate):
+    """val_step right after a train_step (decoder dropout off and on):
+    no BatchNorm buffer moves, the logs and outputs are an eval-mode
+    copy's, bitwise, and the model is still in train mode."""
+    task, model, batch = _trained(decoder_dropout_rate=rate)
+    before = _buffers(model)
+    ref = copy.deepcopy(model).eval()
+    logs, out = task.val_step(model, batch)
+    _assert_unmoved(model, before)
+    logs_ref, out_ref = task.val_step(ref, batch)
+    assert logs.keys() == logs_ref.keys()
+    for k in logs:
+        assert torch.equal(logs[k], logs_ref[k]), k
+    for k in ("preds", "aleatoric_std_map", "epistemic_std_map"):
+        assert torch.equal(out[k], out_ref[k]), k
+
+
+@pytest.mark.parametrize("rate, mc", [(0.0, 0), (0.1, 2)])
+def test_ensemble_predict_on_a_train_mode_member(rate, mc):
+    """Ensemble.predict on the member train_step left in train mode (3
+    images in batches of 2: the last one padded; with and without MC
+    passes): no BatchNorm buffer moves, the model stays in train mode, and
+    the predictions are an eval-mode copy's, bitwise."""
+    task, model, _ = _trained(decoder_dropout_rate=rate)
+    before = _buffers(model)
+    images = np.random.default_rng(8).uniform(0, 1, (3, 32, 32, 3)).astype(np.float32)
+    got = Ensemble([(task, model)], monte_carlo_steps=mc).predict(images, batch_size=2)
+    _assert_unmoved(model, before)
+    want = Ensemble([(task, copy.deepcopy(model).eval())],
+                    monte_carlo_steps=mc).predict(images, batch_size=2)
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a, b)

@@ -1,20 +1,23 @@
-"""K9 (``g_eff``) and K12's backward (``conv1x1_prelu_bwd``) of
-``mimo_unet_torch/csrc/train_elem.cu``, compiled with g++ against a CPU
-stand-in of the CUDA runtime (``tests/cuda_emu``: a host thread per CUDA
-thread, cp.async as a plain copy with its alignment and range checks),
-launched as their wrappers launch them and held against their plain
-versions at small shapes: K9's 16-byte chunks and its scalar path (a
-ragged total, groups whose size is not a multiple of 8, groups past the
-block's table, unaligned pointers), K12's staged tiles (partial last
-tiles, groups that start inside a 16-byte unit, several tiles and blocks
-a group, per-image groups).  What the card alone can show (timing,
-asynchrony, the compiler) is ``chip_smoke.py``'s.
+"""K9 (``g_eff``), K8 (``affine_relu`` and its backward) and K12's
+backward (``conv1x1_prelu_bwd``) of ``mimo_unet_torch/csrc/train_elem.cu``,
+compiled with g++ against a CPU stand-in of the CUDA runtime
+(``tests/cuda_emu``: a host thread per CUDA thread, cp.async as a plain
+copy with its alignment and range checks), launched as their wrappers
+launch them and held against their plain versions at small shapes: the
+16-byte chunks of K9 and K8's forward and their scalar path (a ragged
+total, groups whose size is not a multiple of 8, groups past the block's
+table, unaligned pointers), the staged tiles of K8's and K12's backward
+(partial last tiles, groups that start inside a 16-byte unit, several
+tiles and blocks a group, per-image groups).  What the card alone can
+show (timing, asynchrony, the compiler) is ``chip_smoke.py``'s.
 
-Tolerances: K9 bitwise (one rounding of the same f32 expression).  K12's
-dy within one bf16 ulp of the larger magnitude (dz's f32 sum over the
+Tolerances: K9 and K8's forward bitwise (one rounding of the same f32
+expression); K8's dy bitwise too (one rounding of da * scale).  K12's dy
+within one bf16 ulp of the larger magnitude (dz's f32 sum over the
 out-conv channels runs in another order than the plain version's bmm, and
-may round to the neighbouring bf16); its f32 sums within 1e-5 of the
-largest value (they are summed in another order).
+may round to the neighbouring bf16).  The f32 sums of both backward
+kernels within 1e-5 of the largest value (they are summed in another
+order).
 """
 
 import pytest
@@ -30,7 +33,8 @@ BF = torch.bfloat16
 @pytest.fixture(scope="module")
 def lib(tmp_path_factory):
     return emu_library(tmp_path_factory, "train_elem.cu",
-                       ("mimo_g_eff", "mimo_conv1x1_prelu_bwd", "mimo_reduce_groups"))
+                       ("mimo_g_eff", "mimo_affine_relu", "mimo_affine_relu_bwd",
+                        "mimo_conv1x1_prelu_bwd", "mimo_reduce_groups"))
 
 
 def _bf(gen, *shape, scale=1.0):
@@ -185,3 +189,126 @@ def test_conv1x1_prelu_bwd_entry_refuses_past_its_limits(lib):
         assert lib.mimo_conv1x1_prelu_bwd(g.data_ptr(), y.data_ptr(), p.data_ptr(),
                                           p.data_ptr(), y.data_ptr(), y.data_ptr(),
                                           p.data_ptr(), 2, 4, c, oc, 1, None) != 0
+
+
+def _same_bits(a, b):
+    """bf16 tensors equal bit for bit (torch.equal takes -0 for +0)."""
+    return a.shape == b.shape and torch.equal(a.view(torch.int16), b.view(torch.int16))
+
+
+def _affine(gen, groups, c):
+    return (torch.rand((groups, c), generator=gen) + 0.5,
+            torch.randn((groups, c), generator=gen) * 0.5)
+
+
+def _affine_relu(lib, y, sc, sh, z=None):
+    n, h, w, c = y.shape
+    z = torch.full_like(y, float("nan")) if z is None else z
+    rc = lib.mimo_affine_relu(y.data_ptr(), sc.data_ptr(), sh.data_ptr(), z.data_ptr(),
+                              n, h * w, c, sc.shape[0], None)
+    assert rc == 0, (rc, lib.emu_fault_text().decode())
+    return z
+
+
+# (c, groups, images per group, h, w): the flagship's 21 and 42, c < 8 (a
+# chunk holds more than one pixel), per-image groups, a ragged total
+# (3*5*7*3), group sizes not a multiple of 8, group counts not a multiple
+# of 8, groups past the block's table of four groups
+AFFINE_SHAPES = [(3, 2, 2, 8, 16), (3, 3, 1, 5, 7), (21, 2, 2, 9, 12), (21, 8, 1, 5, 7),
+                 (42, 2, 3, 8, 8), (42, 6, 1, 3, 5), (42, 3, 1, 9, 11)]
+
+
+@pytest.mark.parametrize("shape", AFFINE_SHAPES)
+def test_affine_relu_emulated_bitwise(lib, shape):
+    c, groups, per, h, w = shape
+    gen = torch.Generator().manual_seed(c * 100 + groups * 10 + per + 1)
+    y = _bf(gen, groups * per, h, w, c, scale=3.0)
+    sc, sh = _affine(gen, groups, c)
+    assert _same_bits(_affine_relu(lib, y, sc, sh), TE.affine_relu_plain(y, sc, sh))
+
+
+def test_affine_relu_emulated_unaligned(lib):
+    """Unaligned y and z take the scalar path throughout, bitwise."""
+    gen = torch.Generator().manual_seed(12)
+    y = _bf(gen, 4, 5, 9, 21, scale=3.0)
+    sc, sh = _affine(gen, 2, 21)
+    z = _shifted(torch.full_like(y, float("nan")))
+    assert _same_bits(_affine_relu(lib, _shifted(y), sc, sh, z),
+                      TE.affine_relu_plain(y, sc, sh))
+
+
+def _affine_relu_bwd(lib, dz, y, sc, sh, dy=None):
+    """K8's backward through the emulation, as the wrapper launches it:
+    (dy, dscale, dshift), the partial rows (one sentinel row past each
+    must stay unwritten) summed per group by ``reduce_groups``."""
+    n, h, w, c = y.shape
+    groups = sc.shape[0]
+    rows = TE.affine_relu_bwd_blocks(n, h * w, c, groups)
+    dy = torch.full_like(y, float("nan")) if dy is None else dy
+    pdsc = torch.full((rows + 1, c), float("nan"))
+    pdsh = torch.full((rows + 1, c), float("nan"))
+    rc = lib.mimo_affine_relu_bwd(dz.data_ptr(), y.data_ptr(), sc.data_ptr(), sh.data_ptr(),
+                                  dy.data_ptr(), pdsc.data_ptr(), pdsh.data_ptr(),
+                                  n, h * w, c, groups, None)
+    assert rc == 0, (rc, lib.emu_fault_text().decode())
+    out = [dy]
+    for part in (pdsc, pdsh):
+        assert bool(torch.isfinite(part[:rows]).all()), "a partial row was not written"
+        assert bool(torch.isnan(part[rows]).all()), "a row past the partials was written"
+        red = torch.empty((groups, c))
+        assert lib.mimo_reduce_groups(part.data_ptr(), red.data_ptr(), groups,
+                                      rows // groups, c, None) == 0
+        out.append(red)
+    return tuple(out)
+
+
+def _affine_bwd_close(got, want):
+    assert _same_bits(got[0], want[0]), float((got[0].float() - want[0].float()).abs().max())
+    for a, b in zip(got[1:], want[1:]):
+        _f32_close(a, b)
+
+
+# (c, groups, images per group, h, w): as AFFINE_SHAPES, and groups of
+# several tiles and several blocks (c = 21: 192-pixel tiles, 960 pixels a
+# group = 5 tiles, 2 blocks; c = 42: 96-pixel tiles, 10 tiles, 3 blocks;
+# c = 3: 1360-pixel tiles, 2 tiles)
+AFFINE_BWD_SHAPES = AFFINE_SHAPES + [(21, 2, 2, 20, 24), (42, 2, 1, 30, 32),
+                                     (3, 2, 1, 40, 40), (128, 2, 1, 9, 13)]
+
+
+@pytest.mark.parametrize("shape", AFFINE_BWD_SHAPES)
+def test_affine_relu_bwd_emulated(lib, shape):
+    c, groups, per, h, w = shape
+    gen = torch.Generator().manual_seed(c * 100 + groups * 10 + per + 2)
+    n = groups * per
+    y, dz = _bf(gen, n, h, w, c, scale=3.0), _bf(gen, n, h, w, c, scale=0.01)
+    sc, sh = _affine(gen, groups, c)
+    _affine_bwd_close(_affine_relu_bwd(lib, dz, y, sc, sh),
+                      TE.affine_relu_bwd_plain(dz, y, sc, sh))
+
+
+def test_affine_relu_bwd_emulated_unaligned_and_repeated(lib):
+    """Unaligned dz, y and dy (every unit copied and stored element by
+    element), the blocks' count as the wrapper mirrors it, and the same
+    bits from two launches."""
+    gen = torch.Generator().manual_seed(13)
+    y, dz = _bf(gen, 2, 20, 24, 21, scale=3.0), _bf(gen, 2, 20, 24, 21, scale=0.01)
+    sc, sh = _affine(gen, 2, 21)
+    assert TE.affine_relu_bwd_blocks(2, 480, 21, 2) == 2 * 1
+    assert TE.affine_relu_bwd_blocks(4, 480, 21, 2) == 2 * 2
+    want = TE.affine_relu_bwd_plain(dz, y, sc, sh)
+    dy = _shifted(torch.full_like(y, float("nan")))
+    _affine_bwd_close(_affine_relu_bwd(lib, _shifted(dz), _shifted(y), sc, sh, dy), want)
+    first = _affine_relu_bwd(lib, dz, y, sc, sh)
+    for a, b in zip(first, _affine_relu_bwd(lib, dz, y, sc, sh)):
+        assert torch.equal(a, b)
+
+
+def test_affine_relu_bwd_entry_refuses_past_256_channels(lib):
+    """More than 256 channels (a thread a channel) is refused with an
+    error, nothing launched."""
+    y = torch.zeros((2, 2, 2, 257), dtype=BF)
+    p = torch.zeros(4096)
+    assert lib.mimo_affine_relu_bwd(y.data_ptr(), y.data_ptr(), p.data_ptr(), p.data_ptr(),
+                                    y.data_ptr(), p.data_ptr(), p.data_ptr(),
+                                    2, 4, 257, 1, None) != 0

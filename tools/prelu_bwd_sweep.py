@@ -49,7 +49,7 @@ def main() -> int:
     for tile, per_sm in SWEEP:
         v = re.sub(r"(constexpr int K12_TILE_BYTES = )\d+;", rf"\g<1>{tile};", src)
         v = re.sub(r"(constexpr int K12_PER_SM = )\d+;", rf"\g<1>{per_sm};", v)
-        libs[tile, per_sm] = variant_library(v.encode())
+        libs[tile, per_sm] = variant_library({"train_elem.cu": v.encode()})
     dev = torch.device("cuda", 0)
     k12 = [s for s in sites(dev, torch.Generator(device=dev).manual_seed(12))
            if s[1] == "prelu_bwd"]
