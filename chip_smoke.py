@@ -10,13 +10,16 @@ Run from the root of the repository.  Phases, each raising on failure:
 2. Build the hand-written kernels from ``mimo_unet_torch/csrc`` (one nvcc
    per source, in parallel) and print the build time, ptxas's registers,
    shared memory and spills of the tensor-core kernels (the train convs
-   K5-K7 and the fused DoubleConv K1/K2) and of ``train_elem.cu``'s and
-   ``upsample2x.cu``'s kernels (K8, K9, K11-K14), and the HMMA (tensor-core mma)
+   K5-K7 and the fused DoubleConv K1/K2) and of ``train_elem.cu``'s,
+   ``upsample2x.cu``'s and ``upsample_w2x.cu``'s kernels (K4, K4b, K8,
+   K9, K11-K14), and the HMMA (tensor-core mma)
    instructions of each in the library's SASS (cuobjdump); raise if K5
    (fwd), K6 (dx), K7 (dw) or K1/K2 (``fused_double_conv_tc``) has none.
 3. Eval kernels: call each at its flagship serving call sites (S=2, fbc=21,
    256x256, B=32, bf16) and hold it against its plain PyTorch version
-   (float32, TF32 off): pool_w and upsample_w2x bitwise, the DoubleConv
+   (float32, TF32 off): pool_w and upsample_w2x (K4) bitwise, K4 also
+   bitwise launch to launch beside its time before its redesign
+   (``OLD_ELEM_MS``), the DoubleConv
    kernels (tensor cores) at max abs <= 1e-2 * max|ref| and mean abs <=
    1e-3 * max|ref| and bitwise from one launch to the next, their times
    printed beside those of the f32 CUDA-core kernel they replaced
@@ -46,7 +49,7 @@ Run from the root of the repository.  Phases, each raising on failure:
    kernels they replaced (``CUDA_CORE_MS``, from PERF.md: those are not
    built any more) and of their library calls; K9 and K8's forward
    bitwise against their plain versions, K8's backward's dy bitwise (its
-   sums at the tolerance), K8, K9 and K12's backward bitwise launch to
+   sums at the tolerance), K8, K9 and K12 (both ways) bitwise launch to
    launch, their times beside their times before their redesign
    (``OLD_ELEM_MS``) and the same function as eager bf16 calls
    (``bf16_seq_ms``, a yardstick), K12's backward split into its kernel and
@@ -69,8 +72,9 @@ Run from the root of the repository.  Phases, each raising on failure:
    (K8) and conv1x1_prelu (K12), forward and backward, with per-image
    parameters (groups = N) at their 640x480 B=4 and 256x256 B=64 sites;
    each against its plain version at phase 3's tolerance (K8 and K12's
-   backward as in phase 5); library calls ``torch.baddbmm`` and, for K11's
-   backward, its autograd backward.
+   backward as in phase 5), K8, K12 and K11's forward also bitwise launch
+   to launch beside their times before their redesign; library calls
+   ``torch.baddbmm`` and, for K11's backward, its autograd backward.
 8. MC serving: the flagship with the MC-dropout recipe (encoder, core and
    decoder Dropout2d at 0.1) in an ``Ensemble(monte_carlo_steps=4)``
    answers 8-image and 1-image ``predict`` requests (median latency); the
@@ -108,8 +112,8 @@ Run from the root of the repository.  Phases, each raising on failure:
    and decoder widths (x2_half_h at even H), K8 at fbc 40's in_conv and
    down1 outputs and K13 at its 48x48 decoder input and at a 64-wide row
    of 80 channels, each against its plain version at phase 3's tolerance
-   (K8 and K13 as in phases 5 and 10), K5/K6/K7, K8 and K13 also bitwise
-   launch to launch;
+   (K8 and K13 as in phases 5 and 10), K5/K6/K7, K8, K12, K11's forward
+   and K13 also bitwise launch to launch;
    then one B=3 48x48 step of the fbc-40 task on the kernel route (every
    train kernel and K10/K13 launched) with its loss and gradients against
    the plain and f32 models as in phase 9.
@@ -121,7 +125,8 @@ Run from the root of the repository.  Phases, each raising on failure:
    tensor; K5 and K7 with ``x2_half_h`` at dec.c1 (640x480 B=4) against
    their plain versions (phase 3's tolerance) and bitwise against their
    full-res form fed K13's output; K4 at the 256x256 B=64 x2-half site
-   (bitwise, beside ``F.interpolate`` of the W axis); 3 steps at 256x256 B=64 and 3 at
+   (bitwise, and launch to launch, beside its time before its redesign and
+   ``F.interpolate`` of the W axis); 3 steps at 256x256 B=64 and 3 at
    640x480 B=16 whose counters must show 1 K4, 1 K4b, 1 K14, 0 K13 each
    way and 2 K10 each way per step, and every train kernel; one B=16
    256x256 step against the flag-off step on the same weights and inputs
@@ -195,12 +200,13 @@ CUDA_CORE_MS = {
     ("conv3x3_dx", "down1.conv2"): 2.888, ("conv3x3_dx", "decoder conv2"): 3.076,
     ("conv3x3_dx_fold", "decoder conv1"): 8.488,
 }
-# K9, K12's backward, K8 and K13 before their redesign for the memory
-# system (K9, K8: one bf16 element a thread with a 64-bit index division;
-# K12's and K8's backward: 256-pixel blocks of 32 x 8 lanes; K13: a block
-# an output row, a thread a channel pair), ms at the phase-5, 7 and 10
-# sites by site label: PERF.md section 6 (K9's 256x256 B=64 sites from
-# tools/train_elem_ab.py)
+# K9, K12, K8, K13, K4 and K11's forward before their redesign for the
+# memory system (K9, K8, K4: one bf16 element a thread with 64-bit index
+# divisions; K12's and K8's backward: 256-pixel blocks of 32 x 8 lanes;
+# K12's and K11's forward: a thread a pixel reading 2-byte scalars, blocks
+# of 256 pixels; K13: a block an output row, a thread a channel pair), ms
+# at the phase-3, 5, 7, 10 and 13 sites by site label: PERF.md section 6
+# (K9's 256x256 B=64 sites from tools/train_elem_ab.py)
 OLD_ELEM_MS = {
     ("g_eff", "in_conv.conv1 3->21: y 21 ch"): 0.200,
     ("g_eff", "in_conv.conv2 21->21 +prologue: y 21 ch"): 0.199,
@@ -234,10 +240,19 @@ OLD_ELEM_MS = {
     ("upsample2x", "decoder input 480x640 B=4 [4,240,320,42]"): 0.1107,
     ("upsample2x_bwd", "decoder input 256x256 B=64"): 0.5379,
     ("upsample2x_bwd", "decoder input 480x640 B=4"): 0.1705,
+    ("upsample_w2x", "up3 W-half [32,64,64,84]"): 0.1015,
+    ("upsample_w2x", "decoder W-half [32,128,128,42]"): 0.2001,
+    ("upsample_w2x", "x2-half up4 W-half 256x256 B=64 [64, 128, 128, 42]"): 0.3933,
+    ("conv1x1_prelu", "decoder bn2 + ReLU + out-conv 21->2"): 0.1087,
+    ("conv1x1_prelu", "decoder bn2 + ReLU + out-conv 21->2 @256 B=64"): 0.3036,
+    ("conv1x1_prelu", "decoder up4 Dropout2d + out-conv, groups=8"): 0.1018,
+    ("conv1x1_prelu", "decoder up4 Dropout2d + out-conv, groups=128 @256"): 0.3016,
+    ("conv1x1", "MC decoder 21->2, N=64 @256"): 0.140,
+    ("conv1x1", "final-dropout decoder 21->2, N=8 @640x480"): 0.084,
 }
 # redesigned for the memory system: launch to launch bitwise
 REDESIGNED = ("g_eff", "conv1x1_prelu_bwd", "affine_relu", "affine_relu_bwd", "upsample2x",
-              "upsample2x_bwd")
+              "upsample2x_bwd", "upsample_w2x", "conv1x1_prelu", "conv1x1")
 # K8's backward: dy bitwise against the plain version, its sums (another
 # order) at phase 3's tolerance
 K8_BWD_EXACT = (True, False, False)
@@ -578,6 +593,18 @@ def affine_relu_bwd_seq(dz, y, scale, shift):
             da.sum(1, dtype=torch.float32))
 
 
+def prelu_seq(y, scale, shift, wo, bo):
+    """K12's forward as eager bf16 calls (a yardstick): the affine and
+    ReLU, then the grouped 1x1 as one batched product with its bias."""
+    import torch
+
+    bf = torch.bfloat16
+    groups, c = scale.shape
+    yv = y.view(groups, -1, c)
+    z = torch.relu(yv * scale.to(bf)[:, None] + shift.to(bf)[:, None])
+    return torch.baddbmm(bo.to(bf)[:, None, :], z, wo.to(bf))
+
+
 def k8_sites(label, y, dz, scale, shift, n, hh, ww, c):
     """K8 forward and backward at one call site, with their eager bf16
     sequences: the forward bitwise, the backward's dy bitwise."""
@@ -620,8 +647,8 @@ def prelu_bwd_parts(gl, y, scale, shift, wo):
 
 
 def _redesigned(sites):
-    """K9, K12's backward, K8 and K13: launch to launch bitwise, with their
-    time before the redesign."""
+    """K9, K12, K8, K13, K4 and K11's forward: launch to launch bitwise,
+    with their time before the redesign."""
     for st in sites:
         if st.name in REDESIGNED:
             st.repeat = True
@@ -690,7 +717,8 @@ def prelu_sites(act, n, hh, ww, groups, affine, gen, dev, label):
     return [Site("conv1x1_prelu", label,
                  lambda: K.conv1x1_prelu(y6, sc6, sh6, wo, bo),
                  lambda: K.conv1x1_prelu_plain(y6, sc6, sh6, wo, bo),
-                 False, px * (3.0 * F + 2.0 * F * 2), elem + logits),
+                 False, px * (3.0 * F + 2.0 * F * 2), elem + logits,
+                 seq=lambda: prelu_seq(y6, sc6, sh6, wo, bo), seq_label="bf16_seq_ms"),
             Site("conv1x1_prelu_bwd", label,
                  lambda: K.conv1x1_prelu_bwd(gl_, y6, sc6, sh6, wo),
                  lambda: K.conv1x1_prelu_bwd_plain(gl_, y6, sc6, sh6, wo),
@@ -894,7 +922,8 @@ def dropout_kernel_sites(dev, gen):
     sites.append(Site("conv1x1_prelu", f"decoder up4 Dropout2d + out-conv, groups={n}",
                       lambda: K.conv1x1_prelu(y, sc, sh, wo_i, bo_i),
                       lambda: K.conv1x1_prelu_plain(y, sc, sh, wo_i, bo_i),
-                      False, px * (3.0 * F + 2.0 * F * 2), elem + logits))
+                      False, px * (3.0 * F + 2.0 * F * 2), elem + logits,
+                      seq=lambda: prelu_seq(y, sc, sh, wo_i, bo_i), seq_label="bf16_seq_ms"))
     sites.append(Site("conv1x1_prelu_bwd", f"decoder up4 Dropout2d + out-conv, groups={n}",
                       lambda: K.conv1x1_prelu_bwd(gt, y, sc, sh, wo_i),
                       lambda: K.conv1x1_prelu_bwd_plain(gt, y, sc, sh, wo_i),
@@ -1211,14 +1240,16 @@ def _tc_marked(sites):
 def tensor_core_report():
     """Print ptxas's registers, shared memory and spills of the tensor-core
     kernels (this build's nvcc -Xptxas -v: the train convs and the fused
-    DoubleConv) and of train_elem.cu's kernels, and the HMMA (tensor-core mma) instructions of each in the
+    DoubleConv) and of train_elem.cu's, upsample2x.cu's and
+    upsample_w2x.cu's kernels, and the HMMA (tensor-core mma) instructions of each in the
     library's SASS (cuobjdump, where the toolkit has it); raise if K5, K6,
     K7 or K1/K2 has none."""
     import re
     import shutil
     from mimo_unet_torch.kernels import _build
 
-    for stem in ("conv3x3_train", "fused_double_conv", "train_elem", "upsample2x"):
+    for stem in ("conv3x3_train", "fused_double_conv", "train_elem", "upsample2x",
+                 "upsample_w2x"):
         fn = None
         for line in _build.build_log.get(stem, "").splitlines():
             m = re.search(r"entry function '(\S+)'", line)
@@ -2193,8 +2224,8 @@ def main() -> int:
     os.environ[X2_HALF] = "0"  # the default decoder until phase 13
     from mimo_unet_torch import kernels as K
 
-    stats = check_kernels(
-        eval_sites(dev, torch.Generator(device=dev).manual_seed(0)), card)
+    stats = check_kernels(_redesigned(
+        eval_sites(dev, torch.Generator(device=dev).manual_seed(0))), card)
     torch.cuda.empty_cache()
     extra, same = eval_extra_sites(dev, torch.Generator(device=dev).manual_seed(9))
     check_kernels(extra, card)  # times of these sites: printed, not summed
@@ -2234,7 +2265,7 @@ def main() -> int:
         x2_half_sites(dev, torch.Generator(device=dev).manual_seed(5)), card))
     torch.cuda.empty_cache()
     half_sites, same = x2_half_conv_sites(dev, torch.Generator(device=dev).manual_seed(6))
-    check_kernels(half_sites, card)  # times of these sites: printed, not summed
+    check_kernels(_redesigned(half_sites), card)  # times: printed, not summed
     for name, half, full in same:
         compare(f"{name} x2_half_h vs fed K13's output", half(), full(), True)
         print(f"{name} x2_half_h: bitwise its full-res form fed K13's output")

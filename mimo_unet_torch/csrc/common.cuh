@@ -86,6 +86,12 @@ __device__ __forceinline__ int reflect(int i, int n) {
 
 __device__ __forceinline__ float relu(float v) { return v < 0.f ? 0.f : v; }
 
+// a * wa + b * wb in f32, each product and the sum rounded on its own (no
+// FMA contraction): the align-corners lerps of the upsample kernels
+__device__ __forceinline__ float lerp2(float a, float wa, float b, float wb) {
+  return __fadd_rn(__fmul_rn(a, wa), __fmul_rn(b, wb));
+}
+
 // eight values (bf16-exact) as one 16-byte shared-memory store
 __device__ __forceinline__ void st8(bf16* dst, const float v[8]) {
   uint4 u;

@@ -1,7 +1,8 @@
 // Staging runs of bf16 elements through shared memory as 16-byte units:
-// the memory-bound kernels' tiles (train_elem.cu's staged backward,
-// upsample2x.cu).  Include after ptx.cuh (cp_async16); the CPU emulation
-// of the tests puts its own stand-in of ptx.cuh first.
+// the memory-bound kernels' tiles (train_elem.cu's staged 1x1 kernels,
+// upsample2x.cu, upsample_w2x.cu's forward).  Include after ptx.cuh
+// (cp_async16); the CPU emulation of the tests puts its own stand-in of
+// ptx.cuh first.
 #pragma once
 
 #include "common.cuh"
@@ -46,4 +47,23 @@ __device__ __forceinline__ void store_units(bf16* dst, const bf16* src, int64_t 
         if (e + k >= e0 && e + k < e1) dst[e + k] = src[8 * i + k];
     }
   }
+}
+
+// elements [e, e + 8) of dst from v (rounded to bf16): one 16-byte store
+// where vec and the unit lies whole and aligned before end, else element
+// by element up to end
+__device__ __forceinline__ void store8(bf16* dst, int64_t e, int64_t end, const float v[8],
+                                       int vec) {
+  if (vec && (e & 7) == 0 && e + 8 <= end) {
+    st8(dst + e, v);
+  } else {
+    for (int i = 0; i < 8 && e + i < end; ++i) dst[e + i] = f2bf(v[i]);
+  }
+}
+
+// te and the number of tiles of a row of len elements cut into tiles of
+// at most cap elements, as even as they go (te a multiple of 8)
+static inline int cut_row(int len, int cap, int* tiles) {
+  *tiles = (len + cap - 1) / cap;
+  return ((len + *tiles - 1) / *tiles + 7) & ~7;
 }

@@ -58,6 +58,21 @@
 // keeps its channel's sums in registers over all its block's tiles; the
 // slices combine once at the end, in a fixed order.
 //
+// The 1x1 out-conv forward, conv1x1_kernel<PRO, OC>, serves K12 (PRO: the
+// BatchNorm affine and ReLU first) and K11's forward.  It reads y (C
+// channels a pixel) and writes OC <= 8 logits, a tenth of the bytes at
+// C = 21.  Its blocks are persistent within a group as the backward's are
+// (at most K12F_BLOCKS a launch, each taking at least K12_MIN_TILES tiles),
+// and load the group's scale, shift, wo and bo once, as one record of
+// floats a channel.  A tile is K12F_TILE_BYTES of y and logits (a
+// multiple of the block's threads in pixels where that many fit), copied
+// into shared memory as 16-byte units by cp.async, the next tile's while
+// this one is computed.  A thread computes two pixels of a tile, each
+// one's OC sums in channel order (the rounding points and order of the
+// one-pixel-a-thread kernel it replaced: the same bits); the logits are
+// written to shared memory and stored as 16-byte units after the next
+// tile's barrier (one barrier a tile).
+//
 // K11's backward gives each block 256 pixels of one group and a 32 x 8
 // thread layout, channel x pixel lane; the eight lanes combine in shared
 // memory in a fixed order and the block writes one partial per channel.
@@ -67,7 +82,7 @@
 
 namespace {
 
-constexpr int PB = 256;   // pixels per block of K11's backward and the 1x1 forward
+constexpr int PB = 256;   // pixels per block of K11's backward
 constexpr int CMAX = 128;  // channels the 1x1 convs take (their shared tables)
 constexpr int OCMAX = 8;  // out-conv channels
 
@@ -82,6 +97,9 @@ constexpr int K12_TILE_BYTES = 16384;  // bytes of y and cotangent a tile holds
 constexpr int K12_PER_SM = 4;         // blocks an SM
 constexpr int K12_BLOCKS = K12_PER_SM * 132;  // blocks of a launch at most
 constexpr int K12_MIN_TILES = 4;      // tiles a block takes at least
+constexpr int K12F_TILE_BYTES = 24576;  // bytes of y and logits a forward tile holds
+constexpr int K12F_PER_SM = 3;          // forward blocks an SM
+constexpr int K12F_BLOCKS = K12F_PER_SM * 132;  // forward blocks of a launch at most
 
 __device__ __forceinline__ float affine(float y, float s, float b) {
   return __fadd_rn(__fmul_rn(y, s), b);
@@ -224,41 +242,125 @@ __device__ __forceinline__ float lane_sum(float* red, float v) {
   return s;
 }
 
-// one thread per pixel; block up to PB pixels of one group.  PRO: z is the
-// affine + ReLU of y rounded to bf16 (K12); else z = y (K11).
-template <bool PRO>
-__global__ void __launch_bounds__(PB) conv1x1_kernel(
+// pixels of a forward tile: K12F_TILE_BYTES of y (c channels) and logits
+// (oc), a multiple of the block's threads where that many fit, else of 8
+__host__ __device__ __forceinline__ int fwd_tile(int c, int oc) {
+  const int t = K12F_TILE_BYTES / (2 * (c + oc));
+  return t >= K12_THREADS ? t / K12_THREADS * K12_THREADS : (t < 8 ? 8 : t & ~7);
+}
+
+// floats of a channel's parameter record in the forward's table: scale and
+// shift (PRO), then the channel's OC out-conv weights, padded to 16 bytes
+template <bool PRO, int OC>
+__host__ __device__ __forceinline__ constexpr int fwd_record() {
+  return ((PRO ? 2 : 0) + OC + 3) & ~3;
+}
+
+// The 1x1 out-conv forward: block K12_THREADS; grid groups * bpg, block b
+// of group b / bpg taking the group's tiles b % bpg, + bpg, ...  PRO: z is
+// the affine + ReLU of y rounded to bf16 (K12); else z = y (K11).  A
+// thread computes pixels p and p + K12_THREADS of a tile, each one's OC
+// sums in channel order, from the staged tile and the channel records;
+// the logits go to shared memory and leave as 16-byte units.  vec: y and
+// out are 16-byte aligned.
+template <bool PRO, int OC>
+__global__ void __launch_bounds__(K12_THREADS, K12F_PER_SM) conv1x1_kernel(
     const bf16* __restrict__ y, const float* __restrict__ sc,
     const float* __restrict__ sh, const bf16* __restrict__ wo,
-    const float* __restrict__ bo, bf16* __restrict__ out, int64_t group_pixels,
-    int c, int oc) {
-  __shared__ float s_sc[CMAX], s_sh[CMAX], s_wo[CMAX * OCMAX], s_bo[OCMAX];
-  const Span sp = block_span(group_pixels);
-  const int g = sp.g;
-  if constexpr (PRO)
-    for (int i = threadIdx.x; i < c; i += PB) {
-      s_sc[i] = sc[g * c + i];
-      s_sh[i] = sh[g * c + i];
-    }
-  for (int i = threadIdx.x; i < c * oc; i += PB) s_wo[i] = bf2f(wo[(int64_t)g * c * oc + i]);
-  for (int i = threadIdx.x; i < oc; i += PB) s_bo[i] = bo[g * oc + i];
-  __syncthreads();
-  if ((int)threadIdx.x >= sp.count) return;
-  const int64_t pix = sp.pix0 + threadIdx.x;
-  float acc[OCMAX] = {};
-  for (int ch = 0; ch < c; ++ch) {
-    float z = bf2f(y[pix * c + ch]);
-    if constexpr (PRO) {
-      const float a = affine(z, s_sc[ch], s_sh[ch]);
-      z = bf2f(f2bf(a > 0.f ? a : 0.f));
-    }
-#pragma unroll
-    for (int k = 0; k < OCMAX; ++k)
-      if (k < oc) acc[k] = fmaf(z, s_wo[ch * oc + k], acc[k]);
+    const float* __restrict__ bo, bf16* __restrict__ out, int64_t pixels, int64_t gp,
+    int c, int bpg, int vec) {
+  extern __shared__ uint4 k12_smem[];
+  constexpr int RS = fwd_record<PRO, OC>(), W0 = PRO ? 2 : 0;
+  const int tid = threadIdx.x;
+  const int tp = fwd_tile(c, OC);
+  const int yu = units_of(tp, c), ou = units_of(tp, OC);
+  const int grp = blockIdx.x / bpg;
+  const int64_t ntiles = (gp + tp - 1) / tp;
+  const int64_t first = blockIdx.x - (int64_t)grp * bpg;
+  bf16* obuf = reinterpret_cast<bf16*>(k12_smem + 2 * yu);  // two tiles' logits
+  float* rec = reinterpret_cast<float*>(k12_smem + 2 * yu + 2 * ou);  // c records of RS
+  auto tile = [&](int64_t t, int64_t& p0) {
+    p0 = grp * gp + t * tp;
+    return (int)min((int64_t)tp, gp - t * tp);
+  };
+  auto stage = [&](int64_t t, int b) {
+    int64_t p0;
+    const int cnt = tile(t, p0);
+    stage_units(reinterpret_cast<bf16*>(k12_smem + b * yu), y, p0 * c, (p0 + cnt) * c,
+                pixels * c, vec, tid, K12_THREADS);
+    cp_async_commit();
+  };
+  auto store = [&](int64_t t, int b) {  // tile t's logits, from buffer b
+    int64_t p0;
+    const int cnt = tile(t, p0);
+    store_units(out, obuf + b * 8 * ou, p0 * OC, (p0 + cnt) * OC, vec, tid, K12_THREADS);
+  };
+  if (first < ntiles) stage(first, 0);
+
+  // the group's parameters, once a block
+  for (int i = tid; i < c * RS; i += K12_THREADS) {
+    const int ch = i / RS, r = i - ch * RS;
+    float v = 0.f;
+    if (PRO && r == 0)
+      v = sc[grp * c + ch];
+    else if (PRO && r == 1)
+      v = sh[grp * c + ch];
+    else if (r >= W0 && r < W0 + OC)
+      v = bf2f(wo[((int64_t)grp * c + ch) * OC + r - W0]);
+    rec[i] = v;
   }
+  float bias[OC];
 #pragma unroll
-  for (int k = 0; k < OCMAX; ++k)
-    if (k < oc) out[pix * oc + k] = f2bf(__fadd_rn(acc[k], s_bo[k]));
+  for (int k = 0; k < OC; ++k) bias[k] = bo[grp * OC + k];
+
+  // the tile and its logits in buffer b; a tile's logits leave in the next
+  // iteration, after its barrier: one barrier a tile
+  int b = 0;
+  int64_t t = first;
+  for (; t < ntiles; t += bpg, b ^= 1) {
+    cp_async_wait_all();
+    __syncthreads();  // tile t staged, the records, tile t - bpg's logits
+    if (t + bpg < ntiles) stage(t + bpg, b ^ 1);
+    if (t > first) store(t - bpg, b ^ 1);
+    int64_t p0;
+    const int cnt = tile(t, p0);
+    const bf16* ys = reinterpret_cast<const bf16*>(k12_smem + b * yu) + ((p0 * c) & 7);
+    bf16* os = obuf + b * 8 * ou + ((p0 * OC) & 7);
+    for (int p = tid; p < cnt; p += 2 * K12_THREADS) {
+      const bool two = p + K12_THREADS < cnt;
+      const bf16* ya = ys + p * c;
+      const bf16* yb = two ? ya + K12_THREADS * c : ya;
+      float acc[2][OC] = {};
+      for (int ch = 0; ch < c; ++ch) {
+        float r[RS];
+#pragma unroll
+        for (int j = 0; j < RS; j += 4) {
+          const float4 f = *reinterpret_cast<const float4*>(rec + ch * RS + j);
+          r[j] = f.x;
+          r[j + 1] = f.y;
+          r[j + 2] = f.z;
+          r[j + 3] = f.w;
+        }
+        float z[2] = {bf2f(ya[ch]), bf2f(yb[ch])};
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+          if constexpr (PRO) {
+            const float a = affine(z[u], r[0], r[1]);
+            z[u] = bf2f(f2bf(a > 0.f ? a : 0.f));
+          }
+#pragma unroll
+          for (int k = 0; k < OC; ++k) acc[u][k] = fmaf(z[u], r[W0 + k], acc[u][k]);
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < OC; ++k) {
+        os[p * OC + k] = f2bf(__fadd_rn(acc[0][k], bias[k]));
+        if (two) os[(p + K12_THREADS) * OC + k] = f2bf(__fadd_rn(acc[1][k], bias[k]));
+      }
+    }
+  }
+  __syncthreads();
+  if (t > first) store(t - bpg, b ^ 1);
 }
 
 // K11's backward.  block (32, 8): channel lane x pixel lane; grid groups *
@@ -481,15 +583,14 @@ unsigned reducing_blocks(int64_t n, int64_t hw, int64_t groups) {
   return (unsigned)(groups * ((n / groups * hw + PB - 1) / PB));
 }
 
-// the staged backward's blocks a group for k cotangent channels a pixel:
-// K12_BLOCKS over the groups, at least one, and at most one per
-// K12_MIN_TILES of the group's tiles (kernels/train_elem.py
-// prelu_bwd_blocks mirrors it)
-int64_t bwd_blocks(int64_t gp, int c, int k, int64_t groups) {
-  const int tp = bwd_tile(c, k);
+// blocks a group of a launch of persistent blocks over tiles of tp
+// pixels: blocks over the groups, at least one, and at most one per
+// K12_MIN_TILES of the group's tiles (the staged backward's are mirrored
+// by kernels/train_elem.py prelu_bwd_blocks)
+int64_t group_blocks(int64_t gp, int tp, int blocks, int64_t groups) {
   const int64_t tiles = (gp + tp - 1) / tp;
   const int64_t most = (tiles + K12_MIN_TILES - 1) / K12_MIN_TILES;
-  const int64_t per = K12_BLOCKS / groups > 0 ? K12_BLOCKS / groups : 1;
+  const int64_t per = blocks / groups > 0 ? blocks / groups : 1;
   return per < most ? per : most;
 }
 
@@ -509,7 +610,7 @@ int bwd_launch(const void* g, const void* y, const void* sc, const void* sh,
                const void* wo, void* dy, void* partial, void* partial2, int64_t n,
                int64_t hw, int c, int64_t groups, cudaStream_t stream) {
   const int64_t gp = n / groups * hw;
-  const int64_t bpg = bwd_blocks(gp, c, cot_channels<OC>(c), groups);
+  const int64_t bpg = group_blocks(gp, bwd_tile(c, cot_channels<OC>(c)), K12_BLOCKS, groups);
   affine_bwd_kernel<OC><<<(unsigned)(groups * bpg), K12_THREADS, bwd_smem<OC>(c), stream>>>(
       (const bf16*)g, (const bf16*)y, (const float*)sc, (const float*)sh, (const bf16*)wo,
       (bf16*)dy, (float*)partial, (float*)partial2, n * hw, gp, c, (int)bpg,
@@ -565,16 +666,39 @@ bool bad_1x1(int64_t n, int64_t hw, int64_t c, int64_t oc, int64_t groups) {
          groups <= 0 || n % groups;
 }
 
+template <bool PRO, int OC>
+int fwd_launch(const void* y, const void* sc, const void* sh, const void* wo, const void* bo,
+               void* out, int64_t n, int64_t hw, int c, int64_t groups, cudaStream_t stream) {
+  const int64_t gp = n / groups * hw;
+  const int tp = fwd_tile(c, OC);
+  const int64_t bpg = group_blocks(gp, tp, K12F_BLOCKS, groups);
+  const size_t smem = 16 * (size_t)(2 * units_of(tp, c) + 2 * units_of(tp, OC)) +
+                      4 * (size_t)c * fwd_record<PRO, OC>();
+  cudaFuncSetAttribute(conv1x1_kernel<PRO, OC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       (int)smem);
+  conv1x1_kernel<PRO, OC><<<(unsigned)(groups * bpg), K12_THREADS, smem, stream>>>(
+      (const bf16*)y, (const float*)sc, (const float*)sh, (const bf16*)wo, (const float*)bo,
+      (bf16*)out, n * hw, gp, c, (int)bpg, (int)aligned16(y, out, y));
+  return (int)cudaGetLastError();
+}
+
 template <bool PRO>
 int conv1x1_launch(const void* y, const void* sc, const void* sh, const void* wo,
                    const void* bo, void* out, int64_t n, int64_t hw, int64_t c,
                    int64_t oc, int64_t groups, void* stream) {
-  if (bad_1x1(n, hw, c, oc, groups)) return bad();
-  conv1x1_kernel<PRO><<<reducing_blocks(n, hw, groups), PB, 0,
-                       (cudaStream_t)stream>>>(
-      (const bf16*)y, (const float*)sc, (const float*)sh, (const bf16*)wo,
-      (const float*)bo, (bf16*)out, n / groups * hw, (int)c, (int)oc);
-  return (int)cudaGetLastError();
+  if (bad_1x1(n, hw, c, oc, groups) || groups > 0x7fffffff / K12F_BLOCKS) return bad();
+  const cudaStream_t st = (cudaStream_t)stream;
+  const int ci = (int)c;
+  switch (oc) {
+    case 1: return fwd_launch<PRO, 1>(y, sc, sh, wo, bo, out, n, hw, ci, groups, st);
+    case 2: return fwd_launch<PRO, 2>(y, sc, sh, wo, bo, out, n, hw, ci, groups, st);
+    case 3: return fwd_launch<PRO, 3>(y, sc, sh, wo, bo, out, n, hw, ci, groups, st);
+    case 4: return fwd_launch<PRO, 4>(y, sc, sh, wo, bo, out, n, hw, ci, groups, st);
+    case 5: return fwd_launch<PRO, 5>(y, sc, sh, wo, bo, out, n, hw, ci, groups, st);
+    case 6: return fwd_launch<PRO, 6>(y, sc, sh, wo, bo, out, n, hw, ci, groups, st);
+    case 7: return fwd_launch<PRO, 7>(y, sc, sh, wo, bo, out, n, hw, ci, groups, st);
+    default: return fwd_launch<PRO, 8>(y, sc, sh, wo, bo, out, n, hw, ci, groups, st);
+  }
 }
 
 }  // namespace

@@ -67,10 +67,6 @@ namespace {
 
 constexpr int TAPS = 5;
 
-__device__ __forceinline__ float lerp2(float a, float wa, float b, float wb) {
-  return __fadd_rn(__fmul_rn(a, wa), __fmul_rn(b, wb));
-}
-
 // acc = sum over the taps t inside the image of hw[t] * g(2R-2+t, col), in
 // tap order, f32: half row R's share of full column ``col`` (gi: the
 // image's first full row, off: the column's element offset in a row)
@@ -124,18 +120,6 @@ size_t bwd_smem(int te, int c) {
 // eight bf16 from shared memory at any 2-byte alignment
 __device__ __forceinline__ void load8(const bf16* p, float f[8]) {
   unpack8(((uintptr_t)p & 15) == 0 ? *reinterpret_cast<const uint4*>(p) : ld8(p, 8), f);
-}
-
-// elements [e, e + 8) of dst from v (rounded to bf16): one 16-byte store
-// where vec and the chunk lies whole and aligned before end, else element
-// by element up to end
-__device__ __forceinline__ void store8(bf16* dst, int64_t e, int64_t end, const float v[8],
-                                       int vec) {
-  if (vec && (e & 7) == 0 && e + 8 <= end) {
-    st8(dst + e, v);
-  } else {
-    for (int i = 0; i < 8 && e + i < end; ++i) dst[e + i] = f2bf(v[i]);
-  }
 }
 
 // block UP_THREADS: output rows [r0, r0 + UP_BAND) of image img, elements
@@ -298,13 +282,6 @@ __global__ void __launch_bounds__(UP_THREADS) up2_bwd_kernel(
       dx[row0 + (int64_t)R * halflen] = f2bf(v);
     }
   }
-}
-
-// te and the number of tiles of a row of len elements cut into tiles of
-// at most cap elements, as even as they go (te a multiple of 8)
-int cut_row(int len, int cap, int* tiles) {
-  *tiles = (len + cap - 1) / cap;
-  return ((len + *tiles - 1) / *tiles + 7) & ~7;
 }
 
 // the largest tile of at most cap elements (a multiple of 8) whose shared

@@ -9,8 +9,7 @@
 //   bf16(x[lo_j] * w0_j + x[lo_j + 1] * w1_j)
 // from per-column tables (lo, w0, w1) that the wrapper builds once: the
 // products of two bf16 values are exact in f32, so the f32 sum, rounded
-// once, is bitwise the TPU kernel's dot.  One grid-stride pass, each
-// thread one output element, consecutive threads on consecutive channels.
+// once, is bitwise the TPU kernel's dot.
 //
 // mimo_upsample_w2x_bwd replaces its VJP, ct_resize.py:254 _w2x_bwd_call
 // (pallas_call :269; _w2x_bwd_rule :366): the cotangent row contracted
@@ -22,31 +21,144 @@
 // One block per row (common.cuh row_grid), channel pairs where C is even.
 //
 // Both are bound on the H100 by device-memory bytes (read one side once,
-// write the other, twice its size or half).
+// write the other, twice its size or half).  The forward runs at that
+// rate only with many bytes in flight and few instructions an element:
+//   * a tile is at most one 16-byte output unit a thread of one output
+//     row, cut in elements (so any C fits: a 640-wide row of many
+//     channels does not fit shared memory whole);
+//   * blocks are persistent over the rows at their tile's columns (at
+//     most K4_BLOCKS a launch, each taking at least K4_MIN_STAGES
+//     stages).  A stage is up to K4_ROWS rows' input columns of the tile,
+//     with their one-column halo, at most K4_STAGE_BYTES, copied into
+//     shared memory as 16-byte units by cp.async, the next stage's while
+//     this one is computed;
+//   * a thread finds its unit's input offsets and weights once (one
+//     division), for every row, and keeps them in registers;
+//   * it builds a whole 16-byte output unit, 8 consecutive elements of the
+//     row, from shared memory (channel pairs where C is even: one 4-byte
+//     read a tap and pair), and stores it with one 16-byte store.
+// A unit that a tile edge or the row's end cuts, a row that does not
+// start on 16 bytes and an unaligned pointer take the element path, with
+// the same arithmetic.  The backward (K4b) keeps one block a row.
 #include "common.cuh"
+#include "ptx.cuh"
+#include "stage.cuh"
 
 namespace {
 
-__global__ void upsample_w2x_kernel(const bf16* __restrict__ x,
-                                    const int* __restrict__ lo,
-                                    const float* __restrict__ w0,
-                                    const float* __restrict__ w1,
-                                    bf16* __restrict__ out, int64_t n_out,
-                                    int64_t w2, int64_t c) {
-  const int64_t wo = 2 * w2;
-  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  for (int64_t e = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; e < n_out;
-       e += stride) {
-    const int64_t pix = e / c;
-    const int64_t ch = e - pix * c;
-    const int64_t row = pix / wo;
-    const int j = (int)(pix - row * wo);
-    const int64_t src = (row * w2 + lo[j]) * c + ch;
-    const float a = bf2f(x[src]);
-    const float b = bf2f(x[src + c]);
-    // explicit rounding: no contraction into an FMA, as the plain version
-    out[e] = f2bf(__fadd_rn(__fmul_rn(a, w0[j]), __fmul_rn(b, w1[j])));
+constexpr int K4_THREADS = 256;       // a tile: 8 * K4_THREADS output elements at most
+constexpr int K4_STAGE_BYTES = 8192;   // bytes of input a stage holds at most
+constexpr int K4_ROWS = 8;             // rows a stage at most
+constexpr int K4_PER_SM = 4;           // blocks an SM
+constexpr int K4_BLOCKS = K4_PER_SM * 132;  // blocks of a launch at most
+constexpr int K4_MIN_STAGES = 2;       // stages a block takes at least
+constexpr int SMEM_MAX = 232448;       // dynamic shared memory a block can have
+
+// 16-byte units of a staged input row: the input columns of te output
+// elements and their halo, from any element offset
+__host__ __device__ __forceinline__ int k4_in_units(int te, int c) {
+  return (te / 2 + 4 * c + 7) / 8 + 2;
+}
+
+// block K4_THREADS; blockIdx.x = tile * bpt + b: output-row elements
+// [e0, e0 + te) of the rows of stages b, b + bpt, ... (a stage: rb rows).
+// V = 2: C even, channel pairs.  vec: x and out are 16-byte aligned.
+template <int V>
+__global__ void __launch_bounds__(K4_THREADS, K4_PER_SM) upsample_w2x_kernel(
+    const bf16* __restrict__ x, const int* __restrict__ lo, const float* __restrict__ w0,
+    const float* __restrict__ w1, bf16* __restrict__ out, int64_t rows, int w2, int c,
+    int te, int rb, int bpt, int vec) {
+  extern __shared__ uint4 k4_smem[];
+  constexpr int NP = 8 / V;  // pairs (elements) of an output unit
+  const int tid = threadIdx.x;
+  const int inlen = w2 * c, rowlen = 2 * inlen;
+  const int tile = blockIdx.x / bpt, first = blockIdx.x - tile * bpt;
+  const int e0 = tile * te, e1 = min(e0 + te, rowlen);
+  const int i0 = lo[e0 / c] * c, i1 = (lo[(e1 - 1) / c] + 2) * c;  // input elements
+  const int iu = 8 * k4_in_units(te, c);
+  const int64_t nst = (rows + rb - 1) / rb;
+  bf16* buf = reinterpret_cast<bf16*>(k4_smem);  // two stages of rb rows of iu
+  auto stage = [&](int64_t s, int b) {
+    const int64_t r0 = s * rb;
+    const int nr = (int)min((int64_t)rb, rows - r0);
+    for (int j = 0; j < nr; ++j) {
+      const int64_t off = (r0 + j) * inlen;
+      stage_units(buf + (b * rb + j) * iu, x, off + i0, off + i1, rows * inlen, vec, tid,
+                  K4_THREADS);
+    }
+    cp_async_commit();
+  };
+  if (first < nst) stage(first, 0);
+
+  // this thread's unit: output-row elements e .. e + 7; each pair's
+  // (element's) input offset from i0 and its weights
+  const int e = e0 + 8 * tid;
+  int kk[NP];
+  float u0[NP], u1[NP];
+  {
+    int q = e / c, ch = e - q * c;
+#pragma unroll
+    for (int i = 0; i < NP; ++i) {
+      const bool in = e + V * i < e1;
+      kk[i] = in ? lo[q] * c + ch - i0 : 0;
+      u0[i] = in ? w0[q] : 0.f;
+      u1[i] = in ? w1[q] : 0.f;
+      ch += V;  // V = 2: C is even, so a pair never crosses a column
+      if (ch >= c) {
+        ch -= c;
+        ++q;
+      }
+    }
   }
+
+  int b = 0;
+  for (int64_t s = first; s < nst; s += bpt, b ^= 1) {
+    cp_async_wait_all();
+    __syncthreads();
+    if (s + bpt < nst) stage(s + bpt, b ^ 1);
+    const int64_t r0 = s * rb;
+    const int nr = (int)min((int64_t)rb, rows - r0);
+    if (e < e1)
+      for (int j = 0; j < nr; ++j) {
+        // row r0 + j's element i0 sits at its offset in a 16-byte unit
+        const int64_t xo = (r0 + j) * inlen + i0, oo = (r0 + j) * rowlen;
+        const bf16* rj = buf + (b * rb + j) * iu + (int)(xo & 7);
+        float v[8];
+#pragma unroll
+        for (int i = 0; i < NP; ++i) {
+          float a[V], bb[V];
+          load_bf16<V>(rj + kk[i], a);
+          load_bf16<V>(rj + kk[i] + c, bb);
+#pragma unroll
+          for (int m = 0; m < V; ++m) v[V * i + m] = lerp2(a[m], u0[i], bb[m], u1[i]);
+        }
+        store8(out, oo + e, oo + e1, v, vec);
+      }
+  }
+}
+
+template <int V>
+int k4_launch(const void* x, const void* lo, const void* w0, const void* w1, void* out,
+              int64_t rows, int w2, int c, cudaStream_t stream) {
+  int tiles;
+  const int te = cut_row(2 * w2 * c, 8 * K4_THREADS, &tiles);
+  const int row_bytes = 16 * k4_in_units(te, c);
+  int64_t rb = K4_STAGE_BYTES / row_bytes;  // rows a stage
+  rb = rb < 1 ? 1 : (rb > K4_ROWS ? K4_ROWS : rb);
+  if (rb > rows) rb = rows;
+  const size_t smem = 2 * (size_t)rb * row_bytes;  // two stages
+  const int64_t nst = (rows + rb - 1) / rb;
+  const int64_t most = (nst + K4_MIN_STAGES - 1) / K4_MIN_STAGES;
+  const int64_t per = K4_BLOCKS / tiles > 0 ? K4_BLOCKS / tiles : 1;
+  const int64_t bpt = per < most ? per : most;
+  if (smem > (size_t)SMEM_MAX || tiles * bpt > 0x7fffffff) return (int)cudaErrorInvalidValue;
+  cudaFuncSetAttribute(upsample_w2x_kernel<V>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       (int)smem);
+  upsample_w2x_kernel<V><<<(unsigned)(tiles * bpt), K4_THREADS, smem, stream>>>(
+      (const bf16*)x, (const int*)lo, (const float*)w0, (const float*)w1, (bf16*)out, rows,
+      w2, c, te, (int)rb, (int)bpt,
+      (int)((((uintptr_t)x | (uintptr_t)out) & 15) == 0));
+  return (int)cudaGetLastError();
 }
 
 constexpr int TAPS = 5;  // full columns that reach one half column
@@ -82,17 +194,16 @@ __global__ void upsample_w2x_bwd_kernel(const bf16* __restrict__ g,
 
 }  // namespace
 
+// x [rows, W2, C] -> out [rows, 2*W2, C]; lo, w0, w1 [2*W2] (kernels/upsample_w2x.py
+// _tables).  Refuses a row whose staged input columns do not fit a block.
 extern "C" int mimo_upsample_w2x(const void* x, const void* lo, const void* w0,
                                  const void* w1, void* out, int64_t rows,
                                  int64_t w2, int64_t c, void* stream) {
-  if (rows <= 0 || w2 < 2 || c <= 0) return (int)cudaErrorInvalidValue;
-  const int64_t n_out = rows * 2 * w2 * c;
-  const int threads = 256;
-  upsample_w2x_kernel<<<elementwise_blocks(n_out, threads), threads, 0,
-                        (cudaStream_t)stream>>>(
-      (const bf16*)x, (const int*)lo, (const float*)w0, (const float*)w1,
-      (bf16*)out, n_out, w2, c);
-  return (int)cudaGetLastError();
+  if (rows <= 0 || w2 < 2 || c <= 0 || 2 * w2 * c > 0x3fffffff)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (c % 2 == 0) return k4_launch<2>(x, lo, w0, w1, out, rows, (int)w2, (int)c, s);
+  return k4_launch<1>(x, lo, w0, w1, out, rows, (int)w2, (int)c, s);
 }
 
 // g [rows, 2*W2, C] -> dx [rows, W2, C]; ww [W2, 5]

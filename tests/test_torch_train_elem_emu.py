@@ -1,5 +1,6 @@
-"""K9 (``g_eff``), K8 (``affine_relu`` and its backward) and K12's
-backward (``conv1x1_prelu_bwd``) of ``mimo_unet_torch/csrc/train_elem.cu``,
+"""K9 (``g_eff``), K8 (``affine_relu`` and its backward), K12
+(``conv1x1_prelu`` and its backward) and K11's forward (``conv1x1``) of
+``mimo_unet_torch/csrc/train_elem.cu``,
 compiled with g++ against a CPU stand-in of the CUDA runtime
 (``tests/cuda_emu``: a host thread per CUDA thread, cp.async as a plain
 copy with its alignment and range checks), launched as their wrappers
@@ -7,13 +8,15 @@ launch them and held against their plain versions at small shapes: the
 16-byte chunks of K9 and K8's forward and their scalar path (a ragged
 total, groups whose size is not a multiple of 8, groups past the block's
 table, unaligned pointers), the staged tiles of K8's and K12's backward
-(partial last tiles, groups that start inside a 16-byte unit, several
-tiles and blocks a group, per-image groups).  What the card alone can
+and of the 1x1 forwards (partial last tiles, groups that start inside a
+16-byte unit, several tiles and blocks a group, per-image groups).  What the card alone can
 show (timing, asynchrony, the compiler) is ``chip_smoke.py``'s.
 
 Tolerances: K9 and K8's forward bitwise (one rounding of the same f32
-expression); K8's dy bitwise too (one rounding of da * scale).  K12's dy
-within one bf16 ulp of the larger magnitude (dz's f32 sum over the
+expression); K8's dy bitwise too (one rounding of da * scale).  The 1x1
+forwards' logits within one bf16 ulp of the larger magnitude (their f32
+sums run in channel order, the plain version's bmm in another), and
+bitwise launch to launch.  K12's dy within one bf16 ulp of the larger magnitude (dz's f32 sum over the
 out-conv channels runs in another order than the plain version's bmm, and
 may round to the neighbouring bf16).  The f32 sums of both backward
 kernels within 1e-5 of the largest value (they are summed in another
@@ -34,7 +37,8 @@ BF = torch.bfloat16
 def lib(tmp_path_factory):
     return emu_library(tmp_path_factory, "train_elem.cu",
                        ("mimo_g_eff", "mimo_affine_relu", "mimo_affine_relu_bwd",
-                        "mimo_conv1x1_prelu_bwd", "mimo_reduce_groups"))
+                        "mimo_conv1x1_prelu_bwd", "mimo_reduce_groups",
+                        "mimo_conv1x1_prelu", "mimo_conv1x1"))
 
 
 def _bf(gen, *shape, scale=1.0):
@@ -312,3 +316,80 @@ def test_affine_relu_bwd_entry_refuses_past_256_channels(lib):
     assert lib.mimo_affine_relu_bwd(y.data_ptr(), y.data_ptr(), p.data_ptr(), p.data_ptr(),
                                     y.data_ptr(), p.data_ptr(), p.data_ptr(),
                                     2, 4, 257, 1, None) != 0
+
+
+def _conv1x1(lib, y, sc, sh, wo, bo, out=None):
+    """K12's forward (sc and sh given) or K11's (both None) through the
+    emulation, as the wrappers launch them."""
+    n, h, w, c = y.shape
+    groups, oc = wo.shape[0], wo.shape[2]
+    out = torch.full((n, h, w, oc), float("nan"), dtype=BF) if out is None else out
+    wob = wo.to(BF).contiguous()
+    if sc is None:
+        rc = lib.mimo_conv1x1(y.data_ptr(), wob.data_ptr(), bo.data_ptr(), out.data_ptr(),
+                              n, h * w, c, oc, groups, None)
+    else:
+        rc = lib.mimo_conv1x1_prelu(y.data_ptr(), sc.data_ptr(), sh.data_ptr(),
+                                    wob.data_ptr(), bo.data_ptr(), out.data_ptr(),
+                                    n, h * w, c, oc, groups, None)
+    assert rc == 0, (rc, lib.emu_fault_text().decode())
+    return out
+
+
+def _conv1x1_case(gen, c, oc, groups, per, h, w, prologue):
+    _, y, sc, sh, wo = _prelu_case(gen, c, oc, groups, per, h, w)
+    bo = torch.randn((groups, oc), generator=gen) * 0.1
+    return (y, sc, sh, wo, bo) if prologue else (y, None, None, wo, bo)
+
+
+def _conv1x1_plain(y, sc, sh, wo, bo):
+    if sc is None:
+        return TE.conv1x1_plain(y, wo, bo)
+    return TE.conv1x1_prelu_plain(y, sc, sh, wo, bo)
+
+
+# (c, oc, groups, images per group, h, w): C = 1, 21 and the 128-channel
+# limit at OC = 1, 2 and 8; groups starting inside a 16-byte unit (C = 21:
+# 510 pixels a group); per-image groups (groups = N); several tiles and
+# blocks a group (C = 21: 512-pixel tiles, 3072 pixels a group, 2 blocks
+# of 3 tiles; C = 128: 88-pixel tiles, 5 a group, 2 blocks) and partial
+# last tiles
+CONV1X1_SHAPES = [(1, 1, 2, 1, 5, 7), (1, 8, 2, 2, 4, 4), (21, 2, 2, 2, 15, 17),
+                  (21, 1, 4, 1, 7, 9), (21, 8, 3, 1, 9, 11), (21, 2, 1, 1, 64, 48),
+                  (128, 2, 2, 1, 16, 25), (128, 8, 2, 1, 5, 6)]
+
+
+@pytest.mark.parametrize("prologue", [True, False], ids=["conv1x1_prelu", "conv1x1"])
+@pytest.mark.parametrize("shape", CONV1X1_SHAPES)
+def test_conv1x1_fwd_emulated(lib, shape, prologue):
+    c, oc, groups, per, h, w = shape
+    gen = torch.Generator().manual_seed(c * 100 + oc * 10 + groups + prologue)
+    args = _conv1x1_case(gen, c, oc, groups, per, h, w, prologue)
+    got = _conv1x1(lib, *args)
+    assert bool(torch.isfinite(got.float()).all()), "a logit was not written"
+    _ulp_close(got, _conv1x1_plain(*args))
+    assert _same_bits(got, _conv1x1(lib, *args))
+
+
+def test_conv1x1_fwd_emulated_unaligned(lib):
+    """Unaligned y and logits (every unit copied and stored element by
+    element), both entries, the same bits as from aligned tensors."""
+    gen = torch.Generator().manual_seed(14)
+    for prologue in (True, False):
+        y, sc, sh, wo, bo = _conv1x1_case(gen, 21, 2, 2, 1, 8, 9, prologue)
+        out = _shifted(torch.full((2, 8, 9, 2), float("nan"), dtype=BF))
+        got = _conv1x1(lib, _shifted(y), sc, sh, wo, bo, out)
+        assert _same_bits(got, _conv1x1(lib, y, sc, sh, wo, bo))
+        _ulp_close(got, _conv1x1_plain(y, sc, sh, wo, bo))
+
+
+def test_conv1x1_fwd_entries_refuse_past_their_limits(lib):
+    """More than 128 channels or 8 out-conv channels is refused by both
+    forward entries with an error, nothing launched."""
+    y = torch.zeros((2, 2, 2, 129), dtype=BF)
+    p = torch.zeros(4096)
+    for c, oc in ((129, 2), (21, 9)):
+        assert lib.mimo_conv1x1_prelu(y.data_ptr(), p.data_ptr(), p.data_ptr(), y.data_ptr(),
+                                      p.data_ptr(), y.data_ptr(), 2, 4, c, oc, 1, None) != 0
+        assert lib.mimo_conv1x1(y.data_ptr(), y.data_ptr(), p.data_ptr(), y.data_ptr(),
+                                2, 4, c, oc, 1, None) != 0
