@@ -53,7 +53,12 @@ Run from the root of the repository.  Phases, each raising on failure:
    launch, their times beside their times before their redesign
    (``OLD_ELEM_MS``) and the same function as eager bf16 calls
    (``bf16_seq_ms``, a yardstick), K12's backward split into its kernel and
-   its ``reduce_groups`` pass.
+   its ``reduce_groups`` pass.  Every time in phases 3, 5, 7, 10 and 13 is
+   device time (``device_ms``: the calls queued behind a device-side wait,
+   or, for a callable that makes the host wait, the profiler's sum of its
+   device operations, named on its line); each kernel's is also printed as
+   CUDA events around back-to-back calls (``events_ms``), which read the
+   host where a launch outlasts its kernel.
 6. Train: the NYUv2-depth task (S=2, fbc=21, bf16, Laplace NLL, lr 1e-3,
    loss buffer 10) at 640x480: ``init_state`` on the card, one step's loss
    and gradients against the plain model (ct_kernels="off", same weights:
@@ -72,8 +77,9 @@ Run from the root of the repository.  Phases, each raising on failure:
    (K8) and conv1x1_prelu (K12), forward and backward, with per-image
    parameters (groups = N) at their 640x480 B=4 and 256x256 B=64 sites;
    each against its plain version at phase 3's tolerance (K8 and K12's
-   backward as in phase 5), K8, K12 and K11's forward also bitwise launch
-   to launch beside their times before their redesign; library calls
+   backward as in phase 5), K8, K12 and K11 also bitwise launch to launch
+   beside their times before their redesign, K11's backward split into
+   its kernel and its ``reduce_groups`` pass; library calls
    ``torch.baddbmm`` and, for K11's backward, its autograd backward.
 8. MC serving: the flagship with the MC-dropout recipe (encoder, core and
    decoder Dropout2d at 0.1) in an ``Ensemble(monte_carlo_steps=4)``
@@ -112,15 +118,16 @@ Run from the root of the repository.  Phases, each raising on failure:
    and decoder widths (x2_half_h at even H), K8 at fbc 40's in_conv and
    down1 outputs and K13 at its 48x48 decoder input and at a 64-wide row
    of 80 channels, each against its plain version at phase 3's tolerance
-   (K8 and K13 as in phases 5 and 10), K5/K6/K7, K8, K12, K11's forward
-   and K13 also bitwise launch to launch;
+   (K8 and K13 as in phases 5 and 10), K5/K6/K7, K8, K12, K11 and K13
+   also bitwise launch to launch;
    then one B=3 48x48 step of the fbc-40 task on the kernel route (every
    train kernel and K10/K13 launched) with its loss and gradients against
    the plain and f32 models as in phase 9.
 13. The x2-half train decoder (``MIMO_CT_TRAIN_X2_HALF=1``): K4b
    (``upsample_w2x_bwd``) and K14 (``lerp_h2x_transpose``) at the up4
    sites of the 256x256 B=64 and 640x480 B=4 steps, bitwise against
-   their plain versions, beside their bounds and the autograd backward
+   their plain versions (K4b also launch to launch, beside its time before
+   its redesign), beside their bounds and the autograd backward
    of ``F.interpolate`` (bilinear, align_corners) on the channels-last
    tensor; K5 and K7 with ``x2_half_h`` at dec.c1 (640x480 B=4) against
    their plain versions (phase 3's tolerance) and bitwise against their
@@ -147,6 +154,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import json
 import os
 import subprocess
@@ -200,13 +208,14 @@ CUDA_CORE_MS = {
     ("conv3x3_dx", "down1.conv2"): 2.888, ("conv3x3_dx", "decoder conv2"): 3.076,
     ("conv3x3_dx_fold", "decoder conv1"): 8.488,
 }
-# K9, K12, K8, K13, K4 and K11's forward before their redesign for the
-# memory system (K9, K8, K4: one bf16 element a thread with 64-bit index
-# divisions; K12's and K8's backward: 256-pixel blocks of 32 x 8 lanes;
-# K12's and K11's forward: a thread a pixel reading 2-byte scalars, blocks
-# of 256 pixels; K13: a block an output row, a thread a channel pair), ms
-# at the phase-3, 5, 7, 10 and 13 sites by site label: PERF.md section 6
-# (K9's 256x256 B=64 sites from tools/train_elem_ab.py)
+# K9, K12, K8, K13, K4 and K11 before their redesign for the memory
+# system (K9, K8, K4: one bf16 element a thread with 64-bit index
+# divisions; K12's, K8's and K11's backward: 256-pixel blocks of 32 x 8
+# lanes; K12's and K11's forward: a thread a pixel reading 2-byte scalars,
+# blocks of 256 pixels; K13 and K4b: a block an output row, a thread a
+# channel pair), ms at the phase-3, 5, 7, 10 and 13 sites by site label:
+# PERF.md section 6 (K9's 256x256 B=64 sites from tools/train_elem_ab.py),
+# CUDA events around back-to-back calls
 OLD_ELEM_MS = {
     ("g_eff", "in_conv.conv1 3->21: y 21 ch"): 0.200,
     ("g_eff", "in_conv.conv2 21->21 +prologue: y 21 ch"): 0.199,
@@ -249,10 +258,14 @@ OLD_ELEM_MS = {
     ("conv1x1_prelu", "decoder up4 Dropout2d + out-conv, groups=128 @256"): 0.3016,
     ("conv1x1", "MC decoder 21->2, N=64 @256"): 0.140,
     ("conv1x1", "final-dropout decoder 21->2, N=8 @640x480"): 0.084,
+    ("conv1x1_bwd", "final-dropout decoder 21->2, N=8 @640x480"): 0.551,
+    ("upsample_w2x_bwd", "up4 W-half cotangent 256x256 B=64 [64,128,256,42]"): 0.1543,
+    ("upsample_w2x_bwd", "up4 W-half cotangent 480x640 B=4 [4,240,640,42]"): 0.0606,
 }
 # redesigned for the memory system: launch to launch bitwise
 REDESIGNED = ("g_eff", "conv1x1_prelu_bwd", "affine_relu", "affine_relu_bwd", "upsample2x",
-              "upsample2x_bwd", "upsample_w2x", "conv1x1_prelu", "conv1x1")
+              "upsample2x_bwd", "upsample_w2x", "conv1x1_prelu", "conv1x1", "conv1x1_bwd",
+              "upsample_w2x_bwd")
 # K8's backward: dy bitwise against the plain version, its sums (another
 # order) at phase 3's tolerance
 K8_BWD_EXACT = (True, False, False)
@@ -282,11 +295,35 @@ class Site:
     seq: object = None      # the same function as eager bf16 calls (yardstick)
     fdc: object = None      # K1/K2: the call's (x1, DoubleConv arguments, options)
     seq_label: str = "cudnn_seq_ms"
-    parts: object = None    # {part: call} timed one by one (K12's backward)
+    parts: object = None    # {part: call} timed one by one (K12's and K11's backward)
 
 
-def cuda_ms(fn, iters):
-    """Mean device time of ``fn()`` over ``iters`` runs after one warm-up."""
+@functools.lru_cache(maxsize=1)
+def _cycles_per_ms():
+    """The rate at which ``torch.cuda._sleep`` spins the device, measured
+    once."""
+    import torch
+
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(1000)
+    start.record()
+    torch.cuda._sleep(20_000_000)
+    end.record()
+    torch.cuda.synchronize()
+    return 20_000_000 / start.elapsed_time(end)
+
+
+def _spin(ms):
+    """Queue a device-side wait of ``ms`` on the current stream."""
+    import torch
+
+    torch.cuda._sleep(int(ms * _cycles_per_ms()))
+
+
+def events_ms(fn, iters):
+    """Mean time of ``fn()`` between CUDA events around ``iters``
+    back-to-back calls after one warm-up: where the host takes longer to
+    launch a call than the device to run it, the host's rate."""
     import torch
 
     fn()
@@ -298,6 +335,68 @@ def cuda_ms(fn, iters):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, iters):
+    """Mean device time of ``fn()`` over ``iters`` calls after one warm-up,
+    and how it was taken.
+
+    One call is first made behind a device-side wait of 10 ms
+    (``torch.cuda._sleep``): if the wait has ended when the call returns,
+    the call made the host wait for the device (a copy from host memory, a
+    synchronising call).  Otherwise the ``iters`` calls are queued behind a
+    wait of three times the host's time to enqueue them (at least 1 ms),
+    between CUDA events, and the start event must still be pending when
+    the host has enqueued them all (else the wait is taken 8 times longer,
+    once): then the events time the device alone, "queued".  A callable
+    that synchronises or fills the launch queue is timed by
+    ``torch.profiler`` instead, as the sum of its calls' device operations,
+    "profiler (synchronises)": never the host's time."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    probe = torch.cuda.Event()
+    _spin(10.0)
+    probe.record()
+    t0 = time.perf_counter()
+    fn()
+    host = (time.perf_counter() - t0) * 1e3
+    waited = probe.query()
+    torch.cuda.synchronize()
+    wait = max(1.0, 3 * host * iters)
+    for _ in range(0 if waited else 2):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        _spin(wait)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        late = start.query()
+        torch.cuda.synchronize()
+        if not late:
+            return start.elapsed_time(end) / iters, "queued"
+        wait *= 8
+    return busy_ms(lambda: [fn() for _ in range(iters)]) / iters, "profiler (synchronises)"
+
+
+def busy_ms(run):
+    """Device time of ``run()``: the sum of its device operations' times in
+    one ``torch.profiler`` trace (the device's busy time, gaps left out)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    return sum(ev.time_range.elapsed_us() for ev in prof.events()
+               if ev.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+
+
+def cuda_ms(fn, iters):
+    """Mean device time of ``fn()`` over ``iters`` calls (``device_ms``)."""
+    return device_ms(fn, iters)[0]
 
 
 def compare(name, got, want, exact):
@@ -646,9 +745,29 @@ def prelu_bwd_parts(gl, y, scale, shift, wo):
     return {"kernel": kernel, "reduce_groups": lambda: TE.reduce_groups(part, groups)}
 
 
+def conv1x1_bwd_parts(g, z, wo):
+    """K11's backward as its two launches, each callable alone: the kernel
+    (dz and the partial rows) and the reduce_groups pass over them."""
+    import torch
+    from mimo_unet_torch.kernels import _build
+    from mimo_unet_torch.kernels import train_elem as TE
+
+    n, h, w, c = z.shape
+    groups, oc = wo.shape[0], wo.shape[2]
+    wob = wo.to(torch.bfloat16).contiguous()
+    dz = torch.empty_like(z)
+    part = torch.empty((TE.conv1x1_bwd_blocks(n, h * w, c, oc, groups), c * oc + oc),
+                       device=z.device)
+
+    def kernel():
+        _build.launch("mimo_conv1x1_bwd", z.device, g.data_ptr(), z.data_ptr(),
+                      wob.data_ptr(), dz.data_ptr(), part.data_ptr(), n, h * w, c, oc, groups)
+    return {"kernel": kernel, "reduce_groups": lambda: TE.reduce_groups(part, groups)}
+
+
 def _redesigned(sites):
-    """K9, K12, K8, K13, K4 and K11's forward: launch to launch bitwise,
-    with their time before the redesign."""
+    """K9, K12, K8, K13, K4, K11 and K4b: launch to launch bitwise, with
+    their time before the redesign."""
     for st in sites:
         if st.name in REDESIGNED:
             st.repeat = True
@@ -904,7 +1023,7 @@ def dropout_kernel_sites(dev, gen):
                       lambda: K.conv1x1_bwd(gt, zt, wo),
                       lambda: K.conv1x1_bwd_plain(gt, zt, wo),
                       False, px * (4.0 * F * 2 + 2), 2 * elem + logits,
-                      baddbmm_backward(gt, zt, wo, bo)))
+                      baddbmm_backward(gt, zt, wo, bo), parts=conv1x1_bwd_parts(gt, zt, wo)))
 
     def per_image_affine(n, b):
         """The per-group BN affine times each image's Dropout2d scale (0 or
@@ -1178,10 +1297,20 @@ def tail_sites(dev, gen):
     return sites
 
 
+def _timed(fn, iters):
+    """``device_ms`` of ``fn`` as (ms, text): the text names the method
+    where the calls were not timed queued behind a device-side wait."""
+    ms, how = device_ms(fn, iters)
+    return ms, f"{ms:.4f} ms" + ("" if how == "queued" else f" [{how}]")
+
+
 def check_kernels(sites, card):
     """Every site's kernel against its plain version; returns per-kernel
     {max_abs_err, ms, plain_ms, bound_ms, bound_by, library_ms}, the
-    times summed over the call sites."""
+    times summed over the call sites.  Every time is device time
+    (``device_ms``); the kernel's is also printed as CUDA events around
+    back-to-back calls (``events_ms``), the method before, which reads the
+    host where a call's launch outlasts its kernel."""
     import torch
 
     stats = {}
@@ -1193,9 +1322,10 @@ def check_kernels(sites, card):
             compare(f"{st.name} [{st.site}] launch to launch", st.kern(), got, True)
         del got
         iters = 20 if st.exact else 5
-        ms, plain_ms = cuda_ms(st.kern, iters), cuda_ms(st.plain, iters)
-        lib_ms = cuda_ms(st.library, iters) if st.library is not None else None
-        seq_ms = cuda_ms(st.seq, iters) if st.seq is not None else None
+        (ms, ms_t), (plain_ms, plain_t) = _timed(st.kern, iters), _timed(st.plain, iters)
+        ev_ms = events_ms(st.kern, iters)
+        lib_ms, lib_t = _timed(st.library, iters) if st.library is not None else (None, "")
+        seq_ms, seq_t = _timed(st.seq, iters) if st.seq is not None else (None, "")
         t_ops, t_bytes = st.flops / PEAK_FLOPS * 1e3, st.nbytes / PEAK_BYTES * 1e3
         bound = max(t_ops, t_bytes)
         rec = stats.setdefault(st.name, {
@@ -1209,16 +1339,16 @@ def check_kernels(sites, card):
         rec["_bytes_ms"] += t_bytes
         if lib_ms is not None:
             rec["library_ms"] = (rec["library_ms"] or 0.0) + lib_ms
-        lib = f", library {lib_ms:.4f} ms" if lib_ms is not None else ""
+        lib = f", library {lib_t}" if lib_ms is not None else ""
         old = f" (before its redesign {st.before} ms, PERF.md)" if st.before else ""
         rpt = ", launch to launch bitwise" if st.repeat else ""
-        seq = f", {st.seq_label} {seq_ms:.4f}" if seq_ms is not None else ""
+        seq = f", {st.seq_label} {seq_t}" if seq_ms is not None else ""
         if st.parts is not None:
-            old += " (" + " + ".join(f"{k} {cuda_ms(fn, iters):.4f} ms"
+            old += " (" + " + ".join(f"{k} {_timed(fn, iters)[1]}"
                                      for k, fn in st.parts.items()) + ")"
         print(f"kernel {st.name} [{st.site}]: max_abs_err {err} "
-              f"({_mode(st.exact)}{rpt}), {ms:.4f} ms{old} vs "
-              f"plain {plain_ms:.4f} ms{lib}{seq}, bound {bound:.4f} ms "
+              f"({_mode(st.exact)}{rpt}), device {ms_t}{old}, events {ev_ms:.4f} ms vs "
+              f"plain {plain_t}{lib}{seq}, bound {bound:.4f} ms "
               f"({'bytes' if t_bytes >= t_ops else 'operations'}) ({card})",
               flush=True)
     for rec in stats.values():
@@ -2261,8 +2391,8 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ---- 13. the x2-half train decoder ---------------------------------------
-    stats.update(check_kernels(
-        x2_half_sites(dev, torch.Generator(device=dev).manual_seed(5)), card))
+    stats.update(check_kernels(_redesigned(
+        x2_half_sites(dev, torch.Generator(device=dev).manual_seed(5))), card))
     torch.cuda.empty_cache()
     half_sites, same = x2_half_conv_sites(dev, torch.Generator(device=dev).manual_seed(6))
     check_kernels(_redesigned(half_sites), card)  # times: printed, not summed

@@ -19,8 +19,8 @@
 //     DoubleConv and its out-conv), and mimo_conv1x1_bwd: dz = wo_g . g,
 //     with per-block partials of dwo and dbo.  Replaces ct_elem.py:437
 //     conv1x1_ct (_elem_call :71) and :464 _conv1x1_bwd (pallas_call
-//     :494).  The forward is conv1x1_prelu's kernel without the prologue
-//     (the template flag PRO).
+//     :494).  Both are conv1x1_prelu's kernels without the prologue (the
+//     template flag PRO).
 //   * mimo_reduce_groups: the second pass of every per-block reduction of
 //     the train kernels (these and conv3x3_train.cu): out[g] = sum of the
 //     group's partials, in a fixed order.
@@ -44,19 +44,22 @@
 // and a group past the table take a scalar path in the same kernel, with
 // the same arithmetic.
 //
-// The backward of the BatchNorm affine and ReLU, affine_bwd_kernel<OC>,
-// serves K12 (OC > 0: the cotangent is the logits', and dz = wo . g is
-// the 1x1 out-conv's transpose) and K8 (OC = 0: dz is read).  It reads y
-// and the cotangent and writes dy, and reduces its sums per group.  Blocks
-// are persistent within a group (at most K12_BLOCKS a launch, each taking
-// at least K12_MIN_TILES tiles), so a launch writes a few hundred partial
-// rows.  A tile is K12_TILE_BYTES of y and cotangent, cut in bytes
-// whatever C.  Both are copied into shared memory as 16-byte units by
-// cp.async (the next tile's while this one is computed) and read there by
-// threads laid out as (pixel slice, channel) pairs over all 256 threads;
-// dy is written back in place and stored as 16-byte units.  Each thread
-// keeps its channel's sums in registers over all its block's tiles; the
-// slices combine once at the end, in a fixed order.
+// The backward of the BatchNorm affine and ReLU, affine_bwd_kernel<PRO,
+// OC>, serves K12 (PRO, OC > 0: the cotangent is the logits', and dz =
+// wo . g is the 1x1 out-conv's transpose) and K8 (PRO, OC = 0: dz is
+// read); without the prologue (PRO false) it is K11's backward, dz = wo .
+// g itself, with no affine, ReLU mask, dscale or dshift.  It reads y (z
+// for K11) and the cotangent and writes dy (dz), and reduces its sums per
+// group.  Blocks are persistent within a group (at most K12_BLOCKS a
+// launch, each taking at least K12_MIN_TILES tiles), so a launch writes a
+// few hundred partial rows.  A tile is K12_TILE_BYTES of y and
+// cotangent, cut in bytes whatever C.  Both are copied into shared memory
+// as 16-byte units by cp.async (the next tile's while this one is
+// computed) and read there by threads laid out as (pixel slice, channel)
+// pairs over all 256 threads; dy is written back in place and stored as
+// 16-byte units.  Each thread keeps its channel's sums in registers over
+// all its block's tiles; the slices combine once at the end, in a fixed
+// order.
 //
 // The 1x1 out-conv forward, conv1x1_kernel<PRO, OC>, serves K12 (PRO: the
 // BatchNorm affine and ReLU first) and K11's forward.  It reads y (C
@@ -72,17 +75,12 @@
 // one-pixel-a-thread kernel it replaced: the same bits); the logits are
 // written to shared memory and stored as 16-byte units after the next
 // tile's barrier (one barrier a tile).
-//
-// K11's backward gives each block 256 pixels of one group and a 32 x 8
-// thread layout, channel x pixel lane; the eight lanes combine in shared
-// memory in a fixed order and the block writes one partial per channel.
 #include "common.cuh"
 #include "ptx.cuh"
 #include "stage.cuh"
 
 namespace {
 
-constexpr int PB = 256;   // pixels per block of K11's backward
 constexpr int CMAX = 128;  // channels the 1x1 convs take (their shared tables)
 constexpr int OCMAX = 8;  // out-conv channels
 
@@ -215,33 +213,6 @@ __global__ void __launch_bounds__(GE_THREADS) chunk_kernel(
   }
 }
 
-// A reducing block's pixels: group g's block b of ceil(group_pixels / PB),
-// pixels [pix0, pix0 + count) of the flattened [n*hw] index.
-struct Span {
-  int g;
-  int64_t pix0;
-  int count;
-};
-
-__device__ __forceinline__ Span block_span(int64_t group_pixels) {
-  const int64_t per = (group_pixels + PB - 1) / PB;
-  const int g = (int)(blockIdx.x / per);
-  const int64_t local = (blockIdx.x - g * per) * PB;
-  return {g, g * group_pixels + local, (int)min((int64_t)PB, group_pixels - local)};
-}
-
-// sum v over the eight pixel lanes (threadIdx.y) in a fixed order; lane 0
-// receives it.  red: 8 x 32 floats.
-__device__ __forceinline__ float lane_sum(float* red, float v) {
-  red[threadIdx.y * 32 + threadIdx.x] = v;
-  __syncthreads();
-  float s = 0.f;
-  if (threadIdx.y == 0)
-    for (int r = 0; r < 8; ++r) s += red[r * 32 + threadIdx.x];
-  __syncthreads();
-  return s;
-}
-
 // pixels of a forward tile: K12F_TILE_BYTES of y (c channels) and logits
 // (oc), a multiple of the block's threads where that many fit, else of 8
 __host__ __device__ __forceinline__ int fwd_tile(int c, int oc) {
@@ -363,53 +334,8 @@ __global__ void __launch_bounds__(K12_THREADS, K12F_PER_SM) conv1x1_kernel(
   if (t > first) store(t - bpg, b ^ 1);
 }
 
-// K11's backward.  block (32, 8): channel lane x pixel lane; grid groups *
-// ceil(group pixels / PB).  Partial row of a block: [dwo (c*oc), dbo (oc)].
-__global__ void __launch_bounds__(256) conv1x1_bwd_kernel(
-    const bf16* __restrict__ gout, const bf16* __restrict__ z,
-    const bf16* __restrict__ wo, bf16* __restrict__ dz,
-    float* __restrict__ partial, int64_t group_pixels, int c, int oc) {
-  __shared__ float red[8 * 32];
-  const Span sp = block_span(group_pixels);
-  const int g = sp.g;
-  float* prow = partial + blockIdx.x * (int64_t)(c * oc + oc);
-  for (int c0 = 0; c0 < c; c0 += 32) {
-    const int ch = c0 + threadIdx.x;
-    const bool live = ch < c;
-    float w[OCMAX] = {}, dwo[OCMAX] = {}, dbo[OCMAX] = {};
-    if (live)
-      for (int k = 0; k < oc; ++k) w[k] = bf2f(wo[((int64_t)g * c + ch) * oc + k]);
-    for (int pp = threadIdx.y; pp < sp.count; pp += 8) {
-      const int64_t pix = sp.pix0 + pp;
-      float gk[OCMAX];
-#pragma unroll
-      for (int k = 0; k < OCMAX; ++k) gk[k] = k < oc ? bf2f(gout[pix * oc + k]) : 0.f;
-      if (c0 == 0 && threadIdx.x == 0)
-#pragma unroll
-        for (int k = 0; k < OCMAX; ++k) dbo[k] += gk[k];
-      if (!live) continue;
-      const float zv = bf2f(z[pix * c + ch]);
-      float d = 0.f;
-#pragma unroll
-      for (int k = 0; k < OCMAX; ++k) {
-        d = fmaf(w[k], gk[k], d);
-        dwo[k] = fmaf(zv, gk[k], dwo[k]);
-      }
-      dz[pix * c + ch] = f2bf(d);
-    }
-    for (int k = 0; k < oc; ++k) {
-      const float v = lane_sum(red, dwo[k]);
-      if (threadIdx.y == 0 && live) prow[ch * oc + k] = v;
-    }
-    if (c0 == 0)
-      for (int k = 0; k < oc; ++k) {
-        const float v = lane_sum(red, dbo[k]);
-        if (threadIdx.y == 0 && threadIdx.x == 0) prow[c * oc + k] = v;
-      }
-  }
-}
-
-// ---- the affine + ReLU backward (K8, K12): persistent blocks over staged tiles
+// ---- the affine + ReLU backward (K8, K12) and K11's backward: persistent
+// blocks over staged tiles
 
 // channels of the cotangent a pixel: the logits' OC (K12), or dz's c (K8)
 template <int OC>
@@ -424,13 +350,22 @@ __host__ __device__ __forceinline__ int bwd_tile(int c, int k) {
   return t < 8 ? 8 : t;
 }
 
+// entries of a block's partial row: [dwo (c*OC), dbo (OC)], then with the
+// prologue [dscale (c), dshift (c)] (at OC = 0, K8, dscale and dshift
+// alone, each in its own partial array)
+template <bool PRO, int OC>
+__host__ __device__ __forceinline__ int bwd_row(int c) {
+  return c * OC + OC + (PRO ? 2 * c : 0);
+}
+
 // block K12_THREADS; grid groups * bpg, block b of group b / bpg taking
-// the group's tiles b % bpg, + bpg, ...  Partial row of a block, in
-// partial: [dwo (c*OC), dbo (OC), dscale (c), dshift (c)] (K12); at OC = 0
-// (K8) dscale in partial and dshift in partial2, c each.  gout: the
-// logits' cotangent (K12) or dz (K8).  vec: gout, y and dy are 16-byte
-// aligned.
-template <int OC>
+// the group's tiles b % bpg, + bpg, ...  Partial row of a block
+// (bwd_row), in partial; at OC = 0 (K8) dscale in partial and dshift in
+// partial2, c each.  gout: the logits' cotangent (K12, K11) or dz (K8).
+// PRO false (K11): y is z, dy is dz = sum over j of wo[c, j] * g[j], an
+// FMA chain in j order from +0, rounded once; sc and sh are not read.
+// vec: gout, y and dy are 16-byte aligned.
+template <bool PRO, int OC>
 __global__ void __launch_bounds__(K12_THREADS, K12_PER_SM) affine_bwd_kernel(
     const bf16* __restrict__ gout, const bf16* __restrict__ y,
     const float* __restrict__ sc, const float* __restrict__ sh,
@@ -457,7 +392,7 @@ __global__ void __launch_bounds__(K12_THREADS, K12_PER_SM) affine_bwd_kernel(
     w[j] = live && OC > 0 ? bf2f(wo[((int64_t)grp * c + ch) * OC + j]) : 0.f;
     dwo[j] = dbo[j] = 0.f;
   }
-  if (live) {
+  if (PRO && live) {
     scv = sc[grp * c + ch];
     shv = sh[grp * c + ch];
   }
@@ -492,7 +427,7 @@ __global__ void __launch_bounds__(K12_THREADS, K12_PER_SM) affine_bwd_kernel(
       for (int p = sl; p < cnt; p += ns) {
         bf16* yp = ys + p * c + ch;
         const float yv = bf2f(*yp);
-        const float a = affine(yv, scv, shv);
+        const float a = PRO ? affine(yv, scv, shv) : 0.f;
         float dz = 0.f;
         if constexpr (OC == 0) {
           dz = bf2f(gs[p * c + ch]);
@@ -505,7 +440,7 @@ __global__ void __launch_bounds__(K12_THREADS, K12_PER_SM) affine_bwd_kernel(
 #pragma unroll
             for (int j = 0; j < OC; ++j) gk[j] = bf2f(gs[p * OC + j]);
           }
-          const float z = bf2f(f2bf(a > 0.f ? a : 0.f));
+          const float z = PRO ? bf2f(f2bf(a > 0.f ? a : 0.f)) : yv;
 #pragma unroll
           for (int j = 0; j < OC; ++j) {
             dz = fmaf(w[j], gk[j], dz);
@@ -515,10 +450,14 @@ __global__ void __launch_bounds__(K12_THREADS, K12_PER_SM) affine_bwd_kernel(
 #pragma unroll
             for (int j = 0; j < OC; ++j) dbo[j] += gk[j];
         }
-        const float da = a > 0.f ? dz : 0.f;
-        *yp = f2bf(__fmul_rn(da, scv));  // dy in place of y
-        s = fmaf(da, yv, s);
-        q += da;
+        if constexpr (PRO) {
+          const float da = a > 0.f ? dz : 0.f;
+          *yp = f2bf(__fmul_rn(da, scv));  // dy in place of y
+          s = fmaf(da, yv, s);
+          q += da;
+        } else {
+          *yp = f2bf(dz);  // dz in place of z
+        }
       }
     __syncthreads();
     store_units(dy, ybuf(b), p0 * c, (p0 + cnt) * c, vec, tid, K12_THREADS);
@@ -528,7 +467,7 @@ __global__ void __launch_bounds__(K12_THREADS, K12_PER_SM) affine_bwd_kernel(
   // each output's ns slice sums in order
   float* red = reinterpret_cast<float*>(k12_smem);
   const int co = c * OC + OC;  // dwo and dbo's entries
-  const int L = co + 2 * c;
+  const int L = bwd_row<PRO, OC>(c);
   if (live) {
     if constexpr (OC > 0) {
 #pragma unroll
@@ -537,8 +476,10 @@ __global__ void __launch_bounds__(K12_THREADS, K12_PER_SM) affine_bwd_kernel(
 #pragma unroll
         for (int j = 0; j < OC; ++j) red[(c * OC + j) * ns + sl] = dbo[j];
     }
-    red[(co + ch) * ns + sl] = s;
-    red[(co + c + ch) * ns + sl] = q;
+    if constexpr (PRO) {
+      red[(co + ch) * ns + sl] = s;
+      red[(co + c + ch) * ns + sl] = q;
+    }
   }
   __syncthreads();
   for (int l = tid; l < L; l += K12_THREADS) {
@@ -578,11 +519,6 @@ bool aligned16(const void* a, const void* b, const void* c) {
   return (((uintptr_t)a | (uintptr_t)b | (uintptr_t)c) & 15) == 0;
 }
 
-// blocks of a reducing pass: ceil(group pixels / PB) per group
-unsigned reducing_blocks(int64_t n, int64_t hw, int64_t groups) {
-  return (unsigned)(groups * ((n / groups * hw + PB - 1) / PB));
-}
-
 // blocks a group of a launch of persistent blocks over tiles of tp
 // pixels: blocks over the groups, at least one, and at most one per
 // K12_MIN_TILES of the group's tiles (the staged backward's are mirrored
@@ -596,22 +532,23 @@ int64_t group_blocks(int64_t gp, int tp, int blocks, int64_t groups) {
 
 // shared memory of the staged backward: two tiles' buffers, or the
 // slices' sums
-template <int OC>
+template <bool PRO, int OC>
 size_t bwd_smem(int c) {
   const int k = cot_channels<OC>(c);
   const int tp = bwd_tile(c, k);
   const size_t tiles = 2 * 16 * (size_t)(units_of(tp, c) + units_of(tp, k));
-  const size_t sums = 4 * (size_t)(c * OC + OC + 2 * c) * (K12_THREADS / c);
+  const size_t sums = 4 * (size_t)bwd_row<PRO, OC>(c) * (K12_THREADS / c);
   return tiles > sums ? tiles : sums;
 }
 
-template <int OC>
+template <bool PRO, int OC>
 int bwd_launch(const void* g, const void* y, const void* sc, const void* sh,
                const void* wo, void* dy, void* partial, void* partial2, int64_t n,
                int64_t hw, int c, int64_t groups, cudaStream_t stream) {
   const int64_t gp = n / groups * hw;
   const int64_t bpg = group_blocks(gp, bwd_tile(c, cot_channels<OC>(c)), K12_BLOCKS, groups);
-  affine_bwd_kernel<OC><<<(unsigned)(groups * bpg), K12_THREADS, bwd_smem<OC>(c), stream>>>(
+  affine_bwd_kernel<PRO, OC><<<(unsigned)(groups * bpg), K12_THREADS, bwd_smem<PRO, OC>(c),
+                               stream>>>(
       (const bf16*)g, (const bf16*)y, (const float*)sc, (const float*)sh, (const bf16*)wo,
       (bf16*)dy, (float*)partial, (float*)partial2, n * hw, gp, c, (int)bpg,
       (int)aligned16(g, y, dy));
@@ -655,8 +592,8 @@ extern "C" int mimo_affine_relu_bwd(const void* dz, const void* y, const void* s
   if (n <= 0 || hw <= 0 || c <= 0 || c > K12_THREADS || groups <= 0 || n % groups ||
       groups > 0x7fffffff / K12_BLOCKS)
     return bad();
-  return bwd_launch<0>(dz, y, sc, sh, nullptr, dy, pdsc, pdsh, n, hw, (int)c, groups,
-                       (cudaStream_t)stream);
+  return bwd_launch<true, 0>(dz, y, sc, sh, nullptr, dy, pdsc, pdsh, n, hw, (int)c, groups,
+                             (cudaStream_t)stream);
 }
 
 namespace {
@@ -701,6 +638,26 @@ int conv1x1_launch(const void* y, const void* sc, const void* sh, const void* wo
   }
 }
 
+// the 1x1 backward, K12's (PRO) or K11's, at oc out-conv channels
+template <bool PRO>
+int conv1x1_bwd_launch(const void* g, const void* y, const void* sc, const void* sh,
+                       const void* wo, void* dy, void* partial, int64_t n, int64_t hw,
+                       int64_t c, int64_t oc, int64_t groups, void* stream) {
+  if (bad_1x1(n, hw, c, oc, groups) || groups > 0x7fffffff / K12_BLOCKS) return bad();
+  const cudaStream_t st = (cudaStream_t)stream;
+  const int ci = (int)c;
+  switch (oc) {
+    case 1: return bwd_launch<PRO, 1>(g, y, sc, sh, wo, dy, partial, nullptr, n, hw, ci, groups, st);
+    case 2: return bwd_launch<PRO, 2>(g, y, sc, sh, wo, dy, partial, nullptr, n, hw, ci, groups, st);
+    case 3: return bwd_launch<PRO, 3>(g, y, sc, sh, wo, dy, partial, nullptr, n, hw, ci, groups, st);
+    case 4: return bwd_launch<PRO, 4>(g, y, sc, sh, wo, dy, partial, nullptr, n, hw, ci, groups, st);
+    case 5: return bwd_launch<PRO, 5>(g, y, sc, sh, wo, dy, partial, nullptr, n, hw, ci, groups, st);
+    case 6: return bwd_launch<PRO, 6>(g, y, sc, sh, wo, dy, partial, nullptr, n, hw, ci, groups, st);
+    case 7: return bwd_launch<PRO, 7>(g, y, sc, sh, wo, dy, partial, nullptr, n, hw, ci, groups, st);
+    default: return bwd_launch<PRO, 8>(g, y, sc, sh, wo, dy, partial, nullptr, n, hw, ci, groups, st);
+  }
+}
+
 }  // namespace
 
 extern "C" int mimo_conv1x1_prelu(const void* y, const void* sc, const void* sh,
@@ -711,23 +668,14 @@ extern "C" int mimo_conv1x1_prelu(const void* y, const void* sc, const void* sh,
                               stream);
 }
 
+// partial: one row of bwd_row<true, OC> a block (kernels/train_elem.py
+// prelu_bwd_blocks)
 extern "C" int mimo_conv1x1_prelu_bwd(const void* g, const void* y,
                                       const void* sc, const void* sh,
                                       const void* wo, void* dy, void* partial,
                                       int64_t n, int64_t hw, int64_t c,
                                       int64_t oc, int64_t groups, void* stream) {
-  if (bad_1x1(n, hw, c, oc, groups) || groups > 0x7fffffff / K12_BLOCKS) return bad();
-  const cudaStream_t st = (cudaStream_t)stream;
-  switch (oc) {
-    case 1: return bwd_launch<1>(g, y, sc, sh, wo, dy, partial, nullptr, n, hw, (int)c, groups, st);
-    case 2: return bwd_launch<2>(g, y, sc, sh, wo, dy, partial, nullptr, n, hw, (int)c, groups, st);
-    case 3: return bwd_launch<3>(g, y, sc, sh, wo, dy, partial, nullptr, n, hw, (int)c, groups, st);
-    case 4: return bwd_launch<4>(g, y, sc, sh, wo, dy, partial, nullptr, n, hw, (int)c, groups, st);
-    case 5: return bwd_launch<5>(g, y, sc, sh, wo, dy, partial, nullptr, n, hw, (int)c, groups, st);
-    case 6: return bwd_launch<6>(g, y, sc, sh, wo, dy, partial, nullptr, n, hw, (int)c, groups, st);
-    case 7: return bwd_launch<7>(g, y, sc, sh, wo, dy, partial, nullptr, n, hw, (int)c, groups, st);
-    default: return bwd_launch<8>(g, y, sc, sh, wo, dy, partial, nullptr, n, hw, (int)c, groups, st);
-  }
+  return conv1x1_bwd_launch<true>(g, y, sc, sh, wo, dy, partial, n, hw, c, oc, groups, stream);
 }
 
 extern "C" int mimo_conv1x1(const void* z, const void* wo, const void* bo,
@@ -737,16 +685,14 @@ extern "C" int mimo_conv1x1(const void* z, const void* wo, const void* bo,
                                groups, stream);
 }
 
+// partial: one row of bwd_row<false, OC> a block (kernels/train_elem.py
+// conv1x1_bwd_blocks)
 extern "C" int mimo_conv1x1_bwd(const void* g, const void* z, const void* wo,
                                 void* dz, void* partial, int64_t n, int64_t hw,
                                 int64_t c, int64_t oc, int64_t groups,
                                 void* stream) {
-  if (bad_1x1(n, hw, c, oc, groups)) return bad();
-  conv1x1_bwd_kernel<<<reducing_blocks(n, hw, groups), dim3(32, 8), 0,
-                       (cudaStream_t)stream>>>(
-      (const bf16*)g, (const bf16*)z, (const bf16*)wo, (bf16*)dz, (float*)partial,
-      n / groups * hw, (int)c, (int)oc);
-  return (int)cudaGetLastError();
+  return conv1x1_bwd_launch<false>(g, z, nullptr, nullptr, wo, dz, partial, n, hw, c, oc,
+                                   groups, stream);
 }
 
 extern "C" int mimo_reduce_groups(const void* partial, void* out, int64_t groups,

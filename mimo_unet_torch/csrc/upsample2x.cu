@@ -62,10 +62,9 @@
 #include "common.cuh"
 #include "ptx.cuh"
 #include "stage.cuh"
+#include "taps.cuh"
 
 namespace {
-
-constexpr int TAPS = 5;
 
 // acc = sum over the taps t inside the image of hw[t] * g(2R-2+t, col), in
 // tap order, f32: half row R's share of full column ``col`` (gi: the
@@ -103,18 +102,12 @@ __host__ __device__ __forceinline__ int fwd_in_units(int te, int c) {
   return (te / 2 + 4 * c + 7) / 8 + 2;
 }
 
-// 16-byte units of a backward block's staged full row (and of its acc
-// row): the full columns of te half-row elements and their halo
-__host__ __device__ __forceinline__ int bwd_full_units(int te, int c) {
-  return (2 * te + 7 * c + 15) / 8 + 2;
-}
-
 size_t fwd_smem(int te, int c) {
   return (size_t)UP_ROWS * (16 * (size_t)fwd_in_units(te, c) + 2 * (size_t)te);
 }
 
 size_t bwd_smem(int te, int c) {
-  return (size_t)(BK_ROWS + BK_BAND) * 16 * (size_t)bwd_full_units(te, c);
+  return (size_t)(BK_ROWS + BK_BAND) * 16 * (size_t)full_units(te, c);  // rows, acc rows
 }
 
 // eight bf16 from shared memory at any 2-byte alignment
@@ -217,7 +210,7 @@ __global__ void __launch_bounds__(UP_THREADS) up2_bwd_kernel(
   // full-row elements [fa, f1): the columns 2K-2 .. 2K+2 of the tile's K,
   // from a multiple of 8
   const int fa = (max(0, 2 * K0 - 2) * c) & ~7, f1 = min(w, 2 * K1 + 3) * c;
-  const int fu = 8 * bwd_full_units(te, c);
+  const int fu = 8 * full_units(te, c);
   bf16* raw = reinterpret_cast<bf16*>(up_smem);  // BK_ROWS rows of fu elements
   bf16* acc = raw + BK_ROWS * fu;                // BK_BAND rows of fu
   const int64_t gi = (int64_t)img * h * rowlen;
@@ -259,26 +252,23 @@ __global__ void __launch_bounds__(UP_THREADS) up2_bwd_kernel(
   }
   __syncthreads();
 
-  // dx(R, K) = bf16(sum over u of ww[K, u] * acc(R, 2K-2+u)), in tap order;
-  // a tap outside the image reads the edge column, as the plain version
-  // does, with weight 0.  Consecutive threads on consecutive elements (the
-  // acc reads miss each other's banks); each element's taps and weights
-  // found once for all the band's half rows.
+  // dx(R, K) = bf16(sum over u of ww[K, u] * acc(R, 2K-2+u)), in tap order
+  // (taps.cuh).  Consecutive threads on consecutive elements (the acc
+  // reads miss each other's banks); each element's taps and weights found
+  // once for all the band's half rows.
   for (int d = d0 + tid; d < d1; d += UP_THREADS) {
     const int K = d / c, ch = d - K * c;
     float wk[TAPS];
     int jo[TAPS];
+    w_taps(ww, K, w, wk, jo);
 #pragma unroll
-    for (int u = 0; u < TAPS; ++u) {
-      wk[u] = ww[K * TAPS + u];
-      jo[u] = min(max(2 * K - 2 + u, 0), w - 1) * c + ch - fa;
-    }
+    for (int u = 0; u < TAPS; ++u) jo[u] = jo[u] * c + ch - fa;
     const int64_t row0 = ((int64_t)img * h2 + R0) * halflen + d;
     for (int R = 0; R < nr; ++R) {
       const bf16* ar = acc + R * fu;
       float v = 0.f;
 #pragma unroll
-      for (int u = 0; u < TAPS; ++u) v = __fadd_rn(v, __fmul_rn(bf2f(ar[jo[u]]), wk[u]));
+      for (int u = 0; u < TAPS; ++u) v = tap_add(v, bf2f(ar[jo[u]]), wk[u]);
       dx[row0 + (int64_t)R * halflen] = f2bf(v);
     }
   }

@@ -11,27 +11,29 @@
 // products of two bf16 values are exact in f32, so the f32 sum, rounded
 // once, is bitwise the TPU kernel's dot.
 //
-// mimo_upsample_w2x_bwd replaces its VJP, ct_resize.py:254 _w2x_bwd_call
-// (pallas_call :269; _w2x_bwd_rule :366): the cotangent row contracted
-// with the same bf16 matrix.  Column K of a row takes full columns
-// 2K-2 .. 2K+2 (the only nonzero entries of its matrix row), summed in
-// f32 in that order with __fmul_rn / __fadd_rn and rounded once:
+// mimo_upsample_w2x_bwd (K4b) replaces its VJP, ct_resize.py:254
+// _w2x_bwd_call (pallas_call :269; _w2x_bwd_rule :366): the cotangent row
+// contracted with the same bf16 matrix.  Column K of a row takes full
+// columns 2K-2 .. 2K+2 (the only nonzero entries of its matrix row),
+// summed in f32 in that order with __fmul_rn / __fadd_rn and rounded once:
 //   dx(K) = bf16(sum_u ww[K, u] * g(2K-2+u)), ww [W2, 5] the bf16 matrix
-// entries (0 outside the image): the W pass of upsample2x.cu's backward.
-// One block per row (common.cuh row_grid), channel pairs where C is even.
+// entries (0 outside the image): the W pass of upsample2x.cu's backward,
+// with the same tap helpers (taps.cuh).
 //
 // Both are bound on the H100 by device-memory bytes (read one side once,
-// write the other, twice its size or half).  The forward runs at that
-// rate only with many bytes in flight and few instructions an element:
+// write the other, twice its size or half).  They run at that rate only
+// with many bytes in flight and few instructions an element, and share
+// one design:
 //   * a tile is at most one 16-byte output unit a thread of one output
 //     row, cut in elements (so any C fits: a 640-wide row of many
 //     channels does not fit shared memory whole);
 //   * blocks are persistent over the rows at their tile's columns (at
 //     most K4_BLOCKS a launch, each taking at least K4_MIN_STAGES
 //     stages).  A stage is up to K4_ROWS rows' input columns of the tile,
-//     with their one-column halo, at most K4_STAGE_BYTES, copied into
-//     shared memory as 16-byte units by cp.async, the next stage's while
-//     this one is computed;
+//     with their halo (one column for the forward, two full columns each
+//     side for K4b), at most K4_STAGE_BYTES (K4B_STAGE_BYTES), copied
+//     into shared memory as 16-byte units by cp.async, the next stage's
+//     while this one is computed;
 //   * a thread finds its unit's input offsets and weights once (one
 //     division), for every row, and keeps them in registers;
 //   * it builds a whole 16-byte output unit, 8 consecutive elements of the
@@ -39,10 +41,11 @@
 //     read a tap and pair), and stores it with one 16-byte store.
 // A unit that a tile edge or the row's end cuts, a row that does not
 // start on 16 bytes and an unaligned pointer take the element path, with
-// the same arithmetic.  The backward (K4b) keeps one block a row.
+// the same arithmetic; odd C reads single channels.
 #include "common.cuh"
 #include "ptx.cuh"
 #include "stage.cuh"
+#include "taps.cuh"
 
 namespace {
 
@@ -52,6 +55,9 @@ constexpr int K4_ROWS = 8;             // rows a stage at most
 constexpr int K4_PER_SM = 4;           // blocks an SM
 constexpr int K4_BLOCKS = K4_PER_SM * 132;  // blocks of a launch at most
 constexpr int K4_MIN_STAGES = 2;       // stages a block takes at least
+constexpr int K4B_THREADS = 256;       // K4b: a tile: 8 * K4B_THREADS output elements at most
+constexpr int K4B_STAGE_BYTES = 24576;  // bytes of the cotangent a K4b stage holds at most
+constexpr int K4B_PER_SM = 3;          // K4b blocks an SM
 constexpr int SMEM_MAX = 232448;       // dynamic shared memory a block can have
 
 // 16-byte units of a staged input row: the input columns of te output
@@ -137,59 +143,148 @@ __global__ void __launch_bounds__(K4_THREADS, K4_PER_SM) upsample_w2x_kernel(
   }
 }
 
+// A launch of persistent blocks over the rows at each of tiles tiles of
+// the row: rows a stage (rb: stage_bytes of staged rows of row_bytes, at
+// least one, at most K4_ROWS), blocks a tile (bpt: blocks over the tiles,
+// at least one, at most one per K4_MIN_STAGES of the stages) and the
+// shared memory of two stages; false if it does not fit.
+struct Split {
+  int rb, bpt;
+  size_t smem;
+};
+
+bool split_rows(int64_t rows, int row_bytes, int stage_bytes, int tiles, int blocks,
+                Split* sp) {
+  int64_t rb = stage_bytes / row_bytes;
+  rb = rb < 1 ? 1 : (rb > K4_ROWS ? K4_ROWS : rb);
+  if (rb > rows) rb = rows;
+  const int64_t nst = (rows + rb - 1) / rb;
+  const int64_t most = (nst + K4_MIN_STAGES - 1) / K4_MIN_STAGES;
+  const int64_t per = blocks / tiles > 0 ? blocks / tiles : 1;
+  const int64_t bpt = per < most ? per : most;
+  *sp = {(int)rb, (int)bpt, 2 * (size_t)rb * row_bytes};
+  return sp->smem <= (size_t)SMEM_MAX && tiles * bpt <= 0x7fffffff;
+}
+
+bool aligned16(const void* a, const void* b) {
+  return (((uintptr_t)a | (uintptr_t)b) & 15) == 0;
+}
+
 template <int V>
 int k4_launch(const void* x, const void* lo, const void* w0, const void* w1, void* out,
               int64_t rows, int w2, int c, cudaStream_t stream) {
   int tiles;
   const int te = cut_row(2 * w2 * c, 8 * K4_THREADS, &tiles);
-  const int row_bytes = 16 * k4_in_units(te, c);
-  int64_t rb = K4_STAGE_BYTES / row_bytes;  // rows a stage
-  rb = rb < 1 ? 1 : (rb > K4_ROWS ? K4_ROWS : rb);
-  if (rb > rows) rb = rows;
-  const size_t smem = 2 * (size_t)rb * row_bytes;  // two stages
-  const int64_t nst = (rows + rb - 1) / rb;
-  const int64_t most = (nst + K4_MIN_STAGES - 1) / K4_MIN_STAGES;
-  const int64_t per = K4_BLOCKS / tiles > 0 ? K4_BLOCKS / tiles : 1;
-  const int64_t bpt = per < most ? per : most;
-  if (smem > (size_t)SMEM_MAX || tiles * bpt > 0x7fffffff) return (int)cudaErrorInvalidValue;
+  Split sp;
+  if (!split_rows(rows, 16 * k4_in_units(te, c), K4_STAGE_BYTES, tiles, K4_BLOCKS, &sp))
+    return (int)cudaErrorInvalidValue;
   cudaFuncSetAttribute(upsample_w2x_kernel<V>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       (int)smem);
-  upsample_w2x_kernel<V><<<(unsigned)(tiles * bpt), K4_THREADS, smem, stream>>>(
+                       (int)sp.smem);
+  upsample_w2x_kernel<V><<<(unsigned)(tiles * sp.bpt), K4_THREADS, sp.smem, stream>>>(
       (const bf16*)x, (const int*)lo, (const float*)w0, (const float*)w1, (bf16*)out, rows,
-      w2, c, te, (int)rb, (int)bpt,
-      (int)((((uintptr_t)x | (uintptr_t)out) & 15) == 0));
+      w2, c, te, sp.rb, sp.bpt, (int)aligned16(x, out));
   return (int)cudaGetLastError();
 }
 
-constexpr int TAPS = 5;  // full columns that reach one half column
-
-// blockIdx.x = row; the row's w2 * c outputs, V channels a thread at a time
+// K4b.  block K4B_THREADS; blockIdx.x = tile * bpt + b: dx-row elements
+// [d0, d0 + te) of the rows of stages b, b + bpt, ... (a stage: rb rows of
+// the cotangent's full columns 2K0-2 .. 2K1+2 of the tile's half columns
+// K0 .. K1, clamped into the row).  V = 2: C even, channel pairs.  vec: g
+// and dx are 16-byte aligned.
 template <int V>
-__global__ void upsample_w2x_bwd_kernel(const bf16* __restrict__ g,
-                                        const float* __restrict__ ww,
-                                        bf16* __restrict__ dx, int w2, int c) {
-  const int w = 2 * w2;
-  const bf16* gr = g + (int64_t)blockIdx.x * w * c;
-  bf16* out = dx + (int64_t)blockIdx.x * w2 * c;
-  const int cv = c / V;
-  const int units = w2 * cv;
-  for (int e = blockIdx.y * blockDim.x + threadIdx.x; e < units;
-       e += gridDim.y * blockDim.x) {
-    const int K = e / cv;
-    const int ch = (e - K * cv) * V;
-    float v[V] = {};
-#pragma unroll
-    for (int u = 0; u < TAPS; ++u) {
-      const int j = 2 * K - 2 + u;
-      if (j < 0 || j >= w) continue;  // tap weight 0
-      float gv[V];
-      load_bf16<V>(gr + (int64_t)j * c + ch, gv);
-      const float wu = ww[K * TAPS + u];
-#pragma unroll
-      for (int i = 0; i < V; ++i) v[i] = __fadd_rn(v[i], __fmul_rn(gv[i], wu));
+__global__ void __launch_bounds__(K4B_THREADS, K4B_PER_SM) upsample_w2x_bwd_kernel(
+    const bf16* __restrict__ g, const float* __restrict__ ww, bf16* __restrict__ dx,
+    int64_t rows, int w2, int c, int te, int rb, int bpt, int vec) {
+  extern __shared__ uint4 k4_smem[];
+  constexpr int NP = 8 / V;  // pairs (elements) of an output unit
+  const int tid = threadIdx.x;
+  const int w = 2 * w2, halflen = w2 * c, rowlen = w * c;
+  const int tile = blockIdx.x / bpt, first = blockIdx.x - tile * bpt;
+  const int d0 = tile * te, d1 = min(d0 + te, halflen);
+  const int K0 = d0 / c, K1 = (d1 - 1) / c;
+  const int f0 = max(0, 2 * K0 - 2) * c, f1 = min(w, 2 * K1 + 3) * c;  // full elements
+  const int fu = 8 * full_units(te, c);
+  const int64_t nst = (rows + rb - 1) / rb;
+  bf16* buf = reinterpret_cast<bf16*>(k4_smem);  // two stages of rb rows of fu
+  auto stage = [&](int64_t s, int b) {
+    const int64_t r0 = s * rb;
+    const int nr = (int)min((int64_t)rb, rows - r0);
+    for (int j = 0; j < nr; ++j) {
+      const int64_t off = (r0 + j) * rowlen;
+      stage_units(buf + (b * rb + j) * fu, g, off + f0, off + f1, rows * rowlen, vec, tid,
+                  K4B_THREADS);
     }
-    store_bf16<V>(out + (int64_t)K * c + ch, v);
+    cp_async_commit();
+  };
+  if (first < nst) stage(first, 0);
+
+  // this thread's unit: dx-row elements d .. d + 7; each pair's (element's)
+  // taps' offsets from f0 and their weights
+  const int d = d0 + 8 * tid;
+  int jo[NP][TAPS];
+  float wk[NP][TAPS];
+  {
+    int K = d / c, ch = d - K * c;
+#pragma unroll
+    for (int i = 0; i < NP; ++i) {
+      const bool in = d + V * i < d1;
+      w_taps(ww, in ? K : K0, w, wk[i], jo[i]);
+#pragma unroll
+      for (int u = 0; u < TAPS; ++u) jo[i][u] = in ? jo[i][u] * c + ch - f0 : 0;
+      ch += V;  // V = 2: C is even, so a pair never crosses a column
+      if (ch >= c) {
+        ch -= c;
+        ++K;
+      }
+    }
   }
+
+  int b = 0;
+  for (int64_t s = first; s < nst; s += bpt, b ^= 1) {
+    cp_async_wait_all();
+    __syncthreads();
+    if (s + bpt < nst) stage(s + bpt, b ^ 1);
+    const int64_t r0 = s * rb;
+    const int nr = (int)min((int64_t)rb, rows - r0);
+    if (d < d1)
+      for (int j = 0; j < nr; ++j) {
+        // row r0 + j's element f0 sits at its offset in a 16-byte unit
+        const int64_t go = (r0 + j) * rowlen + f0, oo = (r0 + j) * halflen;
+        const bf16* rj = buf + (b * rb + j) * fu + (int)(go & 7);
+        float v[8];
+#pragma unroll
+        for (int i = 0; i < NP; ++i) {
+          float acc[V] = {};
+#pragma unroll
+          for (int u = 0; u < TAPS; ++u) {
+            float gv[V];
+            load_bf16<V>(rj + jo[i][u], gv);
+#pragma unroll
+            for (int m = 0; m < V; ++m) acc[m] = tap_add(acc[m], gv[m], wk[i][u]);
+          }
+#pragma unroll
+          for (int m = 0; m < V; ++m) v[V * i + m] = acc[m];
+        }
+        store8(dx, oo + d, oo + d1, v, vec);
+      }
+  }
+}
+
+template <int V>
+int k4b_launch(const void* g, const void* ww, void* dx, int64_t rows, int w2, int c,
+               cudaStream_t stream) {
+  int tiles;
+  const int te = cut_row(w2 * c, 8 * K4B_THREADS, &tiles);
+  Split sp;
+  if (!split_rows(rows, 16 * full_units(te, c), K4B_STAGE_BYTES, tiles,
+                  K4B_PER_SM * 132, &sp))
+    return (int)cudaErrorInvalidValue;
+  cudaFuncSetAttribute(upsample_w2x_bwd_kernel<V>,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)sp.smem);
+  upsample_w2x_bwd_kernel<V><<<(unsigned)(tiles * sp.bpt), K4B_THREADS, sp.smem, stream>>>(
+      (const bf16*)g, (const float*)ww, (bf16*)dx, rows, w2, c, te, sp.rb, sp.bpt,
+      (int)aligned16(g, dx));
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -206,22 +301,15 @@ extern "C" int mimo_upsample_w2x(const void* x, const void* lo, const void* w0,
   return k4_launch<1>(x, lo, w0, w1, out, rows, (int)w2, (int)c, s);
 }
 
-// g [rows, 2*W2, C] -> dx [rows, W2, C]; ww [W2, 5]
+// g [rows, 2*W2, C] -> dx [rows, W2, C]; ww [W2, 5] (kernels/upsample_w2x.py
+// _w_bwd_weights).  Refuses a row whose staged full columns do not fit a
+// block.
 extern "C" int mimo_upsample_w2x_bwd(const void* g, const void* ww, void* dx,
                                      int64_t rows, int64_t w2, int64_t c,
                                      void* stream) {
-  const int v = c % 2 == 0 ? 2 : 1;
-  dim3 grid;
-  if (rows <= 0 || w2 < 2 || c <= 0 || !row_grid(rows, w2 * c / v, &grid) ||
-      2 * w2 * c > 0x3fffffff)
+  if (rows <= 0 || w2 < 2 || c <= 0 || 2 * w2 * c > 0x3fffffff)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  if (v == 2) {
-    upsample_w2x_bwd_kernel<2><<<grid, ROW_THREADS, 0, s>>>(
-        (const bf16*)g, (const float*)ww, (bf16*)dx, (int)w2, (int)c);
-  } else {
-    upsample_w2x_bwd_kernel<1><<<grid, ROW_THREADS, 0, s>>>(
-        (const bf16*)g, (const float*)ww, (bf16*)dx, (int)w2, (int)c);
-  }
-  return (int)cudaGetLastError();
+  if (c % 2 == 0) return k4b_launch<2>(g, ww, dx, rows, (int)w2, (int)c, s);
+  return k4b_launch<1>(g, ww, dx, rows, (int)w2, (int)c, s);
 }

@@ -21,8 +21,8 @@ uses group n // (N / G)); per-group parameters are f32 ``[G, C]``.
     ``Conv1x1`` is the ``autograd.Function``.  The dropout routes run it:
     a live dropout site between the decoder's DoubleConv and its out-conv
     keeps the 1x1 out of the fused kernels.  Replaces ``ct_elem.py:437``
-    ``conv1x1_ct`` and ``_conv1x1_bwd`` (:464); the forward is K12's
-    kernel without the prologue.
+    ``conv1x1_ct`` and ``_conv1x1_bwd`` (:464); both ways are K12's
+    kernels without the prologue.
 
 Parameters may be per image (G = N): the Dropout2d sites of the train
 path fold into the affine (``models/fast_path.py`` ``_per_image_affine``).
@@ -31,11 +31,12 @@ Rounding points (both versions, ct_elem.py:83-160, :527-600): the affine in
 f32 from the bf16 input as a multiply then an add; z rounded to bf16 before
 the 1x1 product; dy rounded once; the reductions in f32.  The kernels sum
 per block and reduce the blocks per group in a second, fixed-order pass
-(``reduce_groups``); the plain versions sum with torch.  K11's backward
-gives each group one block per 256 pixels (``_blocks``); K8's and K12's
-backward, one kernel, run a few persistent blocks a group
-(``prelu_bwd_blocks``, ``affine_relu_bwd_blocks``).  K8's backward takes
-C <= 256, as K5, which writes its input, does.
+(``reduce_groups``); the plain versions sum with torch.  The backward of
+K8, K11 and K12, one kernel, runs a few persistent blocks a group, one
+partial row each (``prelu_bwd_blocks``, ``affine_relu_bwd_blocks``,
+``conv1x1_bwd_blocks``).  K11's dz is the FMA chain
+``fma(wo[c, j], g[j], .)`` over j in order from +0, rounded once.  K8's
+backward takes C <= 256, as K5, which writes its input, does.
 """
 
 from __future__ import annotations
@@ -47,8 +48,7 @@ import torch
 from mimo_unet_torch.kernels import _build
 
 BF16 = torch.bfloat16
-PB = 256  # pixels per block of K11's reducing kernel
-# K8's and K12's backward (csrc/train_elem.cu affine_bwd_kernel): bytes of
+# K8's, K11's and K12's backward (csrc/train_elem.cu affine_bwd_kernel): bytes of
 # y and cotangent a staged tile holds, blocks of a launch at most, tiles a
 # block takes at least, and K8's channels at most (threads a block)
 K12_TILE_BYTES, K12_BLOCKS, K12_MIN_TILES = 16384, 4 * 132, 4
@@ -101,12 +101,6 @@ def _conv1x1_ok(y: torch.Tensor) -> None:
         raise ValueError(f"the 1x1 kernels take C <= 128, got {tuple(y.shape)}")
 
 
-def _blocks(n: int, hw: int, groups: int) -> int:
-    """Blocks of a reducing pass: ceil(group pixels / PB) per group (a
-    group's last block takes what is left)."""
-    return groups * -(-(n // groups * hw) // PB)
-
-
 def prelu_bwd_blocks(n: int, hw: int, c: int, oc: int, groups: int) -> int:
     """Blocks of ``conv1x1_prelu_bwd``'s kernel, one partial row each:
     K12_BLOCKS over the groups (at least one a group), each taking at
@@ -121,6 +115,12 @@ def affine_relu_bwd_blocks(n: int, hw: int, c: int, groups: int) -> int:
     """Blocks of ``affine_relu_bwd``'s kernel, one partial row each: K12's
     backward kernel with dz (c channels) for its cotangent."""
     return prelu_bwd_blocks(n, hw, c, c, groups)
+
+
+def conv1x1_bwd_blocks(n: int, hw: int, c: int, oc: int, groups: int) -> int:
+    """Blocks of ``conv1x1_bwd``'s kernel, one partial row each: K12's
+    backward kernel without the prologue, the same tiles."""
+    return prelu_bwd_blocks(n, hw, c, oc, groups)
 
 
 def _f32(*ts):
@@ -423,7 +423,7 @@ def conv1x1_bwd(g: torch.Tensor, z: torch.Tensor, wo: torch.Tensor):
     n, h, w, c = z.shape
     oc = wo.shape[2]
     dz = torch.empty_like(z)
-    partial = torch.empty((_blocks(n, h * w, groups), c * oc + oc),
+    partial = torch.empty((conv1x1_bwd_blocks(n, h * w, c, oc, groups), c * oc + oc),
                           device=z.device, dtype=torch.float32)
     _build.launch("mimo_conv1x1_bwd", z.device, g.data_ptr(), z.data_ptr(),
                   wob.data_ptr(), dz.data_ptr(), partial.data_ptr(), n, h * w,

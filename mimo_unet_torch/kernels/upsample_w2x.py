@@ -18,6 +18,11 @@ the same bf16 matrix (``ct_resize.py:283``): column K sums full columns
 pass of ``upsample2x_bwd`` (K13).  The H half runs inside the consuming
 conv kernel (``x2_half_h``: the eval DoubleConv, K1, and the train conv
 forward and dw, K5 and K7).
+
+Both kernels run persistent blocks over the rows at one tile of the
+output row's elements (one 16-byte output unit a thread), with stages of
+a few rows' input columns and their halo copied into shared memory by
+``cp.async``, the next stage in flight while one is computed.
 """
 
 from __future__ import annotations

@@ -1,6 +1,6 @@
 """K9 (``g_eff``), K8 (``affine_relu`` and its backward), K12
-(``conv1x1_prelu`` and its backward) and K11's forward (``conv1x1``) of
-``mimo_unet_torch/csrc/train_elem.cu``,
+(``conv1x1_prelu`` and its backward) and K11 (``conv1x1`` and its
+backward) of ``mimo_unet_torch/csrc/train_elem.cu``,
 compiled with g++ against a CPU stand-in of the CUDA runtime
 (``tests/cuda_emu``: a host thread per CUDA thread, cp.async as a plain
 copy with its alignment and range checks), launched as their wrappers
@@ -9,7 +9,8 @@ launch them and held against their plain versions at small shapes: the
 total, groups whose size is not a multiple of 8, groups past the block's
 table, unaligned pointers), the staged tiles of K8's and K12's backward
 and of the 1x1 forwards (partial last tiles, groups that start inside a
-16-byte unit, several tiles and blocks a group, per-image groups).  What the card alone can
+16-byte unit, several tiles and blocks a group, per-image groups,
+unaligned pointers, the entries' refusals).  What the card alone can
 show (timing, asynchrony, the compiler) is ``chip_smoke.py``'s.
 
 Tolerances: K9 and K8's forward bitwise (one rounding of the same f32
@@ -18,9 +19,10 @@ forwards' logits within one bf16 ulp of the larger magnitude (their f32
 sums run in channel order, the plain version's bmm in another), and
 bitwise launch to launch.  K12's dy within one bf16 ulp of the larger magnitude (dz's f32 sum over the
 out-conv channels runs in another order than the plain version's bmm, and
-may round to the neighbouring bf16).  The f32 sums of both backward
-kernels within 1e-5 of the largest value (they are summed in another
-order).
+may round to the neighbouring bf16).  K11's dz bitwise the FMA chain
+over the out-conv channels in order (``_fma_chain_dz``).  The f32 sums of
+the backward kernels within 1e-5 of the largest value (they are summed in
+another order).
 """
 
 import pytest
@@ -38,7 +40,7 @@ def lib(tmp_path_factory):
     return emu_library(tmp_path_factory, "train_elem.cu",
                        ("mimo_g_eff", "mimo_affine_relu", "mimo_affine_relu_bwd",
                         "mimo_conv1x1_prelu_bwd", "mimo_reduce_groups",
-                        "mimo_conv1x1_prelu", "mimo_conv1x1"))
+                        "mimo_conv1x1_prelu", "mimo_conv1x1", "mimo_conv1x1_bwd"))
 
 
 def _bf(gen, *shape, scale=1.0):
@@ -393,3 +395,95 @@ def test_conv1x1_fwd_entries_refuse_past_their_limits(lib):
                                       p.data_ptr(), y.data_ptr(), 2, 4, c, oc, 1, None) != 0
         assert lib.mimo_conv1x1(y.data_ptr(), y.data_ptr(), p.data_ptr(), y.data_ptr(),
                                 2, 4, c, oc, 1, None) != 0
+
+
+def _conv1x1_bwd(lib, g, z, wo, dz=None):
+    """K11's backward through the emulation, as the wrapper launches it:
+    (dz, dwo, dbo), the partial rows (one sentinel row past them must stay
+    unwritten) summed per group by the kernel's own ``reduce_groups``."""
+    n, h, w, c = z.shape
+    groups, oc = wo.shape[0], wo.shape[2]
+    rows = TE.conv1x1_bwd_blocks(n, h * w, c, oc, groups)
+    dz = torch.full_like(z, float("nan")) if dz is None else dz
+    part = torch.full((rows + 1, c * oc + oc), float("nan"))
+    wob = wo.to(BF).contiguous()
+    rc = lib.mimo_conv1x1_bwd(g.data_ptr(), z.data_ptr(), wob.data_ptr(), dz.data_ptr(),
+                              part.data_ptr(), n, h * w, c, oc, groups, None)
+    assert rc == 0, (rc, lib.emu_fault_text().decode())
+    assert bool(torch.isfinite(part[:rows]).all()), "a partial row was not written"
+    assert bool(torch.isnan(part[rows]).all()), "a row past the partials was written"
+    red = torch.empty((groups, part.shape[1]))
+    assert lib.mimo_reduce_groups(part.data_ptr(), red.data_ptr(), groups, rows // groups,
+                                  part.shape[1], None) == 0
+    return dz, red[:, :c * oc].reshape(groups, c, oc), red[:, c * oc:]
+
+
+def _fma_chain_dz(g, wo):
+    """K11's dz: fma(wo[c, j], g[j], .) over j in order from +0 in f32,
+    rounded once to bf16.  Each f32 FMA is the f64 sum of the exact
+    product of two bf16 values (itself an f32 value) and the f32 partial,
+    rounded to f32: a sum of two f32 values taken in f64 rounds to the
+    f32 sum's bits."""
+    n, h, w, oc = g.shape
+    groups, c = wo.shape[:2]
+    wf = wo.to(BF).double().repeat_interleave(n // groups, dim=0)  # [N, C, OC]
+    gf = g.double().reshape(n, h * w, oc)
+    d = torch.zeros((n, h * w, c))
+    for j in range(oc):
+        d = (gf[:, :, j, None] * wf[:, None, :, j] + d.double()).float()
+    return d.reshape(n, h, w, c).to(BF)
+
+
+def _conv1x1_bwd_case(gen, c, oc, groups, per, h, w):
+    g, z, _, _, wo = _prelu_case(gen, c, oc, groups, per, h, w)
+    return g, z, wo
+
+
+def _conv1x1_bwd_close(got, g, z, wo):
+    assert _same_bits(got[0], _fma_chain_dz(g, wo)), "dz is not the FMA chain's"
+    _, dwo, dbo = TE.conv1x1_bwd_plain(g, z, wo)
+    _f32_close(got[1], dwo)
+    _f32_close(got[2], dbo)
+
+
+# (c, oc, groups, images per group, h, w): C = 21, 40 and the 128-channel
+# limit at OC = 1, 2 and 7; several tiles and blocks a group with a
+# partial last tile (C = 21, OC = 2: 352-pixel tiles, 3072 pixels a group,
+# 3 blocks of 3 tiles; C = 128: 56-pixel tiles, 400 pixels a group, 2
+# blocks); per-image groups (groups = N); groups starting inside a 16-byte
+# unit (63 and 99 pixels a group)
+CONV1X1_BWD_SHAPES = [(21, 2, 2, 1, 48, 64), (21, 1, 4, 1, 7, 9), (21, 7, 2, 2, 9, 11),
+                      (40, 2, 4, 1, 15, 21), (40, 7, 2, 1, 16, 20), (128, 1, 2, 1, 16, 25),
+                      (128, 2, 2, 1, 11, 26), (128, 7, 3, 1, 5, 6)]
+
+
+@pytest.mark.parametrize("shape", CONV1X1_BWD_SHAPES)
+def test_conv1x1_bwd_emulated(lib, shape):
+    c, oc, groups, per, h, w = shape
+    args = _conv1x1_bwd_case(torch.Generator().manual_seed(c * 100 + oc * 10 + groups),
+                             c, oc, groups, per, h, w)
+    _conv1x1_bwd_close(_conv1x1_bwd(lib, *args), *args)
+
+
+def test_conv1x1_bwd_emulated_unaligned_and_repeated(lib):
+    """Unaligned g, z and dz (every unit copied and stored element by
+    element), the blocks' count as the wrapper mirrors it, and the same
+    bits from two launches."""
+    gen = torch.Generator().manual_seed(15)
+    g, z, wo = _conv1x1_bwd_case(gen, 21, 2, 2, 1, 48, 64)
+    assert TE.conv1x1_bwd_blocks(2, 3072, 21, 2, 2) == 2 * 3
+    dz = _shifted(torch.full_like(z, float("nan")))
+    _conv1x1_bwd_close(_conv1x1_bwd(lib, _shifted(g), _shifted(z), wo, dz), g, z, wo)
+    first = _conv1x1_bwd(lib, g, z, wo)
+    for a, b in zip(first, _conv1x1_bwd(lib, g, z, wo)):
+        assert torch.equal(a, b)
+
+
+def test_conv1x1_bwd_entry_refuses_past_its_limits(lib):
+    """More than 128 channels or 8 out-conv channels is refused with an
+    error, nothing launched."""
+    y = torch.zeros((2, 2, 2, 129), dtype=BF)
+    p = torch.zeros(4096)
+    for c, oc in ((129, 2), (21, 9)):
+        assert lib.mimo_conv1x1_bwd(y.data_ptr(), y.data_ptr(), y.data_ptr(), y.data_ptr(),
+                                    p.data_ptr(), 2, 4, c, oc, 1, None) != 0

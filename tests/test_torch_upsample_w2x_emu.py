@@ -3,12 +3,12 @@
 stand-in of the CUDA runtime (``tests/cuda_emu``: a host thread per CUDA
 thread, cp.async as a plain copy with its alignment and range checks),
 launched as their wrappers launch them (the same tables) and held against
-their plain versions at small shapes: K4's rows cut into several tiles,
-tile edges inside a 16-byte unit (rows that do not start on 16 bytes),
-blocks of several staged stages with a partial last stage, W2 = 2, a
-ragged last unit, odd C (the element-wise path) and even C (channel
-pairs), unaligned pointers, and the entry's refusals.  What the card
-alone can show (timing, asynchrony, the compiler) is ``chip_smoke.py``'s.
+their plain versions at small shapes: rows cut into several tiles, tile
+edges inside a 16-byte unit (rows that do not start on 16 bytes), blocks
+of several staged stages with a partial last stage, W2 = 2, a ragged last
+unit, odd C (the element-wise path) and even C (channel pairs), unaligned
+pointers, and the entries' refusals.  What the card alone can show
+(timing, asynchrony, the compiler) is ``chip_smoke.py``'s.
 
 Tolerance: bitwise (bit patterns, so a zero's sign counts).  Each output
 element is the same f32 expression, in the same order, as its plain
@@ -85,23 +85,58 @@ def test_upsample_w2x_emulated_unaligned_and_repeated(lib):
         assert _same_bits(_up(lib, x), _up(lib, x))
 
 
-def test_upsample_w2x_bwd_emulated_bitwise(lib):
-    """K4b (one block a row, channel pairs) at one shape."""
-    g = _bf(torch.Generator().manual_seed(6), 2, 3, 12, 42)
+def _up_bwd(lib, g, dx=None):
     n, h, w, c = g.shape
     ww = _w_bwd_weights(w // 2, CPU)
-    dx = torch.full((n, h, w // 2, c), float("nan"), dtype=BF)
+    dx = torch.full((n, h, w // 2, c), float("nan"), dtype=BF) if dx is None else dx
     _ok(lib, lib.mimo_upsample_w2x_bwd(g.data_ptr(), ww.data_ptr(), dx.data_ptr(),
                                        n * h, w // 2, c, None))
-    assert _same_bits(dx, upsample_w2x_bwd_plain(g))
+    return dx
+
+
+def test_upsample_w2x_bwd_emulated_bitwise(lib):
+    """K4b (staged rows, channel pairs) at one shape."""
+    g = _bf(torch.Generator().manual_seed(6), 2, 3, 12, 42)
+    assert _same_bits(_up_bwd(lib, g), upsample_w2x_bwd_plain(g))
+
+
+# (n, h, w, c) of the cotangent, rows n * h of w2 = w / 2 half columns.
+# C = 42: a half row of 2688 elements, two tiles; 25 rows of 672 (stages
+# of 7 rows, blocks of two stages, the last stage 4 rows); W2 = 2 at even
+# and odd C; C = 3 and 6 at W2 = 5: a ragged last unit, rows that start
+# inside a 16-byte unit; C = 21: a half row of 2100 elements, two tiles of
+# the element path, their edges inside 16-byte units on the odd row;
+# C = 84 over two tiles
+BWD_SHAPES = [(1, 3, 128, 42), (1, 25, 32, 42), (1, 4, 4, 42), (2, 3, 4, 3), (2, 3, 10, 3),
+              (1, 3, 10, 6), (1, 2, 200, 21), (1, 2, 64, 84)]
+
+
+@pytest.mark.parametrize("shape", BWD_SHAPES)
+def test_upsample_w2x_bwd_emulated_shapes(lib, shape):
+    g = _bf(torch.Generator().manual_seed(sum(shape) + 1), *shape)
+    assert _same_bits(_up_bwd(lib, g), upsample_w2x_bwd_plain(g))
+
+
+@pytest.mark.parametrize("shape", [(2, 3, 40, 42), (1, 3, 22, 21)], ids=["even C", "odd C"])
+def test_upsample_w2x_bwd_emulated_unaligned_and_repeated(lib, shape):
+    """Unaligned cotangent and dx (every unit staged and every element
+    stored one by one), bitwise; and the same bits from two launches."""
+    g = _bf(torch.Generator().manual_seed(7), *shape)
+    n, h, w, c = shape
+    dx = _shifted(torch.full((n, h, w // 2, c), float("nan"), dtype=BF))
+    assert _same_bits(_up_bwd(lib, _shifted(g), dx), upsample_w2x_bwd_plain(g))
+    assert _same_bits(_up_bwd(lib, g), _up_bwd(lib, g))
 
 
 def test_upsample_w2x_entry_refuses_what_it_cannot_take(lib):
     """W2 below 2, and a row whose staged input columns do not fit a
     block's shared memory (a tile's columns and their halo at 20000
-    channels), are refused with an error, nothing launched."""
+    channels), are refused by both entries with an error, nothing
+    launched."""
     x = torch.zeros(64, dtype=BF)
     t = torch.zeros(64)
     for w2, c in ((1, 8), (2, 20000)):
         assert lib.mimo_upsample_w2x(x.data_ptr(), t.data_ptr(), t.data_ptr(), t.data_ptr(),
                                      x.data_ptr(), 1, w2, c, None) != 0
+        assert lib.mimo_upsample_w2x_bwd(x.data_ptr(), t.data_ptr(), x.data_ptr(), 1, w2, c,
+                                         None) != 0

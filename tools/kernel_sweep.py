@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Hand-written kernels under other compile-time constants, and with a
-phase left out, on one GPU: how the constants of K4, the 1x1 forwards
-(K12's and K11's), K12's backward and K13 were chosen, and where their
-time goes.
+phase left out, on one GPU: how the constants of K4, K4b, the 1x1
+forwards (K12's and K11's), the 1x1 backward (K12's and K11's) and K13
+were chosen, and where their time goes.
 
     python3 tools/kernel_sweep.py [FAMILY ...]   (default: every family)
 
@@ -14,10 +14,11 @@ of ``chip_smoke.py`` phases 3, 5, 7, 10 and 13).  Every variant is a
 whole kernel library built by ``train_elem_ab.variant_libraries``, all
 compiled at once; ptxas's registers and spills of the family's kernels
 are printed for each.  At each site the script holds every variant's
-output against the source's own (bitwise; K12's backward: dy bitwise,
-its sums at ``chip_smoke.py``'s tolerance), prints each one's time
-(``chip_smoke.cuda_ms``: CUDA events around 20 launches after a warm-up)
-and its share of the byte bound (inputs read once, outputs written once),
+output against the source's own (bitwise; the 1x1 backward: dy or dz
+bitwise, its sums at ``chip_smoke.py``'s tolerance), prints each one's
+time (``chip_smoke.cuda_ms``: device time of 20 calls queued behind a
+device-side wait, after a warm-up) and its share of the byte bound
+(inputs read once, outputs written once),
 then the times of the builds with a phase left out, whose outputs are
 not the function's and are not checked, beside the whole kernel's.
 Exits non-zero without CUDA.
@@ -41,9 +42,11 @@ _H_T = ("for (int R = tid / nf, k = tid % nf; R < nr;) {",
         "for (int R = tid / nf, k = tid % nf; R < 0;) {")
 _W_T = ("for (int d = d0 + tid; d < d1; d += UP_THREADS) {",
         "for (int d = d1; d < d1; d += UP_THREADS) {")
-# K4 without its output rows: its staging alone
+# K4 and K4b without their output rows: their staging alone
 _K4_ROWS = ("    if (e < e1)\n      for (int j = 0; j < nr; ++j) {",
             "    if (e < e1)\n      for (int j = 0; j < 0; ++j) {")
+_K4B_ROWS = ("    if (d < d1)\n      for (int j = 0; j < nr; ++j) {",
+             "    if (d < d1)\n      for (int j = 0; j < 0; ++j) {")
 # the 1x1 forwards without their logits' store, or without their compute too
 _K12_STORE = ("store_units(out, obuf + b * 8 * ou, p0 * OC, (p0 + cnt) * OC, vec, tid, "
               "K12_THREADS);", "")
@@ -98,7 +101,8 @@ _RUNTIME_OC = [
       "") for k in range(2, 8)]
 
 # name: source, kernels (a pattern of their mangled names, for ptxas's
-# lines: K12's backward and forward at OC = 2), kinds of sites, exactness against the source's own output,
+# lines: the 1x1 backward and forward at OC = 2), kinds of sites,
+# exactness against the source's own output (or {kind: exactness}),
 # constants, their values (the source's own first), module constants of
 # kernels/train_elem.py that mirror them, other forms of the kernel (label,
 # replacements; checked and timed as the constants are), phases left out
@@ -115,8 +119,11 @@ FAMILIES = {
                 ("staging + H transpose", "upsample2x_bwd", [_W_T]),
                 ("staging", "upsample2x_bwd", [_W_T, _H_T])]),
     "prelu_bwd": dict(
-        source="train_elem.cu", kernels="affine_bwd_kernelILi2E", kinds=("prelu_bwd",),
-        exact=(True, False, False), consts=("K12_TILE_BYTES", "K12_PER_SM"),
+        source="train_elem.cu", kernels="affine_bwd_kernelILb[01]ELi2E",
+        kinds=("prelu_bwd", "conv1x1_bwd"),
+        exact={"prelu_bwd": (True, False, False, False, False),
+               "conv1x1_bwd": (True, False, False)},
+        consts=("K12_TILE_BYTES", "K12_PER_SM"),
         values=[(16384, 4)] + [(t, b) for t in (4096, 8192, 16384) for b in (3, 4, 5)
                                if (t, b) != (16384, 4)],
         mirror=lambda tile, per_sm: {"K12_TILE_BYTES": tile, "K12_BLOCKS": per_sm * 132},
@@ -127,6 +134,14 @@ FAMILIES = {
         values=[(8192, 4), (4096, 4), (16384, 4), (8192, 3), (8192, 6)],
         mirror=None, forms=[],
         phases=[("staging", "upsample_w2x", [_K4_ROWS])]),
+    "upsample_w2x_bwd": dict(
+        source="upsample_w2x.cu", kernels="upsample_w2x_bwd_kernel", kinds=("upsample_w2x_bwd",),
+        exact=True, consts=("K4B_THREADS", "K4B_STAGE_BYTES", "K4B_PER_SM"),
+        values=[(256, 24576, 3), (256, 8192, 3), (256, 8192, 4), (256, 16384, 3),
+                (256, 16384, 4), (256, 32768, 3), (256, 32768, 2), (128, 8192, 4),
+                (128, 4096, 6), (512, 16384, 2)],
+        mirror=None, forms=[],
+        phases=[("staging", "upsample_w2x_bwd", [_K4B_ROWS])]),
     "conv1x1": dict(
         source="train_elem.cu", kernels=r"conv1x1_kernelILb1E(Li2E)?EEv", kinds=("prelu", "conv1x1"),
         exact=True, consts=("K12F_TILE_BYTES", "K12F_PER_SM"),
@@ -223,13 +238,14 @@ def main() -> int:
         if fam is None:
             continue
         f, call = FAMILIES[fam], calls[kind][0]
+        exact = f["exact"][kind] if isinstance(f["exact"], dict) else f["exact"]
         use(fam, None)
         want = call(*ts)
         bound = _nbytes(ts, want) / cs.PEAK_BYTES * 1e3
         line = []
         for v in f["values"] + [label for label, _ in f["forms"]]:
             use(fam, v)
-            cs.compare(f"{label} {v}", call(*ts), want, f["exact"])
+            cs.compare(f"{label} {v}", call(*ts), want, exact)
             ms = cs.cuda_ms(lambda: call(*ts), 20)
             line.append(f"{v} {ms:.4f} ms ({bound / ms:.0%})")
         print(f"{label} (bound {bound:.4f} ms), ms by {f['consts']} or form: {', '.join(line)} "

@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
-"""K8, K9, K12 (both ways), K11's forward, K13 and K4 against an earlier
-``train_elem.cu``, ``upsample2x.cu`` and ``upsample_w2x.cu``, in turns, on
-one GPU.
+"""K8, K9, K12 (both ways), K11 (both ways), K13, K4 and K4b against an
+earlier ``train_elem.cu``, ``upsample2x.cu`` and ``upsample_w2x.cu``, in
+turns, on one GPU.
 
     python3 tools/train_elem_ab.py OLD_TRAIN_ELEM_CU [OLD_UPSAMPLE2X_CU
-                                   [OLD_UPSAMPLE_W2X_CU]] [--steps [--pairs N]]
+                                   [OLD_UPSAMPLE_W2X_CU]] [--steps [STEP ...]]
+                                   [--pairs N]
 
 OLD_TRAIN_ELEM_CU (and OLD_UPSAMPLE2X_CU, OLD_UPSAMPLE_W2X_CU) are earlier
 versions of ``mimo_unet_torch/csrc/train_elem.cu`` (and ``upsample2x.cu``,
@@ -18,34 +19,40 @@ and then:
 * at the call sites of ``chip_smoke.py`` phases 3, 5, 7, 10 and 13
   (640x480 B=4, 256x256 B=64, the B=32 serving forward) of K9
   (``g_eff``), K12 (``conv1x1_prelu`` and its backward, also per image),
-  K11's forward (``conv1x1``: the MC-serving decoder, the final-dropout
-  decoder), K8 (``affine_relu`` and its backward, also per image), given
-  OLD_UPSAMPLE2X_CU K13 (``upsample2x`` and its backward), and given
-  OLD_UPSAMPLE_W2X_CU K4 (``upsample_w2x``: up3, the decoder, the x2-half
-  decoder), holds each library's output against the plain version
-  (bitwise, but K12's and K11's forwards and the backward sums of K8 and
-  K12 at phase 3's tolerance) and against its own second launch, holds
-  the new K12 forward, K11 forward and K4 bitwise against the old, and
-  times the old, new, new and old library (CUDA events, 20 launches after
-  a warm-up); K12's backward also as its kernel and its ``reduce_groups``
-  pass alone; then a device copy of K9's largest input, the rate the
-  memory gives a plain stream;
-* with ``--steps``, times the flagship B=32 serving forward (the device
-  time of one profiled ``Ensemble.raw_forward``, as phase 4 profiles it,
-  and the median of 15 ``predict`` calls on the host clock), the flagship
-  train step at 256x256 and the NYUv2 step at 640x480, B=16 and B=64, in
-  N pairs of turns (old, new, then new, old, and so on; N = 2 by
-  default), every turn printed; then each of them (``predict`` and the
-  steps) as 50 pairs of single calls in the same pattern, the library
-  switched call by call, so that the host's drift from turn to turn falls
-  out of each pair; then for each series the pairs where the new library
-  was faster and the median and mean (with its 95 % half-width) of the
-  pairs' differences.
+  K11 (``conv1x1``: the MC-serving decoder, the final-dropout decoder;
+  ``conv1x1_bwd``: the final-dropout decoder), K8 (``affine_relu`` and its
+  backward, also per image), given OLD_UPSAMPLE2X_CU K13 (``upsample2x``
+  and its backward), and given OLD_UPSAMPLE_W2X_CU K4 (``upsample_w2x``:
+  up3, the decoder, the x2-half decoder) and K4b (``upsample_w2x_bwd``:
+  the x2-half decoder's up4 at 256x256 B=64 and 640x480 B=4), holds each
+  library's output against the plain version (bitwise, but the 1x1
+  kernels' outputs and the backward sums of K8 and K12 at phase 3's
+  tolerance, K11's dz too) and against its own second launch, holds the
+  new K12 forward, K11 (its dz), K4 and K4b bitwise against the old, and
+  times the old, new, new and old library (``chip_smoke.device_ms``: 20
+  calls queued behind a device-side wait); K12's and K11's backward also
+  as their kernel and their ``reduce_groups`` pass alone; then a device
+  copy of K9's largest input, the rate the memory gives a plain stream;
+* with ``--steps``, times the flagship B=32 serving forward (``serve``:
+  the device time of one profiled ``Ensemble.raw_forward``, as phase 4
+  profiles it, and the median of 15 ``predict`` calls on the host clock)
+  and the train steps of ``STEP_CELLS`` (the flagship step at 256x256 and
+  the NYUv2 step at 640x480, B=16 and B=64; the final-dropout step at
+  640x480 B=4; the x2-half step at 256x256 B=64; the median of a few
+  steps on the host clock and the device time of one profiled step), all
+  of them or those named, in N pairs of turns (old, new, then new, old,
+  and so on; N = 2 by default), every turn printed; then each of them
+  (``predict`` and the steps) as 50 pairs of single calls in the same
+  pattern, the library switched call by call, so that the host's drift
+  from turn to turn falls out of each pair; then for each series the
+  pairs where the new library was faster and the median and mean (with
+  its 95 % half-width) of the pairs' differences.
 
 The wrappers launch whichever library is loaded; under an old one whose
 K8 backward predates its staged tiles, K8's backward gets that kernel's
-partial rows (one per 256 pixels of a group, ``train_elem._blocks``).  Every time carries the card's name
-and power limit.  Exits non-zero without CUDA.
+partial rows (one per 256 pixels of a group, ``old_rows``), and so does
+K11's backward under an old one with its 32 x 8 lane kernel.  Every time
+carries the card's name and power limit.  Exits non-zero without CUDA.
 """
 
 from __future__ import annotations
@@ -59,8 +66,16 @@ import sys
 import time
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-# redesigned to give the bits of the kernels they replaced
-SAME_AS_OLD = ("prelu", "conv1x1", "upsample_w2x")
+# redesigned to give the bits of the kernels they replaced: which outputs
+SAME_AS_OLD = {"prelu": True, "conv1x1": True, "upsample_w2x": True,
+               "conv1x1_bwd": (True, False, False), "upsample_w2x_bwd": True}
+# --steps: name -> (frame size, batch, steps a turn, task options, x2-half)
+STEP_CELLS = {"patch16": ((256, 256), 16, 5, {}, False),
+              "patch64": ((256, 256), 64, 3, {}, False),
+              "nyu16": ((480, 640), 16, 5, {}, False),
+              "nyu64": ((480, 640), 64, 3, {}, False),
+              "final-dropout": ((480, 640), 4, 5, {"final_dropout_rate": 0.1}, False),
+              "x2-half": ((256, 256), 64, 3, {}, True)}
 PREDICTS = 15  # predict calls a turn of the serving A/B
 CALL_PAIRS = 50  # then pairs of single predict calls or steps, the library switched each time
 
@@ -122,9 +137,16 @@ def variant_libraries(variants):
 variant_logs = {}
 
 
+def old_rows(n, hw, groups):
+    """Partial rows of the 256-pixel-block backward kernels (K8's before its
+    staged tiles, K11's 32 x 8 lane kernel): one per 256 pixels of a
+    group."""
+    return groups * -(-(n // groups * hw) // 256)
+
+
 def sites(dev, gen, resample=True, w2x=False):
-    """(label, kind, tensors) of the K9, K12, K11-forward and K8 call
-    sites, with ``resample`` K13's, and with ``w2x`` K4's."""
+    """(label, kind, tensors) of the K9, K12, K11 and K8 call sites, with
+    ``resample`` K13's, and with ``w2x`` K4's and K4b's."""
     import torch
 
     import chip_smoke as cs
@@ -172,9 +194,12 @@ def sites(dev, gen, resample=True, w2x=False):
             out.append((f"affine_relu {tag_k8}", "affine_relu", (y, *aff)))
             out.append((f"affine_relu_bwd {tag_k8}", "affine_relu_bwd",
                         (act(*y.shape, scale=0.01), y, *aff)))
-        if tag == "640x480 B=4":  # K11's forward: the final-dropout decoder
-            out.append((f"conv1x1 {tag} final-dropout decoder", "conv1x1",
-                        (act(n, hh, ww, cs.F),) + out_conv(cs.S)))
+        if tag == "640x480 B=4":  # K11 both ways: the final-dropout decoder
+            z = act(n, hh, ww, cs.F)
+            wo, bo = out_conv(cs.S)
+            out.append((f"conv1x1 {tag} final-dropout decoder", "conv1x1", (z, wo, bo)))
+            out.append((f"conv1x1_bwd {tag} final-dropout decoder", "conv1x1_bwd",
+                        (act(n, hh, ww, 2, scale=0.01), z, wo)))
         if resample:
             b, c_up = n // cs.S, cs.F * cs.S
             out.append((f"upsample2x {tag} ({c_up} ch)", "upsample2x",
@@ -190,6 +215,11 @@ def sites(dev, gen, resample=True, w2x=False):
                              ("decoder", (cs.B, cs.HW // 2, cs.HW // 2, fs)),
                              ("x2-half up4 256x256 B=64", (cs.BIG_B, cs.HW // 2, cs.HW // 2, fs))):
             out.append((f"upsample_w2x {label} {list(shape)}", "upsample_w2x", (act(*shape),)))
+        fs = cs.F * cs.S  # K4b: the x2-half decoder's up4 W-half cotangent
+        for tag, b, (h, w) in (("256x256 B=64", cs.BIG_B, cs.PATCH), ("640x480 B=4", cs.TB, cs.NYU)):
+            shape = (b, h // 2, w, fs)
+            out.append((f"upsample_w2x_bwd x2-half up4 {tag} {list(shape)}", "upsample_w2x_bwd",
+                        (act(*shape),)))
     return out
 
 
@@ -201,6 +231,8 @@ def kernels():
             "prelu": (K.conv1x1_prelu, K.conv1x1_prelu_plain, False),
             "conv1x1": (K.conv1x1, K.conv1x1_plain, False),
             "upsample_w2x": (K.upsample_w2x, K.upsample_w2x_plain, True),
+            "upsample_w2x_bwd": (K.upsample_w2x_bwd, K.upsample_w2x_bwd_plain, True),
+            "conv1x1_bwd": (K.conv1x1_bwd, K.conv1x1_bwd_plain, False),
             "prelu_bwd": (K.conv1x1_prelu_bwd, K.conv1x1_prelu_bwd_plain, False),
             "affine_relu": (K.affine_relu, K.affine_relu_plain, True),
             "affine_relu_bwd": (K.affine_relu_bwd, K.affine_relu_bwd_plain, (True, False, False)),
@@ -215,7 +247,6 @@ def serve_ab(use, order, dev, card):
     turn; then ``CALL_PAIRS`` pairs of single ``predict`` calls, the
     library switched call by call.  Returns {label: (order, ms)}."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     import chip_smoke as cs
     from mimo_unet_torch.models.ensemble import Ensemble
@@ -231,11 +262,7 @@ def serve_ab(use, order, dev, card):
         ens.raw_forward(image)
         ens.predict(req, batch_size=cs.B)
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            ens.raw_forward(image)
-            torch.cuda.synchronize()
-        busy = sum(ev.time_range.elapsed_us() for ev in prof.events()
-                   if ev.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+        busy = cs.busy_ms(lambda: ens.raw_forward(image))
         times = []
         for _ in range(PREDICTS):
             t0 = time.perf_counter()
@@ -284,8 +311,9 @@ def main() -> int:
                     help="an earlier mimo_unet_torch/csrc/upsample2x.cu")
     ap.add_argument("old_upsample_w2x", nargs="?",
                     help="an earlier mimo_unet_torch/csrc/upsample_w2x.cu")
-    ap.add_argument("--steps", action="store_true",
-                    help="also time the serving forward and train steps")
+    ap.add_argument("--steps", nargs="*", choices=["serve", *STEP_CELLS],
+                    help="also time the serving forward and train steps (all, or "
+                         "those named)")
     ap.add_argument("--pairs", type=int, default=2,
                     help="old/new pairs of turns of each --steps timing")
     args = ap.parse_args()
@@ -317,14 +345,16 @@ def main() -> int:
         with open(hdr, "rb") as f:  # the headers the old sources were written against
             files[os.path.basename(hdr)] = f.read()
     libs = {"new": new, **variant_libraries({"old": files})}
-    staged = b"affine_bwd_kernel" in files["train_elem.cu"]  # K8's backward, old source
-    rows = {"new": TE.affine_relu_bwd_blocks,
-            "old": TE.affine_relu_bwd_blocks if staged
-            else lambda n, hw, c, groups: TE._blocks(n, hw, groups)}
+    old_src = files["train_elem.cu"]
+    rows = {"new": (TE.affine_relu_bwd_blocks, TE.conv1x1_bwd_blocks),
+            "old": (TE.affine_relu_bwd_blocks if b"affine_bwd_kernel" in old_src
+                    else lambda n, hw, c, groups: old_rows(n, hw, groups),
+                    lambda n, hw, c, oc, groups: old_rows(n, hw, groups)
+                    if b"conv1x1_bwd_kernel" in old_src else TE.conv1x1_bwd_blocks)}
 
     def use(which):
         _build._lib = libs[which]
-        TE.affine_relu_bwd_blocks = rows[which]
+        TE.affine_relu_bwd_blocks, TE.conv1x1_bwd_blocks = rows[which]
 
     dev = torch.device("cuda", 0)
     order = ("old", "new", "new", "old")
@@ -342,17 +372,21 @@ def main() -> int:
             cs.compare(f"{label} [{which}]", outs[which], plain, exact)
             cs.compare(f"{label} [{which}] launch to launch", call(*ts), outs[which], True)
         if kind in SAME_AS_OLD:
-            cs.compare(f"{label} new vs old", outs["new"], outs["old"], True)
+            cs.compare(f"{label} new vs old", outs["new"], outs["old"], SAME_AS_OLD[kind])
         del plain, outs
         times = {"old": [], "new": []}
         split = {}
         for which in order:
             use(which)
             times[which].append(cs.cuda_ms(lambda: call(*ts), 20))
-            if kind == "prelu_bwd" and which not in split:
-                parts = cs.prelu_bwd_parts(*ts)
-                n, h, w, c = ts[1].shape
-                nrows = TE.prelu_bwd_blocks(n, h * w, c, ts[4].shape[2], ts[4].shape[0])
+            if kind in ("prelu_bwd", "conv1x1_bwd") and which not in split:
+                wo, (n, h, w, c) = ts[-1], ts[1].shape
+                if kind == "prelu_bwd":
+                    parts = cs.prelu_bwd_parts(*ts)
+                    nrows = TE.prelu_bwd_blocks(n, h * w, c, wo.shape[2], wo.shape[0])
+                else:
+                    parts = cs.conv1x1_bwd_parts(*ts)
+                    nrows = TE.conv1x1_bwd_blocks(n, h * w, c, wo.shape[2], wo.shape[0])
                 split[which] = (cs.cuda_ms(parts["kernel"], 20),
                                 cs.cuda_ms(parts["reduce_groups"], 20), nrows)
         line = (f"{label}: old {times['old'][0]:.4f} {times['old'][1]:.4f} ms, "
@@ -368,32 +402,37 @@ def main() -> int:
     print(f"device copy of {src.numel() * 2 / 1e6:.1f} MB (K9's in.c1 y at 256x256 B=64): "
           f"{t:.4f} ms, {4 * src.numel() / t / 1e9:.3f} TB/s read + written ({card})", flush=True)
     del src, dst
-    if not args.steps:
+    if args.steps is None:
         return 0
+    named = args.steps or ["serve", *STEP_CELLS]
     turns = alternating(args.pairs)
-    summary = serve_ab(use, turns, dev, card)
-    task = cs._train_task()
-    for hw, b, steps in ((cs.PATCH, cs.TRAIN_B, 5), (cs.PATCH, cs.BIG_B, 3),
-                         (cs.NYU, cs.TRAIN_B, 5), (cs.NYU, cs.BIG_B, 3)):
+    summary = serve_ab(use, turns, dev, card) if "serve" in named else {}
+    for name in (n for n in STEP_CELLS if n in named):
+        hw, b, steps, options, x2_half = STEP_CELLS[name]
+        os.environ[cs.X2_HALF] = "1" if x2_half else "0"
+        task = cs._train_task(**options)
         state = task.init_state(-(-795 // b), dev)
         gen = torch.Generator().manual_seed(13)
-        label = f"train step {hw[0]}x{hw[1]} B={b} median"
-        summary[label] = (turns, [])
+        tag = f"train step {name} {hw[0]}x{hw[1]} B={b}"
+        summary[f"{tag} median"] = (turns, [])
+        summary[f"{tag} device busy"] = (turns, [])
+        batch, each = cs._frames(gen, b, hw), []
         for which in turns:
             use(which)
-            summary[label][1].append(1e3 * cs._time_steps(
-                task, state, gen, b, steps, card, f"kernels, {which} sources", hw))
-        batch, each = cs._frames(gen, b, hw), []
+            summary[f"{tag} median"][1].append(1e3 * cs._time_steps(
+                task, state, gen, b, steps, card, f"{name}, kernels, {which} sources", hw))
+            summary[f"{tag} device busy"][1].append(
+                cs.busy_ms(lambda: task.train_step(state, batch)))
         for which in alternating(CALL_PAIRS):
             use(which)
             t0 = time.perf_counter()
             task.train_step(state, batch)
             torch.cuda.synchronize()
             each.append((time.perf_counter() - t0) * 1e3)
-        summary[f"train step {hw[0]}x{hw[1]} B={b}, step by step"] = \
-            (alternating(CALL_PAIRS), each)
+        summary[f"{tag}, step by step"] = (alternating(CALL_PAIRS), each)
         del state, batch
         torch.cuda.empty_cache()
+    os.environ[cs.X2_HALF] = "0"
     for label, (order, times) in summary.items():
         pair_summary(label, order, times, card)
     use("new")
