@@ -142,7 +142,25 @@ Run from the root of the repository.  Phases, each raising on failure:
    one than a second flag-off run is); a profile of one B=64 step; step
    times and peak memory, flag on and off in turns, at 256x256 B=64 and
    640x480 B=16.
-14. Print the kernels' JSON line (K10/K13 launches from phase 11, K4b and
+14. The train harness and the remat rungs, on the NYUv2-depth task of
+   phase 6 and synthetic frames in NYUv2's uint8 schema: ``Trainer.fit``
+   for 2 epochs of 256 train and 64 val frames at 256x256 B=64, whose
+   launch counters must show exactly every train kernel's launches a step
+   in every step and the eval kernels' a forward in validation, with
+   finite losses and ``last/`` and ``best/`` written; under deterministic
+   algorithms, 1 epoch and then a resume to 3 bitwise 3 straight epochs
+   (parameters, buffers, Adam's moments, the schedule, the loss buffer,
+   step, both generators); images/s of ``fit`` against a bare
+   ``train_step`` loop over the same host-fed batches, in turns; one
+   forward + backward per remat rung from the same state, at 256x256 B=64
+   and on a 640x480 B=4 final-dropout step, under deterministic
+   algorithms: loss, gradients and running statistics bitwise "none"'s,
+   ``num_batches_tracked`` 1, and the launches beyond "none"'s exactly
+   what the rung recomputes (``REMAT_AGAIN``); step time and peak memory
+   per rung in turns at 256x256 and 640x480, B=64; and the capacity
+   ladder (``make_train_step``) under a memory cap between "none"'s and
+   "enc"'s peaks: it must choose "enc", bitwise a direct "enc" step.
+15. Print the kernels' JSON line (K10/K13 launches from phase 11, K4b and
    K14 from phase 13), then the result line ``{"ok": true, "device":
    {...}}`` last.
 
@@ -2233,6 +2251,385 @@ def train_x2_half(dev, card):
     return counts[PATCH]
 
 
+# ---- phase 14: the train harness and the remat rungs -----------------------
+
+# a train step's launches on the default route (phase 11's counts and the
+# rest) and an eval forward's; what each remat rung launches again in the
+# backward, on the default route and on the final-dropout route
+STEP_LAUNCHES = {"conv3x3_fwd": 6, "conv3x3_dx": 4, "conv3x3_dx_fold": 1, "conv3x3_dw": 6,
+                 "g_eff": 6, "affine_relu": 2, "affine_relu_bwd": 2, "conv1x1_prelu": 1,
+                 "conv1x1_prelu_bwd": 1, "max_pool2x2": 2, "max_pool2x2_bwd": 2,
+                 "upsample2x": 1, "upsample2x_bwd": 1}
+EVAL_LAUNCHES = {"fused_double_conv9": 1, "fused_double_conv": 3, "pool_w": 2,
+                 "upsample_w2x": 2}
+_ENC_AGAIN = {"conv3x3_fwd": 4, "affine_relu": 2, "max_pool2x2": 2}
+REMAT_AGAIN = {
+    "default": {"none": {}, "enc": _ENC_AGAIN,
+                "all": {"conv3x3_fwd": 6, "affine_relu": 2, "max_pool2x2": 2,
+                        "upsample2x": 1, "conv1x1_prelu": 1}},
+    "final-dropout": {"none": {}, "enc": _ENC_AGAIN,
+                      "all": {"conv3x3_fwd": 6, "affine_relu": 3, "max_pool2x2": 2,
+                              "upsample2x": 1, "conv1x1": 1}},
+}
+HARNESS_TRAIN, HARNESS_VAL = 256, 64   # synthetic frames of the fit phase
+
+
+@contextlib.contextmanager
+def _deterministic():
+    """Deterministic algorithms (the plain core's cuDNN backward otherwise
+    differs from run to run), then back to the defaults."""
+    import torch
+
+    torch.backends.cudnn.deterministic = True
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(False)
+        torch.backends.cudnn.deterministic = False
+
+
+def _nyu_arrays(n, seed, hw=PATCH):
+    """``n`` seeded frames in NYUv2's uint8 schema
+    (mimo_unet_tpu/data/nyuv2.py:5-7, 73-77): image [n, H, W, 3], depth
+    label [n, H, W, 1]."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    return {"image": rng.integers(0, 256, (n, *hw, 3), dtype=np.uint8),
+            "label": rng.integers(0, 256, (n, *hw, 1), dtype=np.uint8)}
+
+
+def _harness_data():
+    """A DataModule of HARNESS_TRAIN train and HARNESS_VAL val frames at
+    256x256, batch BIG_B."""
+    from mimo_unet_torch.data.core import ArrayDataset, DataModule
+
+    class Frames(DataModule):
+        batch_size = BIG_B
+
+        def __init__(self):
+            self.train = ArrayDataset(_nyu_arrays(HARNESS_TRAIN, 20))
+            self.val = ArrayDataset(_nyu_arrays(HARNESS_VAL, 21))
+
+        def setup(self):
+            pass
+
+        def train_dataset(self):
+            return self.train
+
+        def val_dataset(self):
+            return self.val
+
+    return Frames()
+
+
+def _state_bits(state, grads=False):
+    """Every tensor a train step writes in ``state`` by name: the model's
+    state dict, Adam's moments, the loss buffer, both generators, and step,
+    ring index, schedule position and learning rate; ``grads`` the
+    gradients too."""
+    import torch
+
+    out = {f"model.{k}": v for k, v in state.model.state_dict().items()}
+    names = {id(p): k for k, p in state.model.named_parameters()}
+    for p, st in state.optimizer.state.items():
+        for k, v in st.items():
+            out[f"adam.{names[id(p)]}.{k}"] = v
+    if grads:
+        out.update({f"grad.{k}": p.grad for k, p in state.model.named_parameters()})
+    out["loss_buffer"] = state.loss_buffer.buffer
+    out["generator"] = state.generator.get_state()
+    out["dropout_generator"] = state.dropout_generator.get_state()
+    out["numbers"] = torch.tensor([state.step, state.loss_buffer.index,
+                                   state.scheduler.last_epoch,
+                                   state.optimizer.param_groups[0]["lr"]],
+                                  dtype=torch.float64)
+    return out
+
+
+def _same_state(a, b, what, grads=False):
+    import torch
+
+    ta, tb = _state_bits(a, grads), _state_bits(b, grads)
+    bad = sorted(k for k in ta.keys() | tb.keys()
+                 if k not in ta or k not in tb or not torch.equal(ta[k], tb[k]))
+    print(f"{what}: {len(ta)} state tensors, {len(bad)} differ")
+    if bad:
+        raise AssertionError(f"{what}: not bitwise: {bad[:10]}")
+
+
+def _launches_since(want, where):
+    """The launch counters against ``want`` (every other kernel 0)."""
+    import torch
+    from mimo_unet_torch import kernels as K
+
+    torch.cuda.synchronize()
+    got = K.launch_counts()
+    wrong = {k: (v, want.get(k, 0)) for k, v in got.items() if v != want.get(k, 0)}
+    if wrong:
+        raise AssertionError(f"{where}: launches (got, want) {wrong}")
+    return got
+
+
+def _fit(dev, card, root):
+    """Trainer.fit for 2 epochs: every train kernel in each step and the
+    eval kernels in validation, finite losses, last/ and best/ written."""
+    import math
+
+    from mimo_unet_torch import kernels as K
+    from mimo_unet_torch.train.trainer import Trainer
+
+    task = _train_task()
+    dm = _harness_data()
+    steps = 2 * (HARNESS_TRAIN // BIG_B)
+    path = os.path.join(root, "fit")
+    # every other step takes the with_outputs route; without matplotlib the
+    # trainer reports that it cannot draw the image grids and goes on
+    trainer = Trainer(task, dm, max_epochs=2, checkpoint_path=path, log_every_n_steps=2,
+                      device=dev)
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    state = trainer.fit()
+    wall = time.perf_counter() - t0
+    want = {k: steps * v for k, v in STEP_LAUNCHES.items()}
+    want.update({k: 2 * v for k, v in EVAL_LAUNCHES.items()})  # one val batch an epoch
+    launches = _launches_since(want, "Trainer.fit")
+    with open(os.path.join(path, "metrics.tsv")) as f:
+        rows = [json.loads(line) for line in f]
+    losses = [r["train_loss"] for r in rows if "train_loss" in r]
+    vals = [h["val_loss"] for h in trainer.history]
+    print(f"Trainer.fit 2 epochs, {steps} steps {PATCH[0]}x{PATCH[1]} B={BIG_B}: {wall:.2f} s, train "
+          f"losses {losses}, val losses {vals}, launches {launches} ({card})")
+    if not (losses and all(map(math.isfinite, losses + vals)) and state.step == steps):
+        raise AssertionError(f"Trainer.fit: losses {losses}, val {vals}, step {state.step}")
+    for d in ("last", "best"):
+        for f in ("hparams.json", os.path.join("state", "state.pt")):
+            if not os.path.isfile(os.path.join(path, d, f)):
+                raise AssertionError(f"Trainer.fit wrote no {d}/{f}")
+    return dm
+
+
+def _resume_bitwise(dev, dm, root):
+    """Under deterministic algorithms: 1 epoch, then a resume to 3, is
+    bitwise 3 straight epochs."""
+    from mimo_unet_torch.train.trainer import Trainer
+
+    task = _train_task()
+
+    def fit(name, epochs, resume=False):
+        return Trainer(task, dm, max_epochs=epochs, checkpoint_path=os.path.join(root, name),
+                       log_every_n_steps=4, log_images=False, device=dev).fit(resume=resume)
+
+    with _deterministic():
+        straight = fit("straight", 3)
+        fit("resumed", 1)
+        resumed = fit("resumed", 3, resume=True)
+    _same_state(resumed, straight, "1 epoch + resume to 3 vs 3 straight epochs")
+
+
+def _harness_overhead(dev, dm, card, root):
+    """Images/s of Trainer.fit (epochs 1-2 of 3) against a bare train_step
+    loop over the same host-fed batches, in turns."""
+    import torch
+    from mimo_unet_torch.train.trainer import Trainer
+
+    task = _train_task()
+    spe = HARNESS_TRAIN // BIG_B
+
+    def fit(turn):
+        t = Trainer(task, dm, max_epochs=3, checkpoint_path=os.path.join(root, f"rate{turn}"),
+                    log_every_n_steps=50, log_images=False, device=dev)
+        t.fit()
+        return [h["throughput_images_per_sec"] for h in t.history[1:]]
+
+    def bare(_):
+        state = task.init_state(spe, dev)
+        rates = []
+        for epoch in range(3):
+            t0 = time.perf_counter()
+            n = 0
+            for batch in dm.train_batches(epoch, seed=42):
+                state, _, _ = task.train_step(
+                    state, {k: torch.from_numpy(v) for k, v in batch.items()})
+                n += len(batch["image"])
+            torch.cuda.synchronize()
+            rates.append(n / (time.perf_counter() - t0))
+        return rates[1:]
+
+    runs = {"fit": [], "bare": []}
+    for turn, name in enumerate(("fit", "bare", "bare", "fit")):
+        runs[name] += (fit if name == "fit" else bare)(turn)
+    mean = {k: sum(v) / len(v) for k, v in runs.items()}
+    print(f"harness overhead {PATCH[0]}x{PATCH[1]} B={BIG_B}: Trainer.fit {runs['fit']} images/s (mean "
+          f"{mean['fit']:.2f}), bare train_step loop {runs['bare']} (mean {mean['bare']:.2f}); "
+          f"fit/bare {mean['fit'] / mean['bare']:.4f} ({card})", flush=True)
+
+
+def _rung_bitwise(task, dev, b, hw, route, card):
+    """One forward + backward per remat rung from the same weights, inputs
+    and masks, under deterministic algorithms: loss, gradients and running
+    statistics bitwise those of "none", num_batches_tracked 1 in every
+    BatchNorm, and each rung's launches those of "none" plus what it
+    recomputes (REMAT_AGAIN)."""
+    import torch
+    from mimo_unet_torch import kernels as K
+    from mimo_unet_torch.loss_buffer import loss_buffer_init
+    from mimo_unet_torch.models.mimo_unet import dropout_sites
+    from mimo_unet_torch.ops.dropout import DropoutSource
+    from mimo_unet_torch.tasks.mimo import device_normalize
+    from mimo_unet_torch.train.capacity import RUNGS
+    from mimo_unet_torch.transforms import apply_input_transform
+
+    state = task.init_state(1, dev)
+    batch = device_normalize({k: v.to(dev) for k, v in _frames(
+        torch.Generator().manual_seed(31), b, hw).items()})
+    image_t, label_t, _ = apply_input_transform(
+        torch.Generator().manual_seed(32), batch["image"], batch["label"], None, S)
+    sites = dropout_sites(task.model_config, b, *hw)
+    source = None
+    if sites:
+        drawn = DropoutSource(torch.Generator(dev).manual_seed(33)).draw(sites, dev)
+        source = DropoutSource(masks={k: m for k, (m, _) in drawn.items()})
+    runs = {}
+    with _deterministic():
+        for rung in RUNGS:
+            t = dataclasses.replace(task, remat=rung)
+            model = t.build_model(dev)
+            model.load_state_dict(state.model.state_dict())
+            model.train()
+            torch.cuda.synchronize()
+            K.reset_launch_counts()
+            loss = t.objective(model, image_t, label_t, None,
+                               loss_buffer_init(S, t.loss_buffer_size, dev), source)[0]
+            loss.backward()
+            torch.cuda.synchronize()
+            runs[rung] = (loss.detach(), K.launch_counts(),
+                          {k: p.grad for k, p in model.named_parameters() if p.grad is not None},
+                          {k: v for k, v in model.state_dict().items()
+                           if k.endswith(("running_mean", "running_var",
+                                          "num_batches_tracked"))})
+            del model, loss
+    loss0, launch0, g0, st0 = runs["none"]
+    tracked = {int(v) for k, v in st0.items() if k.endswith("num_batches_tracked")}
+    if tracked != {1}:
+        raise AssertionError(f"remat {route}: num_batches_tracked {tracked} after one step")
+    for rung in RUNGS[1:]:
+        loss, launches, g, st = runs[rung]
+        bad = [k for k in g0 if k not in g or not torch.equal(g[k], g0[k])]
+        bad += [k for k in st0 if not torch.equal(st[k], st0[k])]
+        if not torch.equal(loss, loss0) or bad or g.keys() != g0.keys():
+            raise AssertionError(f"remat={rung} {route} {hw} B={b}: loss {float(loss)} vs "
+                                 f"{float(loss0)}, not bitwise: {bad[:10]}")
+        again = {k: launches[k] - launch0[k] for k in launches if launches[k] != launch0[k]}
+        if again != REMAT_AGAIN[route][rung]:
+            raise AssertionError(f"remat={rung} {route}: launches again {again}, want "
+                                 f"{REMAT_AGAIN[route][rung]}")
+        print(f"remat={rung} {route} {hw[0]}x{hw[1]} B={b}: loss, {len(g0)} gradients and "
+              f"{len(st0)} BatchNorm buffers bitwise remat='none'; launched again {again} "
+              f"({card})")
+    print(f"remat='none' {route} {hw[0]}x{hw[1]} B={b} launches: {launch0}")
+
+
+def _rung_times(task, dev, b, hw, card):
+    """Step time and peak memory per rung, in turns (none, enc, all, all,
+    enc, none) on one state; returns {rung: peak bytes}."""
+    import dataclasses as dc
+
+    import torch
+    from mimo_unet_torch.train.capacity import RUNGS
+
+    state = task.init_state(-(-795 // b), dev)
+    gen = torch.Generator().manual_seed(34)
+    times, peaks = {r: [] for r in RUNGS}, {r: 0 for r in RUNGS}
+    for rung in RUNGS + RUNGS[::-1]:
+        state.model.config = dc.replace(state.model.config, remat=rung)
+        torch.cuda.empty_cache()
+        times[rung].append(_time_steps(task, state, gen, b, 3, card, f"remat={rung}", hw))
+        peaks[rung] = max(peaks[rung], torch.cuda.max_memory_allocated())
+    print(f"remat {hw[0]}x{hw[1]} B={b}: " + "; ".join(
+        f"{r} step {sum(times[r]) / 2 * 1e3:.2f} ms (turns {[round(t * 1e3, 2) for t in times[r]]}), "
+        f"peak {peaks[r] / 2 ** 30:.3f} GiB" for r in RUNGS) + f" ({card})", flush=True)
+    del state
+    torch.cuda.empty_cache()
+    return peaks
+
+
+def _ladder(task, dev, card):
+    """make_train_step under a memory cap between the "none" and "enc"
+    steps' peaks (measured here, deterministic algorithms, as the ladder
+    then runs): it must pick "enc", and its step be bitwise a direct "enc"
+    step from the same state.  The cap is lifted after."""
+    import dataclasses as dc
+
+    import torch
+    from mimo_unet_torch.train.capacity import make_train_step
+
+    batch = _frames(torch.Generator().manual_seed(35), BIG_B, PATCH)
+    spe = -(-795 // BIG_B)
+    enc_task = dc.replace(task, remat="enc")
+    with _deterministic():
+        probe = task.init_state(spe, dev)
+        peaks = {}
+        for rung in ("none", "enc"):
+            probe.model.config = dc.replace(probe.model.config, remat=rung)
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            task.train_step(probe, batch)
+            torch.cuda.synchronize()
+            peaks[rung] = torch.cuda.max_memory_allocated()
+        del probe
+        a, direct = task.init_state(spe, dev), enc_task.init_state(spe, dev)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        cap = (peaks["none"] + peaks["enc"]) / 2
+        total = torch.cuda.get_device_properties(dev).total_memory
+        torch.cuda.set_per_process_memory_fraction(cap / total, dev)
+        try:
+            _, used = make_train_step(task, a, batch)
+        finally:
+            torch.cuda.set_per_process_memory_fraction(1.0, dev)
+        enc_task.train_step(direct, batch)
+    print(f"ladder {PATCH[0]}x{PATCH[1]} B={BIG_B}: peaks none {peaks['none'] / 2 ** 30:.3f} GiB, enc "
+          f"{peaks['enc'] / 2 ** 30:.3f} GiB, cap {cap / 2 ** 30:.3f} GiB: make_train_step "
+          f"chose remat={used.remat!r} ({card})")
+    if used.remat != "enc":
+        raise AssertionError(f"the ladder chose {used.remat!r} under the cap, not 'enc'")
+    _same_state(a, direct, "ladder step under the cap vs a direct remat='enc' step",
+                grads=True)
+
+
+def train_harness(dev, card):
+    """Phase 14: the train harness and the remat rungs."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    t0 = time.perf_counter()
+    os.makedirs(os.path.join(REPO, "build"), exist_ok=True)  # git-ignored, not checked out
+    root = tempfile.mkdtemp(prefix="chip_smoke_train_", dir=os.path.join(REPO, "build"))
+    try:
+        dm = _fit(dev, card, root)
+        _resume_bitwise(dev, dm, root)
+        _harness_overhead(dev, dm, card, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    del dm
+    torch.cuda.empty_cache()
+    task = _train_task()
+    _rung_bitwise(task, dev, BIG_B, PATCH, "default", card)
+    _rung_bitwise(dataclasses.replace(task, final_dropout_rate=0.1), dev, TB, NYU,
+                  "final-dropout", card)
+    torch.cuda.empty_cache()
+    _rung_times(task, dev, BIG_B, PATCH, card)
+    _rung_times(task, dev, BIG_B, NYU, card)
+    _ladder(task, dev, card)
+    torch.cuda.empty_cache()
+    print(f"phase 14 (train harness, remat): {time.perf_counter() - t0:.1f} s", flush=True)
+
+
 @contextlib.contextmanager
 def record_groups(names):
     """Record the groups argument (the last before the stream) of every
@@ -2402,6 +2799,10 @@ def main() -> int:
     del half_sites, same
     torch.cuda.empty_cache()
     halfed = train_x2_half(dev, card)
+    torch.cuda.empty_cache()
+
+    # ---- 14. the train harness and the remat rungs ---------------------------
+    train_harness(dev, card)
     launches = {k.__name__: served[k.__name__] for k in K.EVAL_KERNELS}
     launches.update({k.__name__: trained[k.__name__] for k in K.TRAIN_KERNELS})
     launches["conv1x1"] = served_mc["conv1x1"]
@@ -2409,7 +2810,7 @@ def main() -> int:
     launches.update({k.__name__: patch[k.__name__] for k in K.RESAMPLE_KERNELS})
     launches.update({k.__name__: halfed[k.__name__] for k in K.X2_HALF_KERNELS})
 
-    # ---- 14. results -------------------------------------------------------
+    # ---- 15. results -------------------------------------------------------
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": KERNEL_INFO[k][0],
          "replaces": KERNEL_INFO[k][1], "launches": launches[k], **stats[k]}

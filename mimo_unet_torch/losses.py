@@ -15,9 +15,24 @@ from typing import Optional
 import torch
 
 
+class _ClampNoGrad(torch.autograd.Function):
+    """Forward: clamp(x, lo, hi).  Backward: identity (straight-through).
+    Not ``x + (clamp(x) - x).detach()``, the JAX package's composition: at
+    an ``exp`` that overflowed (x = inf) that is inf - inf = NaN, where the
+    reference's in-place clamp gives ``hi`` (ROADMAP C.6)."""
+
+    @staticmethod
+    def forward(ctx, x, lo, hi):
+        return torch.clamp(x, lo, hi)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
 def _clamp_no_grad(x: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
     """Forward: clamp(x, lo, hi).  Backward: identity (straight-through)."""
-    return x + (torch.clamp(x, lo, hi) - x).detach()
+    return _ClampNoGrad.apply(x, lo, hi)
 
 
 class UncertaintyLoss:

@@ -73,6 +73,13 @@ Every conv is a ``Conv3x3Train`` (forward K5; backward g_eff K9, dx K6 in
 plain or fold form, dw K7).  BatchNorm running statistics update in place,
 from the raw conv output before any dropout site.
 
+``remat`` (:1443-1451, :1484) recomputes the encoder section ("enc":
+K5 x4, K8 x2, K10's forward x2 again in the backward) and, under "all",
+also the core and the decoder section from the x2 upsample to the logits
+(K13 or K4, K5 x2, K12's forward, or K8 and K11's forward on the
+final-dropout route), through the kernels' autograd Functions
+(``models/mimo_unet.py`` ``run_section``).
+
 Dropout (``_enc_train_local`` / ``_dec_train_local``, :1082-1380): the
 in_conv, down1 and up4 Dropout2d sites fold into a per-image BN affine,
 ``relu(y*sc + sh)*m == relu(y*(sc*m) + sh*m)`` for m >= 0, so affine_relu
@@ -106,7 +113,7 @@ from mimo_unet_torch.kernels import (
     upsample_w2x,
 )
 from mimo_unet_torch.models.blocks import DoubleConv
-from mimo_unet_torch.models.mimo_unet import MimoUNetConfig
+from mimo_unet_torch.models.mimo_unet import MimoUNetConfig, run_section
 from mimo_unet_torch.ops.dropout import (
     NO_DROPOUT,
     Drops,
@@ -314,8 +321,8 @@ def train_path_supported(cfg: MimoUNetConfig, x_shape: Tuple[int, ...],
     """True when the train kernel path applies (``ct_train_path_supported``,
     mimo_unet_tpu/models/fast_path.py:866-961, on what these kernels need):
     train mode, no MC dropout, bf16, bilinear, "auto" only for CUDA inputs,
-    H and W multiples of 16, and ``remat == "none"`` (not ported yet).
-    Every dropout site is supported.  The TPU's lane conditions are not:
+    H and W multiples of 16.  Every ``remat`` rung and every dropout site
+    is supported.  The TPU's lane conditions are not:
     256x256 patches, 640x480 frames and any other such shape take the same
     route (the kernels tile any pixel count), and on it a kernel that
     cannot take its shape raises; so does a configuration whose channel
@@ -325,8 +332,6 @@ def train_path_supported(cfg: MimoUNetConfig, x_shape: Tuple[int, ...],
     if cfg.ct_kernels == "auto" and torch.device(device).type != "cuda":
         return False
     if cfg.compute_dtype != "bfloat16" or cfg.mode != "bilinear":
-        return False
-    if cfg.remat != "none":
         return False
     if len(x_shape) != 5:
         return False
@@ -434,34 +439,19 @@ def encoder_train(enc, xin: torch.Tensor, b: int, drops: Drops = NO_DROPOUT):
     return x1s, x2p, x2s
 
 
-def mimo_unet_apply_train(model, x: torch.Tensor,
-                          drops: Drops = NO_DROPOUT) -> torch.Tensor:
-    """Train forward through the kernels (``mimo_unet_apply_ct_train``):
-    [B, S, H, W, C_in] -> [B, S, H, W, C_out] float32 logits, with the
-    live dropout sites of ``drops``; every BatchNorm's running statistics
-    update in place."""
-    b, s, h, w, cin = x.shape
-    n = s * b
-    enc, core, dec = model.encoder, model.core, model.decoder
-    cnt_full = b * h * w  # per group: the whole batch normalizes each group
-
-    # ---- encoder (kernels), S-major fold
-    xin = x.to(torch.bfloat16).transpose(0, 1).reshape(n, h, w, cin).contiguous()
-    x1s, x2p, x2s = encoder_train(enc, xin, b, drops)
-
-    # ---- shared core (plain modules, train mode) on the subnetwork
-    # channel concat, channels-last under an NCHW view: the identity is
-    # up3's skip, the pooled tensor down2's input
-    x_up = core(_group_concat(x2s, s), drops, x2_pooled=_group_concat(x2p, s))
-
-    # ---- decoder: x2 upsample to channels-last (period B: image n reads
-    # upsampled image n % B), two kernel convs, the out-conv.  The x2-half
-    # route upsamples only W here, at half height; conv1's kernels lerp
-    # the rows
+def decoder_train(dec, x_up: torch.Tensor, x1s: torch.Tensor, cnt_full: int,
+                  drops: Drops = NO_DROPOUT, half: bool = False) -> torch.Tensor:
+    """The decoder on the kernels (``_dec_train_local``,
+    mimo_unet_tpu/models/fast_path.py:1276-1380): the core output x_up
+    [B, FS, H/2, W/2] (an NCHW view) x2-upsampled to channels-last (period
+    B: image n reads upsampled image n % B; with ``half`` only W here, at
+    half height, conv1's kernels lerp the rows), up4's two convs over
+    [x1s, up], the out-conv.  Returns the logits [S*B, H, W, C_out]."""
+    n = x1s.shape[0]
     x_up = x_up.permute(0, 2, 3, 1).contiguous()
-    half = x2_half_route()
     up = UpsampleW2x.apply(x_up) if half else Upsample2x.apply(x_up)
     up4 = [u.conv for u in dec.up4s]
+    s = len(up4)
     y5, sc5, sh5 = _conv_bn(x1s, up4, 0, cnt_full, x2=up, x2_half_h=half)
     y6, sc6, sh6 = _conv_bn(y5, up4, 1, cnt_full, prologue=(sc5, sh5))
     wo = torch.stack([oc.conv.weight[:, :, 0, 0].t() for oc in dec.outcs])
@@ -472,14 +462,47 @@ def mimo_unet_apply_train(model, x: torch.Tensor,
         # up4's Dropout2d folds into per-image bn2 parameters; the out-conv
         # runs with groups = N on per-image copies of wo and bo
         sc6, sh6 = _per_image_affine(sc6, sh6, m)
-        logits = Conv1x1Prelu.apply(y6, sc6, sh6, _expand_groups(wo, n),
-                                    _expand_groups(bo, n))
-    elif finals[0] in drops:
+        return Conv1x1Prelu.apply(y6, sc6, sh6, _expand_groups(wo, n),
+                                  _expand_groups(bo, n))
+    if finals[0] in drops:
         # the elementwise final dropout sits between the ReLU and the 1x1
         z6 = AffineRelu.apply(y6, sc6, sh6)
         z6 = dropout(z6, torch.cat([drops[k][0] for k in finals]),
                      drops[finals[0]][1])
-        logits = Conv1x1.apply(z6, wo, bo)
-    else:
-        logits = Conv1x1Prelu.apply(y6, sc6, sh6, wo, bo)
+        return Conv1x1.apply(z6, wo, bo)
+    return Conv1x1Prelu.apply(y6, sc6, sh6, wo, bo)
+
+
+def mimo_unet_apply_train(model, x: torch.Tensor,
+                          drops: Drops = NO_DROPOUT) -> torch.Tensor:
+    """Train forward through the kernels (``mimo_unet_apply_ct_train``):
+    [B, S, H, W, C_in] -> [B, S, H, W, C_out] float32 logits, with the
+    live dropout sites of ``drops``; every BatchNorm's running statistics
+    update in place.  ``model.config.remat`` recomputes the encoder
+    ("enc", "all"), the core and the decoder ("all") in the backward."""
+    b, s, h, w, cin = x.shape
+    n = s * b
+    enc, core, dec = model.encoder, model.core, model.decoder
+    remat = model.config.remat
+    cnt_full = b * h * w  # per group: the whole batch normalizes each group
+
+    # ---- encoder (kernels), S-major fold
+    xin = x.to(torch.bfloat16).transpose(0, 1).reshape(n, h, w, cin).contiguous()
+    x1s, x2p, x2s = run_section(lambda xi: encoder_train(enc, xi, b, drops),
+                                (enc,), xin, remat=remat in ("enc", "all"))
+
+    # ---- shared core (plain modules, train mode) on the subnetwork
+    # channel concat, channels-last under an NCHW view: the identity is
+    # up3's skip, the pooled tensor down2's input
+    x_up = run_section(
+        lambda xs, xp: core(_group_concat(xs, s), drops,
+                            x2_pooled=_group_concat(xp, s)),
+        (core,), x2s, x2p, remat=remat == "all")
+
+    # ---- decoder (kernels); the route is read here, once, so that a
+    # recompute takes the route its forward took
+    half = x2_half_route()
+    logits = run_section(
+        lambda xu, x1: decoder_train(dec, xu, x1, cnt_full, drops, half),
+        (dec,), x_up, x1s, remat=remat == "all")
     return logits.view(s, b, h, w, -1).transpose(0, 1).float()

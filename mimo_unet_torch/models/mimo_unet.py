@@ -21,18 +21,27 @@ and updates its running statistics in place (the JAX package returns them
 as new state).  Dropout is live in train mode and under ``mc_dropout``
 (BatchNorm then stays in eval mode); its masks come from an explicit
 ``DropoutSource`` (``ops/dropout.py``), drawn for every live site of
-``dropout_sites`` before the forward routes.  ``remat`` is not ported yet:
-a train forward that would need it raises ``NotImplementedError``.
+``dropout_sites`` before the forward routes.
+
+``remat`` ("none", "enc", "all"; train mode only) recomputes sections of
+the forward in the backward instead of keeping what they save, as the JAX
+package's ``jax.checkpoint`` wrapping does (mimo_unet_tpu/models/
+mimo_unet.py:237, :255, :281): "enc" the encoder, "all" also the core and
+the decoder, on both train routes (``run_section``).  The sections draw no
+randomness (the dropout masks enter as inputs), so the recompute replays
+the forward bit for bit, and it leaves the BatchNorm running statistics
+as the forward left them: they move once a step at every rung.
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from mimo_unet_torch.models.blocks import DoubleConv, Down, OutConv, Up
 from mimo_unet_torch.ops import max_pool_2x2_skip
@@ -44,6 +53,7 @@ from mimo_unet_torch.ops.dropout import (
 )
 
 CT_KERNEL_MODES = ("auto", "off", "force")
+REMAT_MODES = ("none", "enc", "all")
 
 
 def up_mode(bilinear: bool, use_pooling_indices: bool) -> str:
@@ -75,8 +85,8 @@ class MimoUNetConfig:
     # inputs, "off" never, "force" also on the CPU with each kernel's plain
     # PyTorch version (tests)
     ct_kernels: str = "auto"
-    # train-time rematerialization ladder of the JAX package; kept so the
-    # two configs carry the same fields (only "none" is ported)
+    # train-time rematerialization: "enc" recomputes the encoder in the
+    # backward, "all" also the core and the decoder (train/capacity.py)
     remat: str = "none"
 
     def __post_init__(self):
@@ -91,6 +101,9 @@ class MimoUNetConfig:
         if self.ct_kernels not in CT_KERNEL_MODES:
             raise ValueError(f"ct_kernels must be one of {CT_KERNEL_MODES}, "
                              f"got {self.ct_kernels!r}")
+        if self.remat not in REMAT_MODES:
+            raise ValueError(f"remat must be one of {REMAT_MODES}, "
+                             f"got {self.remat!r}")
 
     @property
     def factor(self) -> int:
@@ -104,11 +117,33 @@ class MimoUNetConfig:
     def torch_dtype(self) -> torch.dtype:
         return torch.bfloat16 if self.compute_dtype == "bfloat16" else torch.float32
 
-    def check_train_ported(self) -> None:
-        """Raise for what the train forward does not port yet."""
-        if self.remat != "none":
-            raise NotImplementedError(
-                f"remat={self.remat!r} is not ported yet (only 'none')")
+
+@contextlib.contextmanager
+def _buffers_kept(modules: Sequence[nn.Module]):
+    """Inside the block the modules' buffers may change; on leaving it they
+    hold again, bit for bit, what they held on entering it."""
+    kept = [(b, b.clone()) for m in modules for b in m.buffers()]
+    try:
+        yield
+    finally:
+        with torch.no_grad():
+            for b, v in kept:
+                b.copy_(v)
+
+
+def run_section(fn: Callable, modules: Sequence[nn.Module], *args,
+                remat: bool):
+    """``fn(*args)``; with ``remat`` under ``torch.utils.checkpoint``
+    (non-reentrant): the backward recomputes ``fn`` instead of keeping the
+    tensors it saves.  ``fn`` draws nothing random (the RNG state is not
+    kept), and its recompute leaves the buffers of ``modules`` (the
+    BatchNorm running statistics and ``num_batches_tracked`` the forward
+    updated) as the forward left them."""
+    if not remat:
+        return fn(*args)
+    return checkpoint(
+        fn, *args, use_reentrant=False, preserve_rng_state=False,
+        context_fn=lambda: (contextlib.nullcontext(), _buffers_kept(modules)))
 
 
 def dropout_sites(cfg: MimoUNetConfig, b: int, h: int, w: int
@@ -294,7 +329,6 @@ class MimoUNet(nn.Module):
             if sites:
                 drops = dropout.draw(sites, x.device)
         if self.training:
-            cfg.check_train_ported()
             if train_path_supported(cfg, x.shape, x.device, training=True):
                 return mimo_unet_apply_train(self, x, drops)
         elif (fast_path_supported(cfg, x.shape, x.device, training=False,
@@ -318,25 +352,41 @@ class MimoUNet(nn.Module):
         """The plain modules, one subnetwork at a time (reference
         model.py:167-173, :292-295), in the modules' mode, with the live
         dropout sites of ``drops``: in train mode each subnetwork's
-        BatchNorms see that subnetwork's batch."""
+        BatchNorms see that subnetwork's batch.  In train mode ``remat``
+        recomputes each subnetwork's in_conv + down1 ("enc", "all"), the
+        core and each subnetwork's up4 + out-conv ("all") in the backward
+        (``encoder_one``, ``core_fn`` and ``decoder_one`` of
+        mimo_unet_tpu/models/mimo_unet.py:222-281)."""
+        remat = self.config.remat if self.training else "none"
+        enc_remat, all_remat = remat in ("enc", "all"), remat == "all"
         x = x.to(self.config.torch_dtype)
         x1s, x2s = [], []
         for i, (in_conv, down1) in enumerate(
                 zip(self.encoder.in_convs, self.encoder.down1s)):
-            x1 = in_conv(x[:, i].permute(0, 3, 1, 2),
-                         drops.get(f"encoder.{i}.in_conv"))
+            def encoder_one(xi, i=i, in_conv=in_conv, down1=down1):
+                x1 = in_conv(xi.permute(0, 3, 1, 2),
+                             drops.get(f"encoder.{i}.in_conv"))
+                return x1, down1(x1, drop=drops.get(f"encoder.{i}.down1"))
+
+            x1, x2 = run_section(encoder_one, (in_conv, down1), x[:, i],
+                                 remat=enc_remat)
             x1s.append(x1)
-            x2s.append(down1(x1, drop=drops.get(f"encoder.{i}.down1")))
+            x2s.append(x2)
         # subnetwork-major channel concat (reference model.py:113)
-        x_up = self.core(torch.cat(x2s, dim=1), drops)
+        x_up = run_section(lambda xc: self.core(xc, drops), (self.core,),
+                           torch.cat(x2s, dim=1), remat=all_remat)
         logits = []
         for i, (up4, outc, x1) in enumerate(
                 zip(self.decoder.up4s, self.decoder.outcs, x1s)):
-            y = up4(x_up, x1, drops.get(f"decoder.{i}.up4"))
-            if f"decoder.{i}.final" in drops:
-                mask, keep = drops[f"decoder.{i}.final"]
-                y = apply_dropout(y, mask.permute(0, 3, 1, 2), keep)
-            logits.append(outc(y))
+            def decoder_one(xu, x1, i=i, up4=up4, outc=outc):
+                y = up4(xu, x1, drops.get(f"decoder.{i}.up4"))
+                if f"decoder.{i}.final" in drops:
+                    mask, keep = drops[f"decoder.{i}.final"]
+                    y = apply_dropout(y, mask.permute(0, 3, 1, 2), keep)
+                return outc(y)
+
+            logits.append(run_section(decoder_one, (up4, outc), x_up, x1,
+                                      remat=all_remat))
         # [B, S, C, H, W] -> [B, S, H, W, C]; the loss boundary is float32
         return torch.stack(logits, dim=1).permute(0, 1, 3, 4, 2).float()
 

@@ -41,6 +41,7 @@ from mimo_unet_torch.transforms import (
     flatten_subnetwork_dimension,
     repeat_subnetworks,
 )
+from mimo_unet_torch.utils import count_parameters
 
 _NO_RESCALE_KEYS = ("mask", "valid")
 
@@ -120,6 +121,16 @@ class MimoUnetTask:
     @property
     def loss_fn(self) -> UncertaintyLoss:
         return UncertaintyLoss.from_name(self.loss)
+
+    def hparams(self) -> dict:
+        """JSON-serializable hyperparameters, the JAX task's key for key
+        (mimo_unet_tpu/tasks/mimo.py:121): what a checkpoint carries to
+        rebuild its task (``train/checkpoint.py``)."""
+        return dataclasses.asdict(self) | {"task": "mimo_unet"}
+
+    def trainable_params(self, state: TrainState) -> int:
+        """The number of parameters the optimizer updates."""
+        return count_parameters(state.model)
 
     def build_model(self, device=None,
                     generator: Optional[torch.Generator] = None) -> MimoUNet:

@@ -1,1 +1,2 @@
-"""Training pieces of the port (optimizer and schedule)."""
+"""Training harness of the port: optimizer and schedule, trainer,
+checkpoints, the remat capacity ladder, profiling and logging."""

@@ -190,7 +190,16 @@ PORT_MODULES = [
     "mimo_unet_torch.metrics",
     "mimo_unet_torch.train",
     "mimo_unet_torch.train.optim",
+    "mimo_unet_torch.train.capacity",
+    "mimo_unet_torch.train.checkpoint",
+    "mimo_unet_torch.train.logging",
+    "mimo_unet_torch.train.profiling",
+    "mimo_unet_torch.train.trainer",
     "mimo_unet_torch.tasks.mimo",
+    "mimo_unet_torch.data",
+    "mimo_unet_torch.data.core",
+    "mimo_unet_torch.utils",
+    "mimo_unet_torch.visualization",
 ]
 
 

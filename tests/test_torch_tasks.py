@@ -8,6 +8,7 @@ package's pytree (see tests/test_torch_slice.py).
 import copy
 import dataclasses
 import functools
+import math
 
 import jax
 import jax.numpy as jnp
@@ -69,6 +70,30 @@ def test_losses_match_jax(name):
             _np(tl.calculate_dist_param(torch.from_numpy(std), log=log)),
             _np(jl.calculate_dist_param(jnp.asarray(std), log=log)),
             rtol=RTOL, atol=1e-6)
+
+
+@pytest.mark.parametrize("name", ["laplace_nll", "gaussian_nll"])
+def test_loss_clamp_at_exp_overflow(name):
+    """ROADMAP C.6: where exp(log-param) overflows f32 (log-param > 88.7)
+    the reference's in-place clamp gives the loss at eps_max; the
+    straight-through composition the JAX package uses gives NaN there.
+    Elsewhere the port's loss and gradient are the JAX package's."""
+    loss = UncertaintyLoss.from_name(name)
+    x = torch.tensor([100.0, -200.0, 0.5, 8.0], requires_grad=True)
+    mu, y = torch.zeros(4), torch.full((4,), 0.25)
+    per = loss(mu, x, y, reduce_mean=False)
+    eps_max = 1e3
+    assert torch.isfinite(per).all()
+    want = math.log(eps_max) + (0.25 / eps_max if name == "laplace_nll"
+                                else 0.25 ** 2 / eps_max)
+    assert float(per[0].detach()) == pytest.approx(want, rel=1e-6)
+    per[2:].sum().backward()
+    xj = jnp.asarray(x.detach().numpy()[2:])
+    gj = jax.grad(lambda a: JaxLoss.from_name(name)(
+        jnp.zeros(2), a, jnp.full((2,), 0.25), reduce_mean=False).sum())(xj)
+    np.testing.assert_allclose(_np(x.grad[2:]), np.asarray(gj), rtol=RTOL)
+    assert bool(jnp.isnan(JaxLoss.from_name(name)(
+        jnp.zeros(1), jnp.asarray([100.0]), jnp.full((1,), 0.25))))
 
 
 @pytest.mark.parametrize("s", [1, 3])
