@@ -160,9 +160,31 @@ Run from the root of the repository.  Phases, each raising on failure:
    per rung in turns at 256x256 and 640x480, B=64; and the capacity
    ladder (``make_train_step``) under a memory cap between "none"'s and
    "enc"'s peaks: it must choose "enc", bitwise a direct "enc" step.
-15. Print the kernels' JSON line (K10/K13 launches from phase 11, K4b and
-   K14 from phase 13), then the result line ``{"ok": true, "device":
-   {...}}`` last.
+15. The evidential (NIG) task, S=1, fbc 32, 4 outputs, bf16: every
+   kernel of its path at its call sites (K1/K2, K3 and K4 in a 256x256
+   B=32 forward; K5-K10, K12 and K13 in a 640x480 B=4 step) against its
+   plain version as in phases 3, 5 and 10, its time beside the
+   flagship's at the same site; one B=16 256x256 step's loss and
+   gradients against the plain and f32 models as in phase 9; 3
+   ``train_step``s at 256x256 B=64 whose counters must show exactly
+   phase 14's launches a step; ``val_step`` with a CPU batch as in phase
+   6; a profile of one B=64 step and step times at 256x256 B=64 and
+   640x480 B=16 (kernels vs plain); ``Trainer.fit`` for one epoch of
+   phase 14's frames, whose ``last/`` must load as an
+   ``EvidentialUnetTask`` bitwise the trained state; then, under
+   deterministic algorithms, ``make_predictions_evidential`` on the
+   loaded model and the flagship's ``make_predictions`` through
+   ``Ensemble.from_checkpoints`` of a port checkpoint and a
+   reference-format Lightning ``.ckpt`` written here, 64 frames in
+   batches of 32 at eps 0 and 0.01: the eval kernels exactly once per
+   batch and member (none in the FGSM gradient), the perturbed inputs in
+   [0, 1] and FGSM's wherever the gradient stands clear of rounding, the
+   NLL on them above the clean NLL, predictions against the plain
+   model's at phase 3's tolerance (the inputs bitwise), ms per batch.
+16. Print the kernels' JSON line (K10/K13 launches from phase 11, K4b and
+   K14 from phase 13; the evidential sites and launches as entries of
+   their own), then the result line ``{"ok": true, "device": {...}}``
+   last.
 
 Every time carries the card's name and power limit.  Exits non-zero,
 printing no result, without CUDA or outside the repo.
@@ -174,6 +196,7 @@ import contextlib
 import dataclasses
 import functools
 import json
+import math
 import os
 import subprocess
 import sys
@@ -369,7 +392,9 @@ def device_ms(fn, iters):
     once): then the events time the device alone, "queued".  A callable
     that synchronises or fills the launch queue is timed by
     ``torch.profiler`` instead, as the sum of its calls' device operations,
-    "profiler (synchronises)": never the host's time."""
+    "profiler (synchronises)": never the host's time, unless three traces
+    recorded no device operation, when the CUDA events' reading is given
+    and says so."""
     import torch
 
     fn()
@@ -396,20 +421,29 @@ def device_ms(fn, iters):
         if not late:
             return start.elapsed_time(end) / iters, "queued"
         wait *= 8
-    return busy_ms(lambda: [fn() for _ in range(iters)]) / iters, "profiler (synchronises)"
+    try:
+        return busy_ms(lambda: [fn() for _ in range(iters)]) / iters, "profiler (synchronises)"
+    except AssertionError:  # three traces without a device operation
+        return events_ms(fn, iters), "events: the profiler recorded nothing"
 
 
 def busy_ms(run):
     """Device time of ``run()``: the sum of its device operations' times in
-    one ``torch.profiler`` trace (the device's busy time, gaps left out)."""
+    one ``torch.profiler`` trace (the device's busy time, gaps left out).
+    A trace that recorded no device operation (seen once in a run: a K6
+    site read 0 ms) is taken again, at most twice; then the call raises."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        run()
-        torch.cuda.synchronize()
-    return sum(ev.time_range.elapsed_us() for ev in prof.events()
-               if ev.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            run()
+            torch.cuda.synchronize()
+        us = sum(ev.time_range.elapsed_us() for ev in prof.events()
+                 if ev.device_type == torch.autograd.DeviceType.CUDA)
+        if us > 0:
+            return us / 1e3
+    raise AssertionError("torch.profiler recorded no device operation in three traces")
 
 
 def cuda_ms(fn, iters):
@@ -549,15 +583,18 @@ def fdc_site(label, x1, dc, **kw):
                 seq=cudnn_seq(x1, dc, **kw), fdc=(x1, dc, kw))
 
 
-def eval_sites(dev, gen):
-    """The eval kernels at the flagship call-site shapes of
-    mimo_unet_torch/models/fast_path.py ``mimo_unet_apply_fast``."""
+def eval_sites(dev, gen, s=S, f=F, b=B, oc=2, tag=""):
+    """The eval kernels at the call-site shapes of
+    mimo_unet_torch/models/fast_path.py ``mimo_unet_apply_fast``: the
+    flagship's (S=2, fbc 21, B=32, 2 outputs), or ``s`` subnetworks of
+    ``f`` filters, ``b`` images and ``oc`` outputs, each label prefixed
+    with ``tag``."""
     import torch
     import torch.nn.functional as Fn
     from mimo_unet_torch import kernels as K
 
     bf = torch.bfloat16
-    fs = F * S
+    fs = f * s
 
     def act(*shape):
         return torch.randn(shape, device=dev, generator=gen).to(bf)
@@ -565,47 +602,49 @@ def eval_sites(dev, gen):
     def nchw(t):
         return t.permute(0, 3, 1, 2)
 
-    n = S * B
+    n = s * b
     sites = []
     x = act(n, HW, HW, 3)
-    sites.append(fdc_site("in_conv 3->21->21 @256 +hpool", x, _dc(dev, gen, S, 3, F, F),
-                          emit_hpool=True))
-    hp1 = act(n, HW // 2, HW, F)
-    sites.append(Site("pool_w", "down1 pool [64,128,256,21]",
+    sites.append(fdc_site(f"{tag}in_conv 3->{f}->{f} @256 +hpool", x,
+                          _dc(dev, gen, s, 3, f, f), emit_hpool=True))
+    hp1 = act(n, HW // 2, HW, f)
+    sites.append(Site("pool_w", f"{tag}down1 pool [{n},{HW // 2},{HW},{f}]",
                       lambda: K.pool_w(hp1), lambda: K.pool_w_plain(hp1), True,
                       hp1.numel() / 2, _nbytes((hp1.shape, 2)) * 1.5,
                       lambda: Fn.max_pool2d(nchw(hp1), (1, 2))))
-    p1 = act(n, HW // 2, HW // 2, F)
-    sites.append(fdc_site("down1 21->42->42 @128 +hpool +group_rows_out", p1,
-                          _dc(dev, gen, S, F, 2 * F, 2 * F), emit_hpool=True,
+    p1 = act(n, HW // 2, HW // 2, f)
+    sites.append(fdc_site(f"{tag}down1 {f}->{2 * f}->{2 * f} @128 +hpool +group_rows_out", p1,
+                          _dc(dev, gen, s, f, 2 * f, 2 * f), emit_hpool=True,
                           group_rows_out=True))
-    hp2 = act(B, HW // 4, HW // 2, 2 * fs)
-    sites.append(Site("pool_w", "core pool [32,64,128,84]",
+    hp2 = act(b, HW // 4, HW // 2, 2 * fs)
+    sites.append(Site("pool_w", f"{tag}core pool [{b},{HW // 4},{HW // 2},{2 * fs}]",
                       lambda: K.pool_w(hp2), lambda: K.pool_w_plain(hp2), True,
                       hp2.numel() / 2, _nbytes((hp2.shape, 2)) * 1.5,
                       lambda: Fn.max_pool2d(nchw(hp2), (1, 2))))
-    xu2 = act(B, HW // 4, HW // 4, 2 * fs)
-    sites.append(Site("upsample_w2x", "up3 W-half [32,64,64,84]",
+    xu2 = act(b, HW // 4, HW // 4, 2 * fs)
+    sites.append(Site("upsample_w2x", f"{tag}up3 W-half [{b},{HW // 4},{HW // 4},{2 * fs}]",
                       lambda: K.upsample_w2x(xu2),
                       lambda: K.upsample_w2x_plain(xu2), True,
                       3.0 * xu2.numel() * 2, _nbytes((xu2.shape, 2)) * 3,
                       lambda: Fn.interpolate(nchw(xu2), size=(HW // 4, HW // 2),
                                              mode="bilinear", align_corners=True)))
-    x2cat, xu2w = act(B, HW // 2, HW // 2, 2 * fs), act(B, HW // 4, HW // 2, 2 * fs)
-    sites.append(fdc_site("up3 (84+84)->84->42 @128 +x2_half_h", x2cat,
-                          _dc(dev, gen, 1, 4 * fs, 2 * fs, fs), x2=xu2w, x2_half_h=True))
-    xup = act(B, HW // 2, HW // 2, fs)
-    sites.append(Site("upsample_w2x", "decoder W-half [32,128,128,42]",
+    x2cat, xu2w = act(b, HW // 2, HW // 2, 2 * fs), act(b, HW // 4, HW // 2, 2 * fs)
+    sites.append(fdc_site(f"{tag}up3 ({2 * fs}+{2 * fs})->{2 * fs}->{fs} @128 +x2_half_h",
+                          x2cat, _dc(dev, gen, 1, 4 * fs, 2 * fs, fs), x2=xu2w,
+                          x2_half_h=True))
+    xup = act(b, HW // 2, HW // 2, fs)
+    sites.append(Site("upsample_w2x", f"{tag}decoder W-half [{b},{HW // 2},{HW // 2},{fs}]",
                       lambda: K.upsample_w2x(xup),
                       lambda: K.upsample_w2x_plain(xup), True,
                       3.0 * xup.numel() * 2, _nbytes((xup.shape, 2)) * 3,
                       lambda: Fn.interpolate(nchw(xup), size=(HW // 2, HW),
                                              mode="bilinear", align_corners=True)))
-    x1s, xupw = act(n, HW, HW, F), act(B, HW // 2, HW, fs)
-    wo = (torch.rand((S, F, 2), device=dev, generator=gen) * 2 - 1) / F ** 0.5
-    bo = torch.randn((S, 2), device=dev, generator=gen) * 0.1
-    sites.append(fdc_site("decoder (21+42)->31->21->2 @256 +x2_half_h +out-conv", x1s,
-                          _dc(dev, gen, S, F + fs, (F + fs) // 2, F), x2=xupw,
+    x1s, xupw = act(n, HW, HW, f), act(b, HW // 2, HW, fs)
+    wo = (torch.rand((s, f, oc), device=dev, generator=gen) * 2 - 1) / f ** 0.5
+    bo = torch.randn((s, oc), device=dev, generator=gen) * 0.1
+    sites.append(fdc_site(f"{tag}decoder ({f}+{fs})->{(f + fs) // 2}->{f}->{oc} @256 "
+                          f"+x2_half_h +out-conv", x1s,
+                          _dc(dev, gen, s, f + fs, (f + fs) // 2, f), x2=xupw,
                           x2_half_h=True, wo=wo, bo=bo))
     return _tc_marked(sites)
 
@@ -837,64 +876,66 @@ def elem_sites_256(dev, gen):
     return sites
 
 
-def prelu_sites(act, n, hh, ww, groups, affine, gen, dev, label):
-    """K12 forward and backward on a [n, hh, ww, F] decoder output with
-    [groups, F] affines: the backward with its kernel and reduce_groups
-    parts and its eager bf16 sequence."""
+def prelu_sites(act, n, hh, ww, groups, affine, gen, dev, label, f=F, oc=2):
+    """K12 forward and backward on a [n, hh, ww, f] decoder output with
+    [groups, f] affines and ``oc`` outputs: the backward with its kernel
+    and reduce_groups parts and its eager bf16 sequence."""
     import torch
     from mimo_unet_torch import kernels as K
 
     px = n * hh * ww
-    elem, logits = _nbytes(((n, hh, ww, F), 2)), _nbytes(((n, hh, ww, 2), 2))
-    y6 = act(n, hh, ww, F, scale=3.0)
-    sc6, sh6 = affine(F)
-    wo = (torch.rand((groups, F, 2), device=dev, generator=gen) * 2 - 1) / F ** 0.5
-    bo = torch.randn((groups, 2), device=dev, generator=gen) * 0.1
-    gl_ = act(n, hh, ww, 2, scale=0.01)
+    elem, logits = _nbytes(((n, hh, ww, f), 2)), _nbytes(((n, hh, ww, oc), 2))
+    y6 = act(n, hh, ww, f, scale=3.0)
+    sc6, sh6 = affine(f)
+    wo = (torch.rand((groups, f, oc), device=dev, generator=gen) * 2 - 1) / f ** 0.5
+    bo = torch.randn((groups, oc), device=dev, generator=gen) * 0.1
+    gl_ = act(n, hh, ww, oc, scale=0.01)
     return [Site("conv1x1_prelu", label,
                  lambda: K.conv1x1_prelu(y6, sc6, sh6, wo, bo),
                  lambda: K.conv1x1_prelu_plain(y6, sc6, sh6, wo, bo),
-                 False, px * (3.0 * F + 2.0 * F * 2), elem + logits,
+                 False, px * (3.0 * f + 2.0 * f * oc), elem + logits,
                  seq=lambda: prelu_seq(y6, sc6, sh6, wo, bo), seq_label="bf16_seq_ms"),
             Site("conv1x1_prelu_bwd", label,
                  lambda: K.conv1x1_prelu_bwd(gl_, y6, sc6, sh6, wo),
                  lambda: K.conv1x1_prelu_bwd_plain(gl_, y6, sc6, sh6, wo),
-                 False, px * (4.0 * F + 4.0 * F * 2), 2 * elem + logits,
+                 False, px * (4.0 * f + 4.0 * f * oc), 2 * elem + logits,
                  seq=lambda: prelu_bwd_seq(gl_, y6, sc6, sh6, wo), seq_label="bf16_seq_ms",
                  parts=prelu_bwd_parts(gl_, y6, sc6, sh6, wo))]
 
 
-def train_sites(dev, gen):
+def train_sites(dev, gen, s=S, f=F, oc=2, tag=""):
     """The train kernels at their call sites of
     mimo_unet_torch/models/fast_path.py ``mimo_unet_apply_train`` at
-    640x480, B=4 (n = S*B images, S-major); down1's at half resolution."""
+    640x480, B=4 (n = S*B images, S-major); down1's at half resolution.
+    The flagship's widths, or ``s`` subnetworks of ``f`` filters and
+    ``oc`` outputs, each label prefixed with ``tag``."""
     import torch
     import torch.nn.functional as Fn
     from mimo_unet_torch import kernels as K
 
     bf = torch.bfloat16
-    n = S * TB
-    c_up = F * S
-    mid = (F + c_up) // 2
+    n = s * TB
+    c_up = f * s
+    mid = (f + c_up) // 2
 
     def act(*shape, scale=1.0):
         return (torch.randn(shape, device=dev, generator=gen) * scale).to(bf)
 
     def weight(cin, o):
-        return ((torch.rand((S, 3, 3, cin, o), device=dev, generator=gen) * 2 - 1)
+        return ((torch.rand((s, 3, 3, cin, o), device=dev, generator=gen) * 2 - 1)
                 / (9 * cin) ** 0.5).to(bf).float()
 
     def affine(c):
-        return (torch.rand((S, c), device=dev, generator=gen) + 0.5,
-                torch.randn((S, c), device=dev, generator=gen) * 0.1)
+        return (torch.rand((s, c), device=dev, generator=gen) + 0.5,
+                torch.randn((s, c), device=dev, generator=gen) * 0.1)
 
     def lib_in(x1, x2=None):
         """The site's inputs as one NCHW (channels-last) tensor with the S
         groups on channels, reflect-padded: [B, S*C, H+2, W+2]."""
         hh, ww = x1.shape[1:3]
-        z = x1.view(S, TB, hh, ww, -1)
+        z = x1.view(s, TB, hh, ww, -1)
         if x2 is not None:
-            z = torch.cat([z, x2.unsqueeze(0).expand(S, *x2.shape)], dim=-1)
+            z = torch.cat([z, x2.unsqueeze(0).expand(s, *x2.shape)], dim=-1)
         z = z.permute(1, 0, 4, 2, 3).reshape(TB, -1, hh, ww)
         return Fn.pad(z, (1, 1, 1, 1), mode="reflect").contiguous(
             memory_format=torch.channels_last)
@@ -904,7 +945,7 @@ def train_sites(dev, gen):
 
     def lib_g(g):  # [S*B, H, W, O] -> [B, S*O, H, W]
         hh, ww = g.shape[1:3]
-        return g.view(S, TB, hh, ww, -1).permute(1, 0, 4, 2, 3).reshape(
+        return g.view(s, TB, hh, ww, -1).permute(1, 0, 4, 2, 3).reshape(
             TB, -1, hh, ww).contiguous(memory_format=torch.channels_last)
 
     sites = []
@@ -912,17 +953,18 @@ def train_sites(dev, gen):
     # the one without a prologue whose input needs a gradient (plain dx)
     h2, w2 = TH // 2, TW // 2
     x = act(n, TH, TW, 3)
-    y1, x1s, y5 = act(n, TH, TW, F), act(n, TH, TW, F), act(n, TH, TW, mid)
-    p1, y3 = act(n, h2, w2, F), act(n, h2, w2, 2 * F)
+    y1, x1s, y5 = act(n, TH, TW, f), act(n, TH, TW, f), act(n, TH, TW, mid)
+    p1, y3 = act(n, h2, w2, f), act(n, h2, w2, 2 * f)
     up = act(TB, TH, TW, c_up)
     convs = [
-        ("in_conv.conv1 3->21", x, None, weight(3, F), None),
-        ("in_conv.conv2 21->21 +prologue", y1, None, weight(F, F), affine(F)),
-        (f"down1.conv1 21->42 @{w2}x{h2}", p1, None, weight(F, 2 * F), None),
-        (f"down1.conv2 42->42 +prologue @{w2}x{h2}", y3, None, weight(2 * F, 2 * F),
-         affine(2 * F)),
-        ("decoder conv1 (21+42)->31 x2 period 4", x1s, up, weight(F + c_up, mid), None),
-        ("decoder conv2 31->21 +prologue", y5, None, weight(mid, F), affine(mid)),
+        (f"{tag}in_conv.conv1 3->{f}", x, None, weight(3, f), None),
+        (f"{tag}in_conv.conv2 {f}->{f} +prologue", y1, None, weight(f, f), affine(f)),
+        (f"{tag}down1.conv1 {f}->{2 * f} @{w2}x{h2}", p1, None, weight(f, 2 * f), None),
+        (f"{tag}down1.conv2 {2 * f}->{2 * f} +prologue @{w2}x{h2}", y3, None,
+         weight(2 * f, 2 * f), affine(2 * f)),
+        (f"{tag}decoder conv1 ({f}+{c_up})->{mid} x2 period {TB}", x1s, up,
+         weight(f + c_up, mid), None),
+        (f"{tag}decoder conv2 {mid}->{f} +prologue", y5, None, weight(mid, f), affine(mid)),
     ]
     for label, a1, a2, w, pro in convs:
         sc, sh = pro if pro is not None else (None, None)
@@ -935,8 +977,8 @@ def train_sites(dev, gen):
         w_bytes = _nbytes((w.shape, 2))
         y_bytes = _nbytes(((n, hh, ww, o), 2))
         g = act(n, hh, ww, o, scale=0.01)
-        ds = torch.randn((S, o), device=dev, generator=gen) * 1e-4
-        dq = torch.randn((S, o), device=dev, generator=gen) * 1e-6
+        ds = torch.randn((s, o), device=dev, generator=gen) * 1e-4
+        dq = torch.randn((s, o), device=dev, generator=gen) * 1e-6
         xl, wl = lib_in(a1, a2), lib_w(w)
         gl = lib_g(g)
         sites.append(Site(
@@ -944,7 +986,7 @@ def train_sites(dev, gen):
             lambda a1=a1, a2=a2, w=w, sc=sc, sh=sh: K.conv3x3_fwd(a1, w, x2=a2, scale=sc, shift=sh),
             lambda a1=a1, a2=a2, w=w, sc=sc, sh=sh: K.conv3x3_fwd_plain(a1, w, x2=a2, scale=sc, shift=sh),
             False, conv_flops, in_bytes + w_bytes + y_bytes,
-            lambda xl=xl, wl=wl: Fn.conv2d(xl, wl, groups=S)))
+            lambda xl=xl, wl=wl: Fn.conv2d(xl, wl, groups=s)))
         yk = K.conv3x3_fwd(a1, w, x2=a2, scale=sc, shift=sh)[0]
         sites.append(Site(
             "g_eff", f"{label}: y {o} ch",
@@ -953,7 +995,7 @@ def train_sites(dev, gen):
             True, 3.0 * cpx * o, 3 * y_bytes,
             seq=lambda g=g, yk=yk, ds=ds, dq=dq: g_eff_seq(g, yk, ds, dq),
             seq_label="bf16_seq_ms"))
-        dx_shape = (TB, S * cin, hh, ww)
+        dx_shape = (TB, s * cin, hh, ww)
         if a2 is not None:
             sites.append(Site(
                 "conv3x3_dx_fold", label,
@@ -961,7 +1003,7 @@ def train_sites(dev, gen):
                 lambda g=g, w=w, c1=c1, n2=n2: K.conv3x3_dx_fold_plain(g, w, c1, n2),
                 False, conv_flops, y_bytes + w_bytes + in_bytes,
                 lambda gl=gl, wl=wl, dx_shape=dx_shape: torch.nn.grad.conv2d_input(
-                    dx_shape, wl, gl, padding=1, groups=S)))
+                    dx_shape, wl, gl, padding=1, groups=s)))
         elif sc is not None or a1 is p1:  # down1's input needs its gradient
             sites.append(Site(
                 "conv3x3_dx", label,
@@ -970,23 +1012,23 @@ def train_sites(dev, gen):
                 False, conv_flops,
                 y_bytes + w_bytes + (1 if sc is None else 2) * in_bytes,
                 lambda gl=gl, wl=wl, dx_shape=dx_shape: torch.nn.grad.conv2d_input(
-                    dx_shape, wl, gl, padding=1, groups=S)))
+                    dx_shape, wl, gl, padding=1, groups=s)))
         sites.append(Site(
             "conv3x3_dw", label,
-            lambda g=g, a1=a1, a2=a2, sc=sc, sh=sh: K.conv3x3_dw(g, a1, S, x2=a2, scale=sc, shift=sh),
-            lambda g=g, a1=a1, a2=a2, sc=sc, sh=sh: K.conv3x3_dw_plain(g, a1, S, x2=a2, scale=sc, shift=sh),
+            lambda g=g, a1=a1, a2=a2, sc=sc, sh=sh: K.conv3x3_dw(g, a1, s, x2=a2, scale=sc, shift=sh),
+            lambda g=g, a1=a1, a2=a2, sc=sc, sh=sh: K.conv3x3_dw_plain(g, a1, s, x2=a2, scale=sc, shift=sh),
             False, conv_flops,
             in_bytes + y_bytes + _nbytes((w.shape, 4)),
             lambda xl=xl, wl=wl, gl=gl: torch.nn.grad.conv2d_weight(
-                xl, wl.shape, gl, groups=S)))
+                xl, wl.shape, gl, groups=s)))
 
-    for label, hh, ww, c in (("in_conv output x1s 21 ch", TH, TW, F),
-                             (f"down1 output 42 ch @{w2}x{h2}", h2, w2, 2 * F)):
+    for label, hh, ww, c in ((f"{tag}in_conv output x1s {f} ch", TH, TW, f),
+                             (f"{tag}down1 output {2 * f} ch @{w2}x{h2}", h2, w2, 2 * f)):
         y2 = act(n, hh, ww, c, scale=3.0)
         sc2, sh2 = affine(c)
         sites += k8_sites(label, y2, act(n, hh, ww, c, scale=0.01), sc2, sh2, n, hh, ww, c)
-    return sites + prelu_sites(act, n, TH, TW, S, affine, gen, dev,
-                               "decoder bn2 + ReLU + out-conv 21->2")
+    return sites + prelu_sites(act, n, TH, TW, s, affine, gen, dev,
+                               f"{tag}decoder bn2 + ReLU + out-conv {f}->{oc}", f=f, oc=oc)
 
 
 def dropout_kernel_sites(dev, gen):
@@ -1079,10 +1121,12 @@ def dropout_kernel_sites(dev, gen):
                                f"decoder up4 Dropout2d + out-conv, groups={nb} @256")
 
 
-def resample_sites(dev, gen):
+def resample_sites(dev, gen, s=S, f=F, steps=((BIG_B, PATCH), (TB, NYU)), prefix=""):
     """K10 and K13 at their train call sites (models/fast_path.py
     ``mimo_unet_apply_train``): the flagship 256x256 step at B=64 (N = S*B
-    = 128 images) and the 640x480 step at B=4.  The pool's input is a ReLU
+    = 128 images) and the 640x480 step at B=4 (or ``s`` subnetworks of
+    ``f`` filters at the ``steps`` (B, size), each label prefixed with
+    ``prefix``).  The pool's input is a ReLU
     output, so all-zero windows tie; the pool's backward runs with the
     skip cotangent, as both sites run it, and once without at 640x480.
     Library calls: ``F.max_pool2d`` and ``F.interpolate`` (bilinear,
@@ -1114,10 +1158,10 @@ def resample_sites(dev, gen):
         return Fn.interpolate(t, scale_factor=2, mode="bilinear", align_corners=True)
 
     sites = []
-    for b, (h, w) in ((BIG_B, PATCH), (TB, NYU)):
-        n, tag = S * b, f"{h}x{w} B={b}"
-        for label, c, hh, ww in (("in_conv -> down1", F, h, w),
-                                 ("down1 -> core", 2 * F, h // 2, w // 2)):
+    for b, (h, w) in steps:
+        n, tag = s * b, f"{h}x{w} B={b}"
+        for label, c, hh, ww in ((f"{prefix}in_conv -> down1", f, h, w),
+                                 (f"{prefix}down1 -> core", 2 * f, h // 2, w // 2)):
             x = act(n, hh, ww, c, relu=True)
             y, g, gs = K.max_pool2x2(x), act(n, hh // 2, ww // 2, c), act(n, hh, ww, c)
             full = _nbytes(((n, hh, ww, c), 2))
@@ -1131,21 +1175,21 @@ def resample_sites(dev, gen):
                 lambda g=g, x=x, y=y, gs=gs: K.max_pool2x2_bwd(g, x, y, gs),
                 lambda g=g, x=x, y=y, gs=gs: K.max_pool2x2_bwd_plain(g, x, y, gs),
                 True, 2.0 * x.numel(), 3 * full + 2 * half, backward_of(pool, x, g)))
-            if b == TB and c == 2 * F:
+            if b == TB and c == 2 * f:
                 sites.append(Site(
                     "max_pool2x2_bwd", f"{label} {tag} no skip",
                     lambda g=g, x=x, y=y: K.max_pool2x2_bwd(g, x, y),
                     lambda g=g, x=x, y=y: K.max_pool2x2_bwd_plain(g, x, y),
                     True, 1.0 * x.numel(), 2 * full + 2 * half, backward_of(pool, x, g)))
-        c_up = F * S  # the core's output channels
+        c_up = f * s  # the core's output channels
         xu, gu = act(b, h // 2, w // 2, c_up), act(b, h, w, c_up)
         big = _nbytes((gu.shape, 2))
         sites.append(Site(
-            "upsample2x", f"decoder input {tag} [{b},{h // 2},{w // 2},{c_up}]",
+            "upsample2x", f"{prefix}decoder input {tag} [{b},{h // 2},{w // 2},{c_up}]",
             lambda xu=xu: K.upsample2x(xu), lambda xu=xu: K.upsample2x_plain(xu),
             True, 9.0 * gu.numel(), 1.25 * big, lambda xu=xu: interp(nchw(xu))))
         sites.append(Site(
-            "upsample2x_bwd", f"decoder input {tag}",
+            "upsample2x_bwd", f"{prefix}decoder input {tag}",
             lambda gu=gu: K.upsample2x_bwd(gu), lambda gu=gu: K.upsample2x_bwd_plain(gu),
             True, 7.5 * gu.numel(), 1.25 * big, backward_of(interp, xu, gu)))
     return sites
@@ -1322,6 +1366,9 @@ def _timed(fn, iters):
     return ms, f"{ms:.4f} ms" + ("" if how == "queued" else f" [{how}]")
 
 
+SITE_MS = {}  # device ms of every site check_kernels timed, by (kernel, site)
+
+
 def check_kernels(sites, card):
     """Every site's kernel against its plain version; returns per-kernel
     {max_abs_err, ms, plain_ms, bound_ms, bound_by, library_ms}, the
@@ -1349,6 +1396,7 @@ def check_kernels(sites, card):
         rec = stats.setdefault(st.name, {
             "max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
             "bound_by": None, "library_ms": None, "_ops_ms": 0.0, "_bytes_ms": 0.0})
+        SITE_MS[(st.name, st.site)] = ms
         rec["max_abs_err"] = max(rec["max_abs_err"], err)
         rec["ms"] += ms
         rec["plain_ms"] += plain_ms
@@ -1691,13 +1739,18 @@ def _grad_check(task, state, dev, card, b=TRAIN_B, min_cos=0.99, f32_ref=False,
     from mimo_unet_torch.loss_buffer import loss_buffer_init
     from mimo_unet_torch.models.mimo_unet import dropout_sites
     from mimo_unet_torch.ops.dropout import DropoutSource
+    from mimo_unet_torch.tasks.evidential import EvidentialUnetTask
     from mimo_unet_torch.tasks.mimo import device_normalize
     from mimo_unet_torch.transforms import apply_input_transform
 
     batch = device_normalize({k: v.to(dev) for k, v in
                               _frames(torch.Generator().manual_seed(5), b, hw).items()})
-    image_t, label_t, _ = apply_input_transform(
-        torch.Generator().manual_seed(6), batch["image"], batch["label"], None, S)
+    evidential = isinstance(task, EvidentialUnetTask)
+    if evidential:  # no input transform: one subnetwork
+        image_t, label_t = batch["image"], batch["label"]
+    else:
+        image_t, label_t, _ = apply_input_transform(
+            torch.Generator().manual_seed(6), batch["image"], batch["label"], None, S)
     sites = dropout_sites(task.model_config, image_t.shape[0], *hw)
     source = None
     if sites:  # one draw, given to every run
@@ -1712,8 +1765,11 @@ def _grad_check(task, state, dev, card, b=TRAIN_B, min_cos=0.99, f32_ref=False,
         model = t.build_model(dev)
         model.load_state_dict(state.model.state_dict())
         model.train()
-        loss = t.objective(model, image_t, label_t, None,
-                           loss_buffer_init(S, t.loss_buffer_size, dev), source)[0]
+        if evidential:
+            loss = t.objective(model, image_t, label_t, None, source)[0]
+        else:
+            loss = t.objective(model, image_t, label_t, None,
+                               loss_buffer_init(S, t.loss_buffer_size, dev), source)[0]
         loss.backward()
         results[name] = (float(loss.detach()), {k: p.grad.float() for k, p in
                                        model.named_parameters() if p.grad is not None})
@@ -2717,6 +2773,285 @@ def train_mc(dev, card):
     return launches, flaunch
 
 
+# ---- phase 15: the evidential task and the offline evaluation -------------
+
+EV_F, EV_OC = 32, 4          # the evidential U-Net: S=1, fbc 32 (the CLI default), 4 outputs
+EV_TAG = "evidential "       # the label prefix of its kernel sites
+EV_PRED_N, EV_EPS = 64, 0.01  # frames of the offline evaluation; its FGSM epsilon
+
+
+def _beside_flagship(ev_sites, flag_sites, card):
+    """Each evidential site's device time beside the flagship's at the
+    same call site (the lists pair by position)."""
+    for ev, fl in zip(ev_sites, flag_sites, strict=True):
+        if ev.name != fl[0]:
+            raise AssertionError(f"site lists out of step: {ev.name} vs {fl[0]}")
+        print(f"evidential {ev.name} [{ev.site[len(EV_TAG):]}] {SITE_MS[(ev.name, ev.site)]:.4f} "
+              f"ms vs flagship [{fl[1]}] {SITE_MS[fl]:.4f} ms ({card})")
+
+
+def _ev_frames(n, seed):
+    """``n`` float NYUv2-schema frames at 256x256 in [0, 1] (as the
+    evaluation scripts load them, normalized), as a dataset."""
+    from mimo_unet_torch.data.core import ArrayDataset
+
+    arrays = _nyu_arrays(n, seed)
+    return ArrayDataset({k: (v / 255.0).astype("float32") for k, v in arrays.items()})
+
+
+def _check_attack(clean, attacked, grad, eps, where):
+    """The FGSM inputs: in [0, 1]; where the gradient stands clear of
+    rounding (|g| > 1e-6 max|g|) exactly clip(x + eps sign(g)), so moved
+    unless clipped at the edge it points past."""
+    import torch
+
+    x, xa = torch.from_numpy(clean), torch.from_numpy(attacked)
+    if not (float(xa.min()) >= 0.0 and float(xa.max()) <= 1.0):
+        raise AssertionError(f"{where}: perturbed inputs outside [0, 1]")
+    strong = grad.abs() > 1e-6 * float(grad.abs().max())
+    want = torch.clamp(x + eps * torch.sign(grad), 0.0, 1.0)
+    edge = ((x == 0) & (grad < 0)) | ((x == 1) & (grad > 0))
+    moved = xa != x
+    if not torch.equal(xa[strong], want[strong]) or bool((strong & ~edge & ~moved).any()):
+        raise AssertionError(f"{where}: perturbed inputs are not FGSM's")
+    print(f"{where}: {float(moved.float().mean()):.4f} of the input moved, "
+          f"{float(strong.float().mean()):.4f} strong-gradient pixels all FGSM's")
+
+
+def _hold_predictions(got, want, where):
+    """(y_pred, aleatoric, epistemic) of the kernel route against the plain
+    model's at phase 3's tolerance; the inputs bitwise (both gradients run
+    the plain modules)."""
+    import numpy as np
+    import torch
+
+    if not np.array_equal(got[0], want[0]):
+        raise AssertionError(f"{where}: the perturbed inputs differ from the plain model's")
+    errs = [compare(f"{where} {name}", torch.from_numpy(g), torch.from_numpy(w), False)
+            for name, g, w in zip(("y_pred", "aleatoric", "epistemic"), got[1:4], want[1:4])]
+    print(f"{where}: predictions vs the plain model, max abs {errs}")
+
+
+def _timed_call(fn, batches, where, card):
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    print(f"{where}: {(time.perf_counter() - t0) * 1e3 / batches:.2f} ms per batch of "
+          f"{EV_PRED_N // batches} ({card})", flush=True)
+    return out
+
+
+def _ev_eval(task, model, card, dev):
+    """make_predictions_evidential at eps 0 and EV_EPS: eval kernels once
+    per batch's final forward and nothing else, the FGSM inputs, the NLL
+    raised, predictions against the plain model.  Returns the eps-0
+    launches."""
+    import torch
+    from mimo_unet_torch import kernels as K
+    from mimo_unet_torch.eval import make_predictions_evidential
+    from mimo_unet_torch.eval.fgsm import input_gradient
+    from mimo_unet_torch.models.mimo_unet import eval_mode
+
+    ds, nb = _ev_frames(EV_PRED_N, 50), EV_PRED_N // B
+    off_task, off_model = _plain_copy(task, model, dev)
+    first = {k: torch.from_numpy(v[:B]).to(dev) for k, v in ds[slice(0, B)].items()}
+    nll, launches = {}, None
+    with _deterministic():  # FGSM gradients recomputed below, bit for bit
+        for eps in (0.0, EV_EPS):
+            K.reset_launch_counts()
+            got = _timed_call(lambda: make_predictions_evidential(task, model, ds, B, eps), nb,
+                              f"make_predictions_evidential eps={eps} B={B} (deterministic algorithms)", card)
+            counted = _launches_since({k: nb * v for k, v in EVAL_LAUNCHES.items()},
+                                      f"make_predictions_evidential eps={eps}")
+            if eps == 0.0:
+                launches = counted
+            _hold_predictions(got, make_predictions_evidential(off_task, off_model, ds, B, eps),
+                              f"make_predictions_evidential eps={eps}")
+            x = torch.from_numpy(got[0][:B]).to(dev)
+            with torch.no_grad(), eval_mode(model):
+                nll[eps] = float(task.loss_fn(task.forward(model, x), first["label"],
+                                              reduce_mean=True))
+            if eps > 0:
+                with eval_mode(model):
+                    g = input_gradient(lambda xx: task.loss_fn(task.forward(model, xx),
+                                                               first["label"], reduce_mean=True),
+                                       first["image"])
+                _check_attack(ds[slice(0, B)]["image"], got[0][:B], g.cpu(), eps,
+                              "make_predictions_evidential FGSM")
+    print(f"evidential NLL on the first batch: clean {nll[0.0]}, FGSM eps={EV_EPS} "
+          f"{nll[EV_EPS]}")
+    if not nll[EV_EPS] > nll[0.0]:
+        raise AssertionError("FGSM did not raise the evidential NLL")
+    return launches
+
+
+def _flagship_eval(dev, card, root):
+    """The flagship's make_predictions through Ensemble.from_checkpoints of
+    a port checkpoint and a reference-format Lightning .ckpt the phase
+    writes, at eps 0 and EV_EPS, as _ev_eval holds the evidential one."""
+    import dataclasses as dc
+
+    import torch
+    from mimo_unet_torch import kernels as K
+    from mimo_unet_torch.eval import make_fgsm_fn, make_predictions
+    from mimo_unet_torch.eval.fgsm import input_gradient
+    from mimo_unet_torch.models.ensemble import Ensemble
+    from mimo_unet_torch.train.checkpoint import save_checkpoint
+    from mimo_unet_torch.transforms import repeat_subnetworks
+
+    task, model = _flagship(dev)
+    state = task.init_state(1, dev)
+    state.model.load_state_dict(model.state_dict())
+    port_path = os.path.join(root, "flagship")
+    save_checkpoint(port_path, state, task.hparams())
+    other = dc.replace(task, seed=7)
+    ref_path = os.path.join(root, "reference.ckpt")
+    torch.save({"state_dict": {f"model._orig_mod.{k}": v.cpu() for k, v in
+                               other.build_model(dev).state_dict().items()},
+                "hyper_parameters": {**dc.asdict(other), "task": "mimo_unet"},
+                "epoch": 0}, ref_path)
+    ens = Ensemble.from_checkpoints([port_path, ref_path], return_raw_predictions=True,
+                                    device=dev)
+    if [t for t, _ in ens.members] != [task, other]:
+        raise AssertionError("Ensemble.from_checkpoints: members out of order")
+    plain = Ensemble([_plain_copy(t, m, dev) for t, m in ens.members],
+                     return_raw_predictions=True)
+    ds, nb = _ev_frames(EV_PRED_N, 51), EV_PRED_N // B
+    first = {k: torch.from_numpy(v).to(dev) for k, v in ds[slice(0, B)].items()}
+    label_rep = repeat_subnetworks(first["label"], ens.output_width)
+    nll = {}
+    with _deterministic():  # FGSM gradients recomputed below, bit for bit
+        for eps in (0.0, EV_EPS):
+            K.reset_launch_counts()
+            got = _timed_call(lambda: make_predictions(ens, ds, B, eps), nb,
+                              f"flagship make_predictions (2 members) eps={eps} B={B} (deterministic "
+                              f"algorithms)", card)
+            _launches_since({k: 2 * nb * v for k, v in EVAL_LAUNCHES.items()},
+                            f"flagship make_predictions eps={eps}")
+            _hold_predictions(got, make_predictions(plain, ds, B, eps),
+                              f"flagship make_predictions eps={eps}")
+            _, p1, p2 = make_fgsm_fn(ens, eps)(first["image"], first["label"])
+            nll[eps] = float(ens.loss_fn(p1, p2, label_rep))
+            if eps > 0:
+                g = input_gradient(lambda x: ens.loss_fn(*ens.raw_forward_grad(x), label_rep),
+                                   first["image"])
+                _check_attack(ds[slice(0, B)]["image"], got[0][:B], g.cpu(), eps,
+                              "flagship make_predictions FGSM")
+    print(f"flagship NLL on the first batch: clean {nll[0.0]}, FGSM eps={EV_EPS} {nll[EV_EPS]}")
+    if not nll[EV_EPS] > nll[0.0]:
+        raise AssertionError("FGSM did not raise the flagship NLL")
+
+
+def evidential(dev, card, flagship_sites):
+    """Phase 15; returns the evidential kernels' stats and launches (the
+    train kernels' over the three B=64 steps, the eval kernels' over the
+    eps-0 make_predictions_evidential)."""
+    import shutil
+    import tempfile
+
+    import torch
+    from mimo_unet_torch import kernels as K
+    from mimo_unet_torch.models.fast_path import fast_path_supported, train_path_supported
+    from mimo_unet_torch.tasks.evidential import EvidentialUnetTask
+    from mimo_unet_torch.train.checkpoint import load_checkpoint
+    from mimo_unet_torch.train.trainer import Trainer
+
+    t0 = time.perf_counter()
+    # the evidential NYUv2-depth task: S=1, fbc 32, 4 outputs, bf16, lr 1e-3
+    task = EvidentialUnetTask(in_channels=3, filter_base_count=EV_F, learning_rate=1e-3,
+                              compute_dtype="bfloat16")
+    cfg = task.model_config
+    if not (train_path_supported(cfg, (BIG_B, 1, *PATCH, 3), dev, training=True)
+            and train_path_supported(cfg, (TRAIN_B, 1, *NYU, 3), dev, training=True)
+            and fast_path_supported(cfg, (B, 1, *PATCH, 3), dev, training=False)):
+        raise AssertionError("the evidential configuration does not take the kernel routes")
+
+    # the kernels at the evidential call sites, beside the flagship's
+    lists = {
+        "eval": _redesigned(eval_sites(dev, torch.Generator(device=dev).manual_seed(40), s=1,
+                                       f=EV_F, oc=EV_OC, tag=EV_TAG)),
+        "train": _redesigned(_tc_marked(train_sites(
+            dev, torch.Generator(device=dev).manual_seed(41), s=1, f=EV_F, oc=EV_OC,
+            tag=EV_TAG))),
+        "resample": _redesigned(resample_sites(
+            dev, torch.Generator(device=dev).manual_seed(42), s=1, f=EV_F,
+            steps=((TB, NYU),), prefix=EV_TAG)),
+    }
+    stats = {}
+    for kind, sites in lists.items():
+        stats.update(check_kernels(sites, card))
+        _beside_flagship(sites, flagship_sites[kind], card)
+    del lists
+    torch.cuda.empty_cache()
+
+    # one step's gradients, three steps' launches, validation, profile, times
+    spe = -(-795 // BIG_B)
+    state = task.init_state(spe, dev)
+    _grad_check(task, state, dev, card, f32_ref=True, hw=PATCH)
+    torch.cuda.empty_cache()
+    gen = torch.Generator().manual_seed(43)
+    batches = [_frames(gen, BIG_B, PATCH) for _ in range(3)]
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    for i, batch in enumerate(batches):
+        state, logs, _ = task.train_step(state, batch)
+        loss = float(logs["train_loss"])
+        print(f"evidential 256x256 train step {i} B={BIG_B}: loss {loss:.5f}")
+        if not math.isfinite(loss):
+            raise AssertionError(f"evidential step {i}: non-finite loss")
+    launches = _launches_since({k: 3 * v for k, v in STEP_LAUNCHES.items()},
+                               "evidential 256x256 B=64 steps")
+    if not all(bool(torch.isfinite(p).all()) for p in state.model.parameters()):
+        raise AssertionError("non-finite parameters after 3 evidential steps")
+    _val_after_train(task, state.model, gen)
+    _profile_step(task, state, _frames(gen, BIG_B, PATCH), card, f"evidential 256x256 B={BIG_B}")
+    plain = dataclasses.replace(task, ct_kernels="off")
+    for b, hw in ((BIG_B, PATCH), (TRAIN_B, NYU)):
+        _time_steps(task, state, gen, b, 3, card, "evidential, kernels", hw)
+        pstate = plain.init_state(spe, dev)
+        _time_steps(plain, pstate, gen, b, 3, card, "evidential, plain (cuDNN bf16)", hw)
+        del pstate
+        torch.cuda.empty_cache()
+    del state
+
+    # Trainer.fit, its last/ loaded, and the offline evaluation of both
+    # families
+    os.makedirs(os.path.join(REPO, "build"), exist_ok=True)  # git-ignored, not checked out
+    root = tempfile.mkdtemp(prefix="chip_smoke_ev_", dir=os.path.join(REPO, "build"))
+    try:
+        steps = HARNESS_TRAIN // BIG_B
+        trainer = Trainer(task, _harness_data(), max_epochs=1,
+                          checkpoint_path=os.path.join(root, "fit"), log_every_n_steps=2,
+                          log_images=False, device=dev)
+        K.reset_launch_counts()
+        fitted = trainer.fit()
+        want = {k: steps * v for k, v in STEP_LAUNCHES.items()}
+        want.update(EVAL_LAUNCHES)  # one val batch
+        _launches_since(want, "evidential Trainer.fit")
+        print(f"evidential Trainer.fit 1 epoch, {steps} steps: val_loss "
+              f"{trainer.history[0]['val_loss']} ({card})")
+        loaded_task, loaded = load_checkpoint(os.path.join(root, "fit", "last"), steps,
+                                              device=dev)
+        if not (isinstance(loaded_task, EvidentialUnetTask) and loaded_task == task):
+            raise AssertionError(f"last/ loaded as {loaded_task!r}")
+        _same_state(loaded, fitted, "evidential last/ loaded vs the trained state")
+        del fitted
+        ev_launches = _ev_eval(task, loaded.model, card, dev)
+        del loaded
+        torch.cuda.empty_cache()
+        _flagship_eval(dev, card, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    launches.update({k: ev_launches[k] for k in EVAL_LAUNCHES})
+    print(f"phase 15 (evidential task, offline evaluation): {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    return stats, launches
+
+
 def main() -> int:
     import torch
 
@@ -2751,8 +3086,10 @@ def main() -> int:
     os.environ[X2_HALF] = "0"  # the default decoder until phase 13
     from mimo_unet_torch import kernels as K
 
-    stats = check_kernels(_redesigned(
-        eval_sites(dev, torch.Generator(device=dev).manual_seed(0))), card)
+    flag_eval = eval_sites(dev, torch.Generator(device=dev).manual_seed(0))
+    stats = check_kernels(_redesigned(flag_eval), card)
+    flagship_sites = {"eval": [(st.name, st.site) for st in flag_eval]}
+    del flag_eval
     torch.cuda.empty_cache()
     extra, same = eval_extra_sites(dev, torch.Generator(device=dev).manual_seed(9))
     check_kernels(extra, card)  # times of these sites: printed, not summed
@@ -2766,9 +3103,11 @@ def main() -> int:
     serve_baselines(dev, card)
     serve_profile(dev, card)
     torch.cuda.empty_cache()
+    flag_train = train_sites(dev, torch.Generator(device=dev).manual_seed(1))
+    flagship_sites["train"] = [(st.name, st.site) for st in flag_train]
     stats.update(check_kernels(_redesigned(_tc_marked(
-        train_sites(dev, torch.Generator(device=dev).manual_seed(1))
-        + elem_sites_256(dev, torch.Generator(device=dev).manual_seed(11)))), card))
+        flag_train + elem_sites_256(dev, torch.Generator(device=dev).manual_seed(11)))), card))
+    del flag_train
     torch.cuda.empty_cache()
     trained = train(dev, card)
     torch.cuda.empty_cache()
@@ -2779,8 +3118,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     trained_mc, final = train_mc(dev, card)
     torch.cuda.empty_cache()
-    stats.update(check_kernels(_redesigned(
-        resample_sites(dev, torch.Generator(device=dev).manual_seed(3))), card))
+    flag_resample = resample_sites(dev, torch.Generator(device=dev).manual_seed(3))
+    flagship_sites["resample"] = [(st.name, st.site) for st in flag_resample
+                                  if f"{NYU[0]}x{NYU[1]} B={TB}" in st.site]
+    stats.update(check_kernels(_redesigned(flag_resample), card))
+    del flag_resample
     torch.cuda.empty_cache()
     patch = train_patch(dev, card)
     torch.cuda.empty_cache()
@@ -2810,11 +3152,19 @@ def main() -> int:
     launches.update({k.__name__: patch[k.__name__] for k in K.RESAMPLE_KERNELS})
     launches.update({k.__name__: halfed[k.__name__] for k in K.X2_HALF_KERNELS})
 
-    # ---- 15. results -------------------------------------------------------
-    print(json.dumps({"kernels": [
-        {"name": k, "route": "cuda", "source": KERNEL_INFO[k][0],
-         "replaces": KERNEL_INFO[k][1], "launches": launches[k], **stats[k]}
-        for k in KERNEL_INFO]}))
+    # ---- 15. the evidential task and the offline evaluation ------------------
+    torch.cuda.empty_cache()
+    ev_stats, ev_launches = evidential(dev, card, flagship_sites)
+
+    # ---- 16. results -------------------------------------------------------
+    rows = [{"name": k, "route": "cuda", "source": KERNEL_INFO[k][0],
+             "replaces": KERNEL_INFO[k][1], "launches": launches[k], **stats[k]}
+            for k in KERNEL_INFO]
+    rows += [{"name": f"{k} (evidential S=1 fbc {EV_F})", "route": "cuda",
+              "source": KERNEL_INFO[k][0], "replaces": KERNEL_INFO[k][1],
+              "launches": ev_launches[k], **ev_stats[k]}
+             for k in KERNEL_INFO if k in ev_stats]
+    print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

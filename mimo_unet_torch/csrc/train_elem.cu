@@ -72,9 +72,12 @@
 // into shared memory as 16-byte units by cp.async, the next tile's while
 // this one is computed.  A thread computes two pixels of a tile, each
 // one's OC sums in channel order (the rounding points and order of the
-// one-pixel-a-thread kernel it replaced: the same bits); the logits are
-// written to shared memory and stored as 16-byte units after the next
-// tile's barrier (one barrier a tile).
+// one-pixel-a-thread kernel it replaced: the same bits), reading a
+// pixel's channels from the staged tile eight at a time where C is a
+// multiple of 8 (16-byte units; scalar reads of lanes 2C bytes apart
+// conflict on the banks there); the logits are written to shared memory
+// and stored as 16-byte units after the next tile's barrier (one barrier
+// a tile).
 #include "common.cuh"
 #include "ptx.cuh"
 #include "stage.cuh"
@@ -302,7 +305,8 @@ __global__ void __launch_bounds__(K12_THREADS, K12F_PER_SM) conv1x1_kernel(
       const bf16* ya = ys + p * c;
       const bf16* yb = two ? ya + K12_THREADS * c : ya;
       float acc[2][OC] = {};
-      for (int ch = 0; ch < c; ++ch) {
+      // channel ch of both pixels into their sums
+      auto channel = [&](int ch, float za, float zb) {
         float r[RS];
 #pragma unroll
         for (int j = 0; j < RS; j += 4) {
@@ -312,7 +316,7 @@ __global__ void __launch_bounds__(K12_THREADS, K12F_PER_SM) conv1x1_kernel(
           r[j + 2] = f.z;
           r[j + 3] = f.w;
         }
-        float z[2] = {bf2f(ya[ch]), bf2f(yb[ch])};
+        float z[2] = {za, zb};
 #pragma unroll
         for (int u = 0; u < 2; ++u) {
           if constexpr (PRO) {
@@ -322,6 +326,22 @@ __global__ void __launch_bounds__(K12_THREADS, K12F_PER_SM) conv1x1_kernel(
 #pragma unroll
           for (int k = 0; k < OC; ++k) acc[u][k] = fmaf(z[u], r[W0 + k], acc[u][k]);
         }
+      };
+      if ((c & 7) == 0) {
+        // the lanes' pixels lie 2c bytes apart: at c = 16, 32, 48, 64 a
+        // warp's 2-byte reads of one channel fall on 2 to 8 of the 32
+        // banks (tools/k12_widths.py), so a pixel's channels are read
+        // eight at a time, as 16-byte units (c % 8 == 0: the units are
+        // the staged tile's own); the same values, in the same order
+        for (int c8 = 0; c8 < c; c8 += 8) {
+          float fa[8], fb[8];
+          unpack8(*reinterpret_cast<const uint4*>(ya + c8), fa);
+          unpack8(*reinterpret_cast<const uint4*>(yb + c8), fb);
+#pragma unroll
+          for (int j = 0; j < 8; ++j) channel(c8 + j, fa[j], fb[j]);
+        }
+      } else {
+        for (int ch = 0; ch < c; ++ch) channel(ch, bf2f(ya[ch]), bf2f(yb[ch]));
       }
 #pragma unroll
       for (int k = 0; k < OC; ++k) {

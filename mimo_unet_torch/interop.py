@@ -1,4 +1,5 @@
-"""Weight transplant from the JAX package's pytrees into the port.
+"""Weight transplant from the JAX package's pytrees into the port, and
+reference Lightning checkpoints.
 
 ``jax_pytree_to_state_dict`` is the exact inverse of
 ``mimo_unet_tpu/interop.py`` ``torch_state_dict_to_pytree`` (:108-150): it
@@ -18,11 +19,17 @@ A DoubleConv maps onto ``double_conv.{0,1,3,4}`` (conv, BN, conv, BN).
 over; Adam's moments start at zero on both sides and need no converter.
 Only arrays cross over (anything with ``__array__``), so this module needs
 no JAX.
+
+``load_reference_checkpoint`` reads a ``.ckpt`` of the PyTorch reference
+(``MimoUnetModel`` or ``EvidentialUnetModel``; ``mimo_unet_tpu/interop.py``
+:153-177): the port's module names are the reference's, so its state dict
+loads as it is once ``normalize_state_dict`` has stripped Lightning's
+``model.`` and torch.compile's ``_orig_mod.`` prefixes.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Any, Dict, Tuple
 
 import numpy as np
 import torch
@@ -94,3 +101,29 @@ def jax_loss_buffer_to_state(loss_buffer) -> LossBufferState:
     the port's, on the CPU."""
     return LossBufferState(buffer=_t(loss_buffer.buffer).float(),
                            index=int(np.asarray(loss_buffer.index)))
+
+
+def normalize_state_dict(sd: Dict[str, Any]) -> Dict[str, Any]:
+    """Strip Lightning / torch.compile prefixes ('model.', '_orig_mod.')
+    (``mimo_unet_tpu/interop.py:96-106``)."""
+    out = {}
+    for k, v in sd.items():
+        for prefix in ("model.", "_orig_mod."):
+            while k.startswith(prefix):
+                k = k[len(prefix):]
+        k = k.replace("._orig_mod.", ".")
+        out[k] = v
+    return out
+
+
+def load_reference_checkpoint(path: str) -> Tuple[Dict[str, torch.Tensor], dict]:
+    """A Lightning checkpoint of the PyTorch reference -> (the ``MimoUNet``
+    state dict on the CPU, hyperparameters), the counterpart of
+    ``mimo_unet_tpu/interop.py:153-177``; the model's configuration comes
+    from the task the hyperparameters build (``train/checkpoint.py``).
+    The file is a pickle (Lightning's hyperparameters are objects), so it
+    is read with ``weights_only=False``, as the JAX package reads it: load
+    only checkpoints you trust."""
+    ckpt = torch.load(path, map_location="cpu", weights_only=False)
+    return (normalize_state_dict(dict(ckpt["state_dict"])),
+            dict(ckpt.get("hyper_parameters", {})))

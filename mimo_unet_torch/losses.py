@@ -1,10 +1,12 @@
-"""Probabilistic regression losses: Gaussian and Laplace NLL.
+"""Probabilistic regression losses: Gaussian and Laplace NLL, and the
+evidential (Normal-Inverse-Gamma) loss.
 
-Counterpart of ``mimo_unet_tpu/losses.py`` (reference mimo/losses.py:39-192).
+Counterpart of ``mimo_unet_tpu/losses.py`` (reference mimo/losses.py:39-271).
 The reference clamps the exponentiated parameter in place under
 ``torch.no_grad()``: the forward sees the clamped value, the backward the
 unclamped ``exp``.  ``_clamp_no_grad`` is that straight-through composition.
-The evidential loss is not ported yet.
+``EvidentialLoss`` reads the four NIG parameters channels-last, ``[..., 4]``,
+as the JAX package does.
 """
 
 from __future__ import annotations
@@ -119,3 +121,59 @@ class LaplaceNLL(UncertaintyLoss):
     def calculate_dist_param(self, std, *, log: bool = False):
         param = _clamp_no_grad(std / math.sqrt(2.0), self.eps_min, self.eps_max)
         return torch.log(param) if log else param
+
+
+def evidential_nig_loss(mu: torch.Tensor, v: torch.Tensor, alpha: torch.Tensor,
+                        beta: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """Deep evidential regression sum-of-squares loss + regulariser,
+    elementwise (reference losses.py:203-238, ``mimo_unet_tpu/losses.py``
+    ``evidential_nig_loss``): the gamma ratio is ``exp(lgamma)`` over
+    ``exp(lgamma)``, as there, overflow included."""
+    def gamma_fn(x):
+        return torch.exp(torch.lgamma(x))
+
+    coeff = gamma_fn(alpha - 0.5) / (4.0 * gamma_fn(alpha) * v * torch.sqrt(beta))
+    second_term = 2.0 * beta * (1.0 + v) + (2.0 * alpha - 1.0) * v * torch.square(
+        targets - mu)
+    l_sos = coeff * second_term
+    l_reg = torch.square(targets - mu) * (2.0 * alpha + v)
+    return l_sos + l_reg
+
+
+class EvidentialLoss:
+    """Normal-Inverse-Gamma evidential loss (reference losses.py:195-271).
+    ``evidential_output`` packs (gamma, v, alpha, beta) on the last axis,
+    ``[B, H, W, 4]``; ``y_true`` is ``[B, H, W, 1]``."""
+
+    num_distribution_params = 4
+
+    def __init__(self, coeff: float = 1.0):
+        self.coeff = coeff
+
+    @property
+    def name(self) -> str:
+        return "evidential"
+
+    def __call__(self, evidential_output: torch.Tensor, y_true: torch.Tensor, *,
+                 mask: Optional[torch.Tensor] = None,
+                 reduce_mean: bool = False) -> torch.Tensor:
+        gamma, v, alpha, beta = evidential_output.unbind(-1)
+        loss = evidential_nig_loss(gamma, v, alpha, beta, y_true.squeeze(-1))
+        if mask is not None:
+            loss = loss * mask
+        return loss.mean() if reduce_mean else loss
+
+    @staticmethod
+    def mode(evidential_output):
+        return evidential_output[..., 0]
+
+    @staticmethod
+    def aleatoric_var(evidential_output):
+        alpha, beta = evidential_output[..., 2], evidential_output[..., 3]
+        return beta / (alpha - 1.0)
+
+    @staticmethod
+    def epistemic_var(evidential_output):
+        v, alpha, beta = (evidential_output[..., 1], evidential_output[..., 2],
+                          evidential_output[..., 3])
+        return beta / (v * (alpha - 1.0))

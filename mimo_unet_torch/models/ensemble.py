@@ -1,16 +1,19 @@
 """Inference-time ensembling over MIMO U-Net members, with MC dropout.
 
 Counterpart of ``mimo_unet_tpu/models/ensemble.py`` (reference
-mimo/models/ensemble.py:35-115) for in-memory members: every member
-``(task, model)`` runs ``max(1, monte_carlo_steps)`` passes, all
+mimo/models/ensemble.py:35-115): members are ``(task, model)`` pairs, or
+checkpoint paths through ``Ensemble.from_checkpoints`` (the port's
+checkpoint directories and reference Lightning ``.ckpt`` files, by
+``train/checkpoint.py`` ``load_checkpoint``).  Every member
+runs ``max(1, monte_carlo_steps)`` passes, all
 predictions concatenate on the subnetwork axis, and the result is the raw
 (p1, p2) or the uncertainty decomposition.  With ``monte_carlo_steps`` > 0
 the dropout sites are live at eval (BatchNorm stays in eval mode) and the
 passes fold into the batch of one forward, whose masks are drawn per image:
 the prediction axis is mc-major per member (JAX ensemble.py:112-136).
 ``predict`` serves any number of images in fixed-size batches, padding the
-last one.  Loading members from checkpoint paths and the stacked-member
-program are not ported yet.
+last one.  The stacked-member program (one program over the stacked
+parameters of same-architecture members) is not ported yet (ROADMAP A.4).
 """
 
 from __future__ import annotations
@@ -40,6 +43,10 @@ class Ensemble:
         names = {task.loss_fn.name for task, _ in self.members}
         if len(names) > 1:
             raise ValueError(f"ensemble members disagree on loss: {names}")
+        if names == {"evidential"}:
+            raise ValueError("an evidential task is no ensemble member: its "
+                             "predictions are (mu, v, alpha, beta), see "
+                             "eval.make_predictions_evidential")
         self.loss_fn = self.members[0][0].loss_fn
         self.return_raw_predictions = return_raw_predictions
         self.monte_carlo_steps = monte_carlo_steps
@@ -47,6 +54,28 @@ class Ensemble:
             dev = next(self.members[0][1].parameters()).device
             generator = torch.Generator(dev).manual_seed(0)
         self.generator = generator
+
+    @classmethod
+    def from_checkpoints(cls, checkpoint_paths: Sequence[str],
+                         monte_carlo_steps: int = 0,
+                         return_raw_predictions: bool = False,
+                         generator: Optional[torch.Generator] = None,
+                         device=None) -> "Ensemble":
+        """Members loaded from checkpoint paths, in order, on ``device``
+        (the card when None): the port's checkpoint directories and
+        reference ``.ckpt`` files (``load_checkpoint``), as the JAX
+        package's ``Ensemble(checkpoint_paths)``; members whose losses
+        disagree are refused."""
+        from mimo_unet_torch.train.checkpoint import load_checkpoint
+
+        if not checkpoint_paths:
+            raise ValueError("need at least one checkpoint")
+        members = []
+        for path in checkpoint_paths:
+            task, state = load_checkpoint(path, device=device)
+            members.append((task, state.model.eval()))
+        return cls(members, return_raw_predictions=return_raw_predictions,
+                   monte_carlo_steps=monte_carlo_steps, generator=generator)
 
     @property
     def output_width(self) -> int:
@@ -62,6 +91,14 @@ class Ensemble:
         Each member runs in eval mode, whatever mode it is in (restored
         after): BatchNorm by its running statistics, which stay as they
         are; the MC passes' dropout is live through ``mc_dropout``."""
+        return self.raw_forward_grad(image)
+
+    def raw_forward_grad(self, image: torch.Tensor
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """``raw_forward`` as autograd sees it: with grad enabled and an
+        ``image`` that requires it, every member runs its plain modules
+        (the eval kernels carry no gradient; ``MimoUNet.forward``), so an
+        input gradient (FGSM, ``eval/fgsm.py``) flows."""
         mc = max(1, self.monte_carlo_steps)
         live = self.monte_carlo_steps > 0
         source = DropoutSource(generator=self.generator) if live else None

@@ -1,5 +1,6 @@
 """Tasks (PyTorch)."""
 
+from mimo_unet_torch.tasks.evidential import EvidentialUnetTask
 from mimo_unet_torch.tasks.mimo import MimoUnetTask
 
-__all__ = ["MimoUnetTask"]
+__all__ = ["EvidentialUnetTask", "MimoUnetTask"]

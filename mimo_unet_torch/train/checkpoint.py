@@ -10,9 +10,10 @@ dicts, the loss buffer, ``step`` and both generators' states) and
 ``hparams.json`` with the JAX package's schema, key for key;
 ``load_checkpoint`` restores the task and the state from them.
 
-The port cannot read the JAX package's Orbax ``state/`` directories, nor
-(yet) a reference Lightning ``.ckpt`` file (ROADMAP A.4,
-``load_reference_checkpoint``).
+``load_checkpoint`` also reads a reference Lightning ``.ckpt`` file: the
+model from ``interop.load_reference_checkpoint``, a fresh optimizer (as
+the JAX package's ``_load_reference_ckpt``).  The port cannot read the JAX
+package's Orbax ``state/`` directories.
 
 hparams.json is committed after the state, never before: a crash
 mid-write must not leave fresh hparams (with new "best" metadata) next to
@@ -38,16 +39,15 @@ STATE_FILE = "state.pt"
 
 
 def _task_from_hparams(hparams: Dict[str, Any]):
+    from mimo_unet_torch.tasks.evidential import EvidentialUnetTask
     from mimo_unet_torch.tasks.mimo import MimoUnetTask
 
     kind = hparams.get("task", "mimo_unet")
-    if kind == "evidential_unet":
-        raise NotImplementedError("the evidential task is not ported yet "
-                                  "(ROADMAP A.4)")
-    if kind != "mimo_unet":
+    classes = {"mimo_unet": MimoUnetTask, "evidential_unet": EvidentialUnetTask}
+    if kind not in classes:
         raise ValueError(f"unknown task {kind!r} in hparams")
-    field_names = {f.name for f in dataclasses.fields(MimoUnetTask)}
-    return MimoUnetTask(**{k: v for k, v in hparams.items() if k in field_names})
+    field_names = {f.name for f in dataclasses.fields(classes[kind])}
+    return classes[kind](**{k: v for k, v in hparams.items() if k in field_names})
 
 
 def _to_host(obj):
@@ -145,12 +145,10 @@ def load_checkpoint(path: str, steps_per_epoch: int = 1, device=None):
     ``device`` (the card when None).
 
     ``steps_per_epoch`` builds the schedule, whose position the restored
-    state dict then sets.  A reference Lightning ``.ckpt`` file raises
-    (ROADMAP A.4)."""
-    if path.endswith(".ckpt"):
-        raise NotImplementedError("reading a reference Lightning .ckpt is not "
-                                  "ported yet (ROADMAP A.4, "
-                                  "load_reference_checkpoint)")
+    state dict then sets.  A reference Lightning ``.ckpt`` file gives its
+    task and model with a fresh optimizer (``_load_reference_ckpt``)."""
+    if path.endswith(".ckpt") and os.path.isfile(path):
+        return _load_reference_ckpt(path, steps_per_epoch, device)
     path = os.path.abspath(path)
     task = _task_from_hparams(load_hparams(path))
     state = task.init_state(steps_per_epoch, device)
@@ -165,6 +163,21 @@ def load_checkpoint(path: str, steps_per_epoch: int = 1, device=None):
     state.generator.set_state(payload["generator"])
     if payload["dropout_generator"] is not None:
         state.dropout_generator.set_state(payload["dropout_generator"])
+    return task, state
+
+
+def _load_reference_ckpt(path: str, steps_per_epoch: int, device=None):
+    """A reference Lightning checkpoint as (task, TrainState): the task
+    from its hyperparameters, the model's weights and BatchNorm statistics
+    from its state dict (strictly), everything else fresh.  Hyperparameters
+    that name no task give a MIMO task, as in the JAX package
+    (``mimo_unet_tpu/train/checkpoint.py:156``)."""
+    from mimo_unet_torch.interop import load_reference_checkpoint
+
+    sd, hparams = load_reference_checkpoint(path)
+    task = _task_from_hparams({"task": "mimo_unet", **hparams})
+    state = task.init_state(steps_per_epoch, device)
+    state.model.load_state_dict(sd)
     return task, state
 
 

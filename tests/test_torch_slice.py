@@ -195,7 +195,12 @@ PORT_MODULES = [
     "mimo_unet_torch.train.logging",
     "mimo_unet_torch.train.profiling",
     "mimo_unet_torch.train.trainer",
+    "mimo_unet_torch.tasks",
     "mimo_unet_torch.tasks.mimo",
+    "mimo_unet_torch.tasks.evidential",
+    "mimo_unet_torch.eval",
+    "mimo_unet_torch.eval.fgsm",
+    "mimo_unet_torch.eval.artifacts",
     "mimo_unet_torch.data",
     "mimo_unet_torch.data.core",
     "mimo_unet_torch.utils",

@@ -355,10 +355,12 @@ def _conv1x1_plain(y, sc, sh, wo, bo):
 # 510 pixels a group); per-image groups (groups = N); several tiles and
 # blocks a group (C = 21: 512-pixel tiles, 3072 pixels a group, 2 blocks
 # of 3 tiles; C = 128: 88-pixel tiles, 5 a group, 2 blocks) and partial
-# last tiles
+# last tiles; C = 32 and 64 at OC = 4 (a multiple of 8 channels: the
+# pixels read as 16-byte units; the evidential decoder's 32 -> 4)
 CONV1X1_SHAPES = [(1, 1, 2, 1, 5, 7), (1, 8, 2, 2, 4, 4), (21, 2, 2, 2, 15, 17),
                   (21, 1, 4, 1, 7, 9), (21, 8, 3, 1, 9, 11), (21, 2, 1, 1, 64, 48),
-                  (128, 2, 2, 1, 16, 25), (128, 8, 2, 1, 5, 6)]
+                  (128, 2, 2, 1, 16, 25), (128, 8, 2, 1, 5, 6), (32, 4, 1, 2, 17, 19),
+                  (64, 4, 2, 1, 9, 13)]
 
 
 @pytest.mark.parametrize("prologue", [True, False], ids=["conv1x1_prelu", "conv1x1"])
@@ -375,14 +377,16 @@ def test_conv1x1_fwd_emulated(lib, shape, prologue):
 
 def test_conv1x1_fwd_emulated_unaligned(lib):
     """Unaligned y and logits (every unit copied and stored element by
-    element), both entries, the same bits as from aligned tensors."""
+    element), both entries, at C = 21 and at C = 32 (read as 16-byte
+    units), the same bits as from aligned tensors."""
     gen = torch.Generator().manual_seed(14)
     for prologue in (True, False):
-        y, sc, sh, wo, bo = _conv1x1_case(gen, 21, 2, 2, 1, 8, 9, prologue)
-        out = _shifted(torch.full((2, 8, 9, 2), float("nan"), dtype=BF))
-        got = _conv1x1(lib, _shifted(y), sc, sh, wo, bo, out)
-        assert _same_bits(got, _conv1x1(lib, y, sc, sh, wo, bo))
-        _ulp_close(got, _conv1x1_plain(y, sc, sh, wo, bo))
+        for c, oc in ((21, 2), (32, 4)):
+            y, sc, sh, wo, bo = _conv1x1_case(gen, c, oc, 2, 1, 8, 9, prologue)
+            out = _shifted(torch.full((2, 8, 9, oc), float("nan"), dtype=BF))
+            got = _conv1x1(lib, _shifted(y), sc, sh, wo, bo, out)
+            assert _same_bits(got, _conv1x1(lib, y, sc, sh, wo, bo))
+            _ulp_close(got, _conv1x1_plain(y, sc, sh, wo, bo))
 
 
 def test_conv1x1_fwd_entries_refuse_past_their_limits(lib):

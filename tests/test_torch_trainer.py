@@ -41,6 +41,7 @@ from mimo_unet_tpu.tasks.mimo import MimoUnetTask as JaxTask
 from mimo_unet_tpu.visualization import output_monitor_images as jax_monitor_images
 
 from mimo_unet_torch.data import core
+from mimo_unet_torch.tasks.evidential import EvidentialUnetTask
 from mimo_unet_torch.tasks.mimo import MimoUnetTask
 from mimo_unet_torch.train import capacity, checkpoint, profiling
 from mimo_unet_torch.train.trainer import Trainer
@@ -445,17 +446,27 @@ def test_prefetch_on_cpu():
 
 
 def test_refusals_name_the_roadmap(tmp_path):
+    """The trainer refuses what is not ported (A.7, A.3), naming it; what
+    A.4 has ported loads: an evidential checkpoint gives an
+    EvidentialUnetTask, and a reference Lightning .ckpt its task and
+    weights."""
     task = MimoUnetTask(**SMALL)
     for kw, item in ((dict(num_devices=2), "A.7"), (dict(mesh=object()), "A.7"),
                      (dict(device_cache=True), "A.3")):
         with pytest.raises(NotImplementedError, match=item):
             _trainer(tmp_path, "x", 1, task, **kw)
-    with pytest.raises(NotImplementedError, match="A.4"):
-        checkpoint.load_checkpoint(str(tmp_path / "model.ckpt"))
-    (tmp_path / "ev").mkdir()
-    (tmp_path / "ev" / "hparams.json").write_text(json.dumps({"task": "evidential_unet"}))
-    with pytest.raises(NotImplementedError, match="A.4"):
-        checkpoint.load_checkpoint(str(tmp_path / "ev"), device="cpu")
+    ev = EvidentialUnetTask(in_channels=3, filter_base_count=4)
+    checkpoint.save_checkpoint(str(tmp_path / "ev"), ev.init_state(1, "cpu"), ev.hparams())
+    assert json.loads((tmp_path / "ev" / "hparams.json").read_text())["task"] == "evidential_unet"
+    got, _ = checkpoint.load_checkpoint(str(tmp_path / "ev"), device="cpu")
+    assert isinstance(got, EvidentialUnetTask) and got == ev
+    model = task.build_model("cpu")
+    torch.save({"state_dict": {f"model.{k}": v for k, v in model.state_dict().items()},
+                "hyper_parameters": dataclasses.asdict(task)}, tmp_path / "model.ckpt")
+    got, state = checkpoint.load_checkpoint(str(tmp_path / "model.ckpt"), device="cpu")
+    assert got == task
+    for k, v in model.state_dict().items():
+        assert torch.equal(state.model.state_dict()[k], v), k
 
 
 def test_profiling_on_cpu(tmp_path):
