@@ -181,7 +181,22 @@ Run from the root of the repository.  Phases, each raising on failure:
    [0, 1] and FGSM's wherever the gradient stands clear of rounding, the
    NLL on them above the clean NLL, predictions against the plain
    model's at phase 3's tolerance (the inputs bitwise), ms per batch.
-16. Print the kernels' JSON line (K10/K13 launches from phase 11, K4b and
+16. The data layer at the flagship's width (NYUv2's 640x480 frames, S=2,
+   fbc 21, B=16), on synthetic frames in NYUv2's uint8 schema made from a
+   seed: 4096 frames pinned with ``DeviceDataset`` (its gather bitwise
+   numpy's indexing for four index draws; ``nbytes``,
+   ``device_cache_budget_bytes()`` and the share of NYUv2's train split
+   that budget would pin, as arithmetic), one batch's data costs (the
+   gather on the card; the host-fed gather, native and numpy, and the
+   pinned staging on the host's clock); one epoch of
+   ``Trainer.fit(device_cache=True)`` on 1024 of them (every batch
+   gathered on the card, phase 14's launches a step, the loss falling,
+   ``last/`` loading bitwise); the same fit with a budget of half the
+   split (cached and host batches, every row once); images/s of the
+   cached and host-fed fits in turns, the native host gather serving
+   every host batch; two MC ``predict`` calls (4 passes, B=32) bitwise
+   equal with another request between them.
+17. Print the kernels' JSON line (K10/K13 launches from phase 11, K4b and
    K14 from phase 13; the evidential sites and launches as entries of
    their own), then the result line ``{"ok": true, "device": {...}}``
    last.
@@ -3052,6 +3067,313 @@ def evidential(dev, card, flagship_sites):
     return stats, launches
 
 
+# ---- phase 16: the device-resident dataset and the host loaders -----------
+
+DATA_PINNED, DATA_FIT, DATA_VAL = 4096, 1024, 16   # frames: pinned, fit on, validated
+FRAME_BYTES = NYU[0] * NYU[1] * 4       # an NYUv2 uint8 frame (3 channels) and its depth
+# NYUv2's train split in the commonly used release, about: the repo records
+# no exact count, so the share below is arithmetic on this figure
+NYU_TRAIN_ABOUT = 50_000
+C7_B = 32                               # images of the MC predict checked on the card
+
+
+class _StepRecorder:
+    """A task that records, for every train step, the kernels it launched
+    (the launch counters' difference: no wait on the card) and the ``row``
+    column of its batch where there is one; otherwise the task it wraps."""
+
+    def __init__(self, task):
+        self.task, self.rows, self.launches = task, [], []
+
+    def __getattr__(self, name):
+        return getattr(self.task, name)
+
+    def train_step(self, state, batch, **kw):
+        from mimo_unet_torch import kernels as K
+
+        if "row" in batch:
+            self.rows.append(batch["row"])
+        before = K.launch_counts()
+        out = self.task.train_step(state, batch, **kw)
+        self.launches.append({k: v - before[k] for k, v in K.launch_counts().items()
+                              if v != before[k]})
+        return out
+
+    def check_steps(self, where):
+        """Every step launched exactly phase 14's train kernels."""
+        bad = [i for i, got in enumerate(self.launches) if got != STEP_LAUNCHES]
+        if bad:
+            raise AssertionError(f"{where}: steps {bad[:5]} launched "
+                                 f"{self.launches[bad[0]]}, want {STEP_LAUNCHES}")
+
+
+def _frames_module(arrays, train_rows, with_rows=False):
+    """A DataModule over the first ``train_rows`` frames of ``arrays``
+    (views) and the DATA_VAL after them, batch TRAIN_B; ``with_rows`` adds
+    each train frame's index as a ``row`` column."""
+    import numpy as np
+    from mimo_unet_torch.data.core import ArrayDataset, DataModule
+
+    class Frames(DataModule):
+        batch_size = TRAIN_B
+
+        def __init__(self):
+            train = {k: v[:train_rows] for k, v in arrays.items()}
+            if with_rows:
+                train["row"] = np.arange(train_rows, dtype=np.int64)
+            self.train = ArrayDataset(train)
+            self.val = ArrayDataset({k: v[train_rows:train_rows + DATA_VAL]
+                                     for k, v in arrays.items()})
+
+        def setup(self):
+            pass
+
+        def train_dataset(self):
+            return self.train
+
+        def val_dataset(self):
+            return self.val
+
+    return Frames()
+
+
+def _pin_split(arrays, dev, card):
+    """DATA_PINNED frames pinned with DeviceDataset: its gather bitwise
+    numpy's indexing for a few index draws; nbytes, the budget and the
+    share of NYUv2's train split that the budget would pin; one batch's
+    data costs: the gather on the card, and the host-fed path's gather
+    (native and numpy) and its copy into a pinned buffer, on the host's
+    clock."""
+    import numpy as np
+    import torch
+    from mimo_unet_torch.data import _native
+    from mimo_unet_torch.data.core import (ArrayDataset, DeviceDataset,
+                                           device_cache_budget_bytes)
+
+    budget = device_cache_budget_bytes(dev)
+    ds = ArrayDataset(arrays)
+    t0 = time.perf_counter()
+    pinned = DeviceDataset(ds, device=dev)
+    torch.cuda.synchronize()
+    put_s = time.perf_counter() - t0
+    full = NYU_TRAIN_ABOUT * FRAME_BYTES
+    print(f"DeviceDataset: {len(pinned)} frames {NYU[0]}x{NYU[1]} uint8, nbytes {pinned.nbytes} "
+          f"({pinned.nbytes / 1e9:.4f} GB), put on the card in {put_s:.2f} s; "
+          f"device_cache_budget_bytes() before it {budget} ({budget / 1e9:.4f} GB) = "
+          f"{budget // FRAME_BYTES} frames of {FRAME_BYTES} bytes = "
+          f"{budget / full * 100:.2f} % of NYUv2's train split (about {NYU_TRAIN_ABOUT} frames, "
+          f"{full / 1e9:.1f} GB): a full split takes the partial cache ({card})", flush=True)
+    if pinned.nbytes != len(pinned) * FRAME_BYTES or pinned.data["image"].dtype != torch.uint8:
+        raise AssertionError(f"DeviceDataset: {pinned.nbytes} bytes, "
+                             f"{pinned.data['image'].dtype}")
+    rng = np.random.default_rng(41)
+    draws = [rng.integers(0, DATA_PINNED, TRAIN_B), np.sort(rng.choice(DATA_PINNED, TRAIN_B)),
+             np.full(TRAIN_B, DATA_PINNED - 1), rng.permutation(DATA_PINNED)[:TRAIN_B]]
+    for idx in draws:
+        got = pinned.gather(torch.as_tensor(idx, device=dev))
+        for k, v in got.items():
+            if v.device != dev or not np.array_equal(v.cpu().numpy(), arrays[k][idx]):
+                raise AssertionError(f"DeviceDataset.gather {k}: not numpy's rows {idx}")
+    print(f"DeviceDataset.gather: bitwise numpy indexing for {len(draws)} index draws of "
+          f"{TRAIN_B}")
+
+    idx = draws[0]
+    idx_dev = torch.as_tensor(idx, device=dev)
+    batch_bytes = TRAIN_B * FRAME_BYTES
+    ms, how = device_ms(lambda: pinned.gather(idx_dev), 20)
+    bound = 2 * batch_bytes / PEAK_BYTES * 1e3
+
+    def host_ms(fn, n=10):
+        fn()
+        ts = []
+        for _ in range(n):
+            t = time.perf_counter()
+            fn()
+            ts.append((time.perf_counter() - t) * 1e3)
+        return sorted(ts)[n // 2]
+
+    native = host_ms(lambda: ds[idx])
+    plain = host_ms(lambda: {k: v[idx] for k, v in arrays.items()})
+    batch = ds[idx]
+    bufs = {k: torch.empty(v.shape, dtype=torch.uint8, pin_memory=True) for k, v in batch.items()}
+
+    def stage():
+        for k, v in batch.items():
+            bufs[k].numpy()[...] = v
+
+    staged = host_ms(stage)
+    copy_ms = events_ms(lambda: [b.to(dev, non_blocking=True) for b in bufs.values()], 10)
+    print(f"one B={TRAIN_B} {NYU[0]}x{NYU[1]} batch ({batch_bytes} bytes): on-card gather "
+          f"{ms:.4f} ms ({how}; bound {bound:.4f} ms by bytes); host-fed: native gather "
+          f"{native:.3f} ms ({_native.DEFAULT_THREADS} threads), numpy gather {plain:.3f} ms, "
+          f"copy into pinned buffers {staged:.3f} ms (host clock, medians of 10), pinned copy to "
+          f"the card {copy_ms:.3f} ms (events) ({card})", flush=True)
+    del pinned, got
+    torch.cuda.empty_cache()
+
+
+def _data_fit(task, dm, dev, root, name, **kw):
+    """One epoch of Trainer.fit on ``dm``: the trainer, its state, and the
+    launch counters after it."""
+    import torch
+    from mimo_unet_torch import kernels as K
+    from mimo_unet_torch.train.trainer import Trainer
+
+    trainer = Trainer(task, dm, max_epochs=1, checkpoint_path=os.path.join(root, name),
+                      log_every_n_steps=8, log_images=False, device=dev, **kw)
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    state = trainer.fit()
+    torch.cuda.synchronize()
+    return trainer, state, K.launch_counts()
+
+
+def _cached_fit(task, arrays, dev, card, root):
+    """Trainer.fit(device_cache=True), one epoch of DATA_FIT frames: every
+    batch gathered on the card, each step's launches phase 14's and the
+    eval kernels' a validation forward, a finite loss that falls, and
+    last/ loading bitwise the trained state."""
+    from mimo_unet_torch.train.checkpoint import load_checkpoint
+
+    steps = DATA_FIT // TRAIN_B
+    recorder = _StepRecorder(task)
+    trainer, state, _ = _data_fit(recorder, _frames_module(arrays, DATA_FIT), dev, root,
+                                  "cached", device_cache=True)
+    recorder.check_steps("Trainer.fit(device_cache=True)")
+    want = {k: steps * v for k, v in STEP_LAUNCHES.items()}
+    want.update(EVAL_LAUNCHES)  # one val batch
+    launches = _launches_since(want, "Trainer.fit(device_cache=True)")
+    with open(os.path.join(root, "cached", "metrics.tsv")) as f:
+        rows = [json.loads(line) for line in f]
+    losses = [r["train_loss"] for r in rows if "train_loss" in r]
+    print(f"Trainer.fit(device_cache=True) 1 epoch, {steps} steps {NYU[0]}x{NYU[1]} B={TRAIN_B}: "
+          f"batches {dict(trainer.batches_fed)}, train losses {losses}, val "
+          f"{trainer.history[0]['val_loss']}, {trainer.history[0]['throughput_images_per_sec']:.2f}"
+          f" images/s, launches {launches} ({card})", flush=True)
+    if dict(trainer.batches_fed) != {"cached": steps} or state.step != steps:
+        raise AssertionError(f"cached fit: batches {dict(trainer.batches_fed)}, step {state.step}")
+    if not (all(map(math.isfinite, losses)) and len(losses) >= 4
+            and sum(losses[-2:]) < sum(losses[:2])):
+        raise AssertionError(f"cached fit: the train loss does not fall: {losses}")
+    _, loaded = load_checkpoint(os.path.join(root, "cached", "last"), steps, device=dev)
+    _same_state(loaded, state, "Trainer.fit(device_cache=True) last/ loaded vs the trained state")
+
+
+def _partial_fit(task, arrays, dev, card, root):
+    """The same fit with a budget of half the split: cached and host
+    batches both, every row once, each step at phase 14's launches."""
+    import torch
+    from mimo_unet_torch.data.core import dataset_nbytes
+
+    steps = DATA_FIT // TRAIN_B
+    dm = _frames_module(arrays, DATA_FIT, with_rows=True)
+    budget = dataset_nbytes(dm.train) // 2
+    recorder = _StepRecorder(task)
+    trainer, state, _ = _data_fit(recorder, dm, dev, root, "partial", device_cache=True,
+                                  device_cache_budget=budget)
+    rows = torch.cat(recorder.rows).cpu()
+    fed = dict(trainer.batches_fed)
+    print(f"Trainer.fit(device_cache=True, device_cache_budget={budget}) 1 epoch: batches {fed}, "
+          f"{rows.numel()} rows, {len(torch.unique(rows))} distinct, "
+          f"{trainer.history[0]['throughput_images_per_sec']:.2f} images/s ({card})", flush=True)
+    if not (fed.get("cached", 0) > 0 and fed.get("host", 0) > 0
+            and sum(fed.values()) == steps == state.step):
+        raise AssertionError(f"partial fit: batches {fed}, step {state.step}")
+    if not torch.equal(torch.sort(rows).values, torch.arange(DATA_FIT)):
+        raise AssertionError("partial fit: the epoch did not visit every row once")
+    recorder.check_steps("partial fit")
+
+
+def _fit_rates(task, arrays, dev, card, root):
+    """images/s of one epoch of Trainer.fit, device_cache on and off in
+    turns (on, off, off, on, on, off), with the native host gather
+    serving every host-fed batch."""
+    import statistics
+
+    from mimo_unet_torch.data import _native
+
+    dm = _frames_module(arrays, DATA_FIT)
+    rates = {True: [], False: []}
+    _native.reset_counts()
+    for turn, cached in enumerate((True, False, False, True, True, False)):
+        trainer, _, _ = _data_fit(task, dm, dev, root, f"rate{turn}", device_cache=cached)
+        rates[cached].append(trainer.history[0]["throughput_images_per_sec"])
+        want = {"cached" if cached else "host": DATA_FIT // TRAIN_B}
+        if dict(trainer.batches_fed) != want:
+            raise AssertionError(f"fit device_cache={cached}: batches {dict(trainer.batches_fed)}")
+    counts = dict(_native.counts)
+    print(f"host gathers by path over the host-fed fits: {counts}")
+    if counts.get(("gather_rows", "numpy"), 0) or not counts.get(("gather_rows", "native"), 0):
+        raise AssertionError(f"the native host gather did not serve every gather: {counts} "
+                             f"({_native.build_error})")
+    for cached, name in ((True, "device_cache=True"), (False, "host-fed")):
+        r = rates[cached]
+        print(f"Trainer.fit {name} {NYU[0]}x{NYU[1]} B={TRAIN_B}, {DATA_FIT // TRAIN_B} steps: "
+              f"images/s {[round(x, 3) for x in r]}, median {statistics.median(r):.3f}, spread "
+              f"{max(r) - min(r):.3f} ({card})", flush=True)
+    ratio = statistics.median(rates[True]) / statistics.median(rates[False])
+    print(f"Trainer.fit images/s device_cache=True / host-fed (medians): {ratio:.4f} ({card})",
+          flush=True)
+
+
+def _mc_predict_repeats(dev, card):
+    """C.7 on the card: two MC predict calls (monte_carlo_steps=4, B=32)
+    on the same images are bitwise equal, with another request between
+    them; another seed moves the answer."""
+    import numpy as np
+    import torch
+    from mimo_unet_torch.models.ensemble import Ensemble
+
+    task, model = _flagship(dev, **MC_RECIPE)
+    ens = Ensemble([(task, model)], monte_carlo_steps=MC_STEPS)
+    rng = torch.Generator().manual_seed(42)
+    images = torch.rand((C7_B, HW, HW, 3), generator=rng).numpy()
+    other = torch.rand((C7_B, HW, HW, 3), generator=rng).numpy()
+    with _deterministic():
+        first = ens.predict(images, batch_size=C7_B)
+        ens.predict(other, batch_size=C7_B)
+        again = ens.predict(images, batch_size=C7_B)
+        moved = ens.predict(images, batch_size=C7_B, seed=1)
+    same = all(np.array_equal(a, b) for a, b in zip(first, again))
+    shift = float(np.abs(moved[0] - first[0]).max())
+    print(f"MC predict x {MC_STEPS} passes B={C7_B}: two calls bitwise equal: {same}; seed 1 "
+          f"moves the mean by {shift} ({card})")
+    if not same or not shift > 0:
+        raise AssertionError("MC predict: two calls differ, or the seed moves nothing")
+
+
+def data_layer(dev, card):
+    """Phase 16: the device-resident dataset and the host loaders at the
+    flagship's full width (NYUv2 640x480 frames, S=2, fbc 21, B=16)."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    t0 = time.perf_counter()
+    arrays = _nyu_arrays(DATA_PINNED, 40, NYU)
+    print(f"{DATA_PINNED} synthetic frames in NYUv2's uint8 schema made in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    _pin_split(arrays, dev, card)
+    task = _train_task()
+    os.makedirs(os.path.join(REPO, "build"), exist_ok=True)  # git-ignored, not checked out
+    root = tempfile.mkdtemp(prefix="chip_smoke_data_", dir=os.path.join(REPO, "build"))
+    try:
+        _cached_fit(task, arrays, dev, card, root)
+        torch.cuda.empty_cache()
+        _partial_fit(task, arrays, dev, card, root)
+        torch.cuda.empty_cache()
+        _fit_rates(task, arrays, dev, card, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    del arrays
+    torch.cuda.empty_cache()
+    _mc_predict_repeats(dev, card)
+    torch.cuda.empty_cache()
+    print(f"phase 16 (device-resident dataset, host loaders): {time.perf_counter() - t0:.1f} s",
+          flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -3156,7 +3478,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     ev_stats, ev_launches = evidential(dev, card, flagship_sites)
 
-    # ---- 16. results -------------------------------------------------------
+    # ---- 16. the device-resident dataset and the host loaders ----------------
+    torch.cuda.empty_cache()
+    data_layer(dev, card)
+
+    # ---- 17. results -------------------------------------------------------
     rows = [{"name": k, "route": "cuda", "source": KERNEL_INFO[k][0],
              "replaces": KERNEL_INFO[k][1], "launches": launches[k], **stats[k]}
             for k in KERNEL_INFO]

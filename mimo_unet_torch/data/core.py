@@ -1,20 +1,25 @@
-"""Host data pipeline: numpy datasets, epoch batches, and a prefetcher that
-feeds the card.
+"""Data pipeline: numpy datasets, epoch batches, a prefetcher that feeds
+the card, and the split pinned on the card.
 
-Counterpart of ``mimo_unet_tpu/data/core.py`` (:29-129, :278, :490-526),
-copied: the port imports nothing of the JAX package.  Datasets are dicts
-of numpy arrays sharing the leading dimension (``ArrayDataset``);
-per-epoch shuffling is one permutation from ``numpy.random.default_rng(
-seed + epoch)``, so the port draws the JAX package's batches, and a batch
-is one fancy-index slice (the JAX package's native multithreaded gather,
-``data/_native``, is ROADMAP A.3; numpy's gather gives the same rows).
+Counterpart of ``mimo_unet_tpu/data/core.py`` (:29-129, :131-404,
+:490-526), copied: the port imports nothing of the JAX package.  Datasets
+are dicts of numpy arrays sharing the leading dimension
+(``ArrayDataset``); per-epoch shuffling is one permutation from
+``numpy.random.default_rng(seed + epoch)``, so the port draws the JAX
+package's batches, and a batch is one row gather, done by the native
+multithreaded gather (``data/_native``) where it serves, else by numpy.
 
 ``prefetch_to_device`` overlaps the host's batch assembly and the copy to
 the card with the step: a thread assembles the numpy batches; the
 consumer copies each into a pinned host buffer and issues its copy to the
 card on a side CUDA stream, one batch ahead of the one it hands out.
-The device-resident datasets (``DeviceDataset``, ``PartialDeviceDataset``)
-are ROADMAP A.3.
+
+``DeviceDataset`` puts a split on the card once (uint8 stays uint8) and
+gathers a batch there with one ``index_select`` a key, so a step's host
+work is drawing its rows.  ``PartialDeviceDataset`` pins what fits
+(``device_cache_budget_bytes``) and streams the rest; its epoch stream is
+the JAX package's, element for element, for the same seed and epoch.
+Pinning rows per card (the JAX ``mesh`` argument) is ROADMAP A.7.
 """
 
 from __future__ import annotations
@@ -45,6 +50,16 @@ class ArrayDataset:
         return len(next(iter(self.data.values())))
 
     def __getitem__(self, index) -> Batch:
+        """A 1-D index array gathers rows through the native gather where
+        it serves (``data/_native``, which counts the path), else numpy."""
+        if isinstance(index, np.ndarray) and index.ndim == 1:
+            from mimo_unet_torch.data import _native
+
+            out = {}
+            for k, v in self.data.items():
+                got = _native.gather_rows(v, index) if isinstance(v, np.ndarray) else None
+                out[k] = got if got is not None else v[index]
+            return out
         return {k: v[index] for k, v in self.data.items()}
 
     @property
@@ -94,8 +109,146 @@ def iterate_index_batches(
 
 
 def dataset_nbytes(dataset: ArrayDataset) -> int:
-    """Host-side size of a dataset's arrays."""
+    """Host-side size of a dataset's arrays (the device cache's capacity
+    gate)."""
     return sum(v.nbytes for v in dataset.data.values() if v is not None)
+
+
+class DeviceDataset:
+    """A split pinned on ``device`` (the card when None) with an on-device
+    batch gather.
+
+    The arrays go to the device once, in their own dtype (uint8 stays
+    uint8: an NYUv2 640x480 frame and its depth take 1.2288 MB), and
+    ``gather(idx)`` is one ``index_select`` a key with the index on the
+    device; ``device_normalize`` (``tasks/mimo.py``) then does the /255
+    there.  The JAX package's ``mesh`` (rows pinned per device, sampled
+    shard-locally, the partition drawn from ``seed``) is ROADMAP A.7 and
+    raises.
+    """
+
+    def __init__(self, dataset: ArrayDataset, device=None, mesh=None,
+                 seed: int = 0):
+        if mesh is not None:
+            raise NotImplementedError("pinning rows per card (mesh) is not ported "
+                                      "yet (ROADMAP A.7)")
+        self.n = len(dataset)
+        self.device = resolve_device(device)
+        self.data = {k: torch.as_tensor(np.ascontiguousarray(v)).to(self.device)
+                     for k, v in dataset.data.items() if v is not None}
+
+    def __len__(self) -> int:
+        return self.n
+
+    @property
+    def nbytes(self) -> int:
+        return sum(v.numel() * v.element_size() for v in self.data.values())
+
+    def gather(self, idx) -> Dict[str, torch.Tensor]:
+        """Rows ``idx`` [B] (numpy or a tensor) -> dict of [B, ...] on the
+        device."""
+        idx = torch.as_tensor(idx).to(self.device, non_blocking=True)
+        return {k: v.index_select(0, idx) for k, v in self.data.items()}
+
+
+def device_cache_budget_bytes(device=None) -> Optional[int]:
+    """Bytes the device cache may take: 60 % of the card's free memory
+    (``torch.cuda.mem_get_info``), so that the model, its activations and
+    the optimizer keep their headroom; None on the CPU, meaning no gate
+    (as the JAX function's for backends without a memory limit)."""
+    dev = torch.device("cuda") if device is None else torch.device(device)
+    if dev.type != "cuda" or not torch.cuda.is_available():
+        return None
+    free, _ = torch.cuda.mem_get_info(dev)
+    return int(0.6 * free)
+
+
+class PartialDeviceDataset:
+    """The device cache past its budget: a fixed random subset of rows
+    (chosen once with ``seed``) pinned on the device, the rest streamed
+    from the host.
+
+    Every row is visited once an epoch.  Pinned rows come as full
+    on-device-gather batches, host rows as host batches, in a seeded
+    interleaved order (reseeded per epoch); each batch is drawn from one
+    stratum (cached or streamed) of the fixed partition, as in the JAX
+    package (its docstring says how that differs from the uniform
+    sampler).
+    """
+
+    def __init__(self, dataset: ArrayDataset, max_bytes: int, device=None,
+                 seed: int = 0):
+        self.dataset = dataset
+        n = len(dataset)
+        row_bytes = max(dataset_nbytes(dataset) / max(n, 1), 1)
+        n_cache = min(n, int(max_bytes // row_bytes))
+        rng = np.random.default_rng(seed)
+        perm = rng.permutation(n)
+        self.cached_rows = np.sort(perm[:n_cache])
+        self.host_rows = perm[n_cache:]
+        sub = ArrayDataset({
+            k: np.ascontiguousarray(v[self.cached_rows])
+            for k, v in dataset.data.items() if v is not None
+        })
+        self.cached = DeviceDataset(sub, device=device)
+
+    def __len__(self) -> int:
+        return len(self.dataset)
+
+    @property
+    def n_cached(self) -> int:
+        return len(self.cached_rows)
+
+    @property
+    def nbytes(self) -> int:
+        return self.cached.nbytes
+
+    def epoch_batches(self, batch_size: int, *, seed: int = 0,
+                      epoch: int = 0, shuffle: bool = True,
+                      drop_last: bool = False):
+        """Yield ("cached", local_idx [B] int32) / ("host", batch dict)
+        items, the JAX function's stream (mimo_unet_tpu/data/core.py
+        :358-404).
+
+        Cached batches are always full ``batch_size``: the < B remainder
+        of the cached stream goes through the host stream (its rows live
+        on the host too, so none is dropped).  The host stream's ragged
+        tail is yielded unless ``drop_last`` (the trainer passes True, as
+        its host-fed path)."""
+        rng = np.random.default_rng(None if seed is None else seed + epoch)
+        nc = self.n_cached
+        if shuffle:
+            c_order = rng.permutation(nc)
+            h_extra = self.cached_rows[c_order[(nc // batch_size)
+                                               * batch_size:]]
+            c_order = c_order[: (nc // batch_size) * batch_size]
+            h_order = np.concatenate([self.host_rows, h_extra]).astype(
+                np.int64)
+            rng.shuffle(h_order)
+        else:
+            c_order = np.arange((nc // batch_size) * batch_size)
+            h_extra = self.cached_rows[(nc // batch_size) * batch_size:]
+            h_order = np.concatenate([self.host_rows, h_extra]).astype(
+                np.int64)
+        n_cb = len(c_order) // batch_size
+        if drop_last:
+            n_hb = len(h_order) // batch_size
+        else:
+            n_hb = -(-len(h_order) // batch_size) if len(h_order) else 0
+        tags = np.array(["c"] * n_cb + ["h"] * n_hb)
+        if shuffle:
+            rng.shuffle(tags)
+        ci = hi = 0
+        for t in tags:
+            if t == "c":
+                yield ("cached",
+                       c_order[ci * batch_size:(ci + 1) * batch_size]
+                       .astype(np.int32))
+                ci += 1
+            else:
+                rows = h_order[hi * batch_size:(hi + 1) * batch_size]
+                yield ("host", self.dataset[rows])
+                hi += 1
 
 
 class DataModule:

@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from mimo_unet_torch.eval.fgsm import fgsm_attack, input_gradient, make_fgsm_fn
+from mimo_unet_torch.models.ensemble import fold_in
 from mimo_unet_torch.models.mimo_unet import eval_mode
 
 
@@ -37,33 +38,37 @@ def _pad_to(batch_arrays, size):
 
 
 def _batches(dataset, batch_size: int, device):
-    """(real rows, image, label) per batch of ``dataset``, the last batch
-    padded to ``batch_size``; image and label as float32 on ``device``."""
+    """(start, real rows, image, label) per batch of ``dataset``, the last
+    batch padded to ``batch_size``; image and label as float32 on
+    ``device``."""
     n = len(dataset)
     for start in range(0, n, batch_size):
         idx = np.arange(start, min(start + batch_size, n))
         batch = dataset[idx]
         image, label = _pad_to([batch["image"], batch["label"]], batch_size)
-        yield (len(idx), torch.from_numpy(np.asarray(image, np.float32)).to(device),
+        yield (start, len(idx),
+               torch.from_numpy(np.asarray(image, np.float32)).to(device),
                torch.from_numpy(np.asarray(label, np.float32)).to(device))
 
 
 def make_predictions(ensemble, dataset, batch_size: int = 5,
-                     epsilon: float = 0.0) -> Tuple[np.ndarray, ...]:
+                     epsilon: float = 0.0, seed: int = 0) -> Tuple[np.ndarray, ...]:
     """Run the ensemble over a dataset with optional FGSM noise.
 
     Returns (inputs, y_pred_mean, y_true, aleatoric_var, epistemic_var,
     combined_var) as numpy arrays; the channel axis is reduced to channel 0
-    like the reference (test_nyuv2_depth.py:83-89).  MC-dropout masks come
-    from the ensemble's generator.
+    like the reference (test_nyuv2_depth.py:83-89).  The batch at ``start``
+    draws its MC-dropout masks from ``fold_in(seed, start)``, as the JAX
+    function folds each batch's start into its key: every epsilon of a
+    sweep sees the same masks for the same batch.
     """
     fgsm = make_fgsm_fn(ensemble, epsilon)
     loss_fn = ensemble.loss_fn
     device = next(ensemble.members[0][1].parameters()).device
 
     inputs, y_preds, y_trues, log_params = [], [], [], []
-    for real, image, label in _batches(dataset, batch_size, device):
-        x, p1, p2 = fgsm(image, label)
+    for start, real, image, label in _batches(dataset, batch_size, device):
+        x, p1, p2 = fgsm(image, label, fold_in(seed, start))
         inputs.append(x[:real].cpu().numpy())
         y_preds.append(p1[:real].cpu().numpy())
         log_params.append(p2[:real].cpu().numpy())
@@ -119,7 +124,7 @@ def make_predictions_evidential(task, model, dataset, batch_size: int = 5,
                 return image, task.forward(model, image)
 
     inputs, y_preds, y_trues, ale, epi = [], [], [], [], []
-    for real, image, label in _batches(dataset, batch_size, device):
+    for _, real, image, label in _batches(dataset, batch_size, device):
         x, out = attack_and_predict(image, label)
         out = out[:real].cpu().numpy()
         inputs.append(x[:real].cpu().numpy())

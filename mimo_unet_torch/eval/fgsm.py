@@ -33,27 +33,28 @@ def input_gradient(nll, image: torch.Tensor) -> torch.Tensor:
 
 
 def make_fgsm_fn(ensemble, epsilon: float):
-    """fn(image [B,H,W,C] float in [0, 1], label [B,H,W,C_out]) ->
+    """fn(image [B,H,W,C] float in [0, 1], label [B,H,W,C_out], seed=0) ->
     (perturbed image, p1, p2), the predictions on the perturbed input.
     With MC passes, the gradient and the prediction draw the same dropout
-    masks (the ensemble's generator is set back between them), as the JAX
-    function's two forwards share one key."""
+    masks, both from ``seed``, as the JAX function's two forwards share one
+    key (an ensemble with its own generator is set back between them)."""
     loss_fn = ensemble.loss_fn
     width = ensemble.output_width
 
-    def attack_and_predict(image: torch.Tensor, label: torch.Tensor):
+    def attack_and_predict(image: torch.Tensor, label: torch.Tensor,
+                           seed: int = 0):
         gen = ensemble.generator
         kept = gen.get_state() if gen is not None else None
         if epsilon > 0.0:
             label_rep = repeat_subnetworks(label, width)
 
             def nll(x):
-                return loss_fn(*ensemble.raw_forward_grad(x), label_rep)
+                return loss_fn(*ensemble.raw_forward_grad(x, seed), label_rep)
 
             image = fgsm_attack(image, epsilon, input_gradient(nll, image))
             if kept is not None:
                 gen.set_state(kept)
-        p1, p2 = ensemble.raw_forward(image)
+        p1, p2 = ensemble.raw_forward(image, seed)
         return image, p1, p2
 
     return attack_and_predict

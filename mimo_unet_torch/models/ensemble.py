@@ -11,9 +11,15 @@ predictions concatenate on the subnetwork axis, and the result is the raw
 the dropout sites are live at eval (BatchNorm stays in eval mode) and the
 passes fold into the batch of one forward, whose masks are drawn per image:
 the prediction axis is mc-major per member (JAX ensemble.py:112-136).
-``predict`` serves any number of images in fixed-size batches, padding the
-last one.  The stacked-member program (one program over the stacked
-parameters of same-architecture members) is not ported yet (ROADMAP A.4).
+The masks of member m's forward come from a generator seeded with
+``fold_in(seed, m)``, and ``predict`` first folds each batch's start into
+the seed, as the JAX package folds them into its key (``rng=None`` being
+``key(0)``, JAX ensemble.py:168,193,217,228): one input gives one answer,
+call after call, whatever ran before it.  The bits are torch's, not
+JAX's.  ``predict`` serves any number of images in fixed-size batches,
+padding the last one.  The stacked-member program (one program over the
+stacked parameters of same-architecture members) is not ported yet
+(ROADMAP A.4).
 """
 
 from __future__ import annotations
@@ -27,11 +33,24 @@ from mimo_unet_torch.models.mimo_unet import eval_mode
 from mimo_unet_torch.ops.dropout import DropoutSource
 from mimo_unet_torch.transforms import compute_uncertainties, repeat_subnetworks
 
+_MASK64 = (1 << 64) - 1
+
+
+def fold_in(seed: int, data: int) -> int:
+    """A 63-bit seed drawn from (seed, data), the role of
+    ``jax.random.fold_in``: splitmix64's finaliser of the pair."""
+    x = (seed * 0x9E3779B97F4A7C15 + data + 0x632BE59BD9B4E019) & _MASK64
+    x = ((x ^ (x >> 30)) * 0xBF58476D1CE4E5B9) & _MASK64
+    x = ((x ^ (x >> 27)) * 0x94D049BB133111EB) & _MASK64
+    return (x ^ (x >> 31)) >> 1
+
 
 class Ensemble:
-    """Callable ensemble of ``(task, model)`` members.  ``generator``
-    draws the MC-dropout masks, on the members' device; the default is
-    seeded 0, as the JAX package's default ``key(0)``."""
+    """Callable ensemble of ``(task, model)`` members.  MC-dropout masks
+    are derived from each call's ``seed`` (default 0, as the JAX package's
+    default ``key(0)``); a ``generator`` given here replaces that: every
+    MC forward then draws on from it, on the members' device, and the
+    caller owns its state."""
 
     def __init__(self, members: Sequence[Tuple[object, torch.nn.Module]],
                  return_raw_predictions: bool = False,
@@ -50,9 +69,6 @@ class Ensemble:
         self.loss_fn = self.members[0][0].loss_fn
         self.return_raw_predictions = return_raw_predictions
         self.monte_carlo_steps = monte_carlo_steps
-        if generator is None and monte_carlo_steps > 0:
-            dev = next(self.members[0][1].parameters()).device
-            generator = torch.Generator(dev).manual_seed(0)
         self.generator = generator
 
     @classmethod
@@ -84,16 +100,27 @@ class Ensemble:
         return (sum(task.num_subnetworks for task, _ in self.members)
                 * max(1, self.monte_carlo_steps))
 
+    def _source(self, seed: int, member: int, device) -> Optional[DropoutSource]:
+        """Member ``member``'s masks: the ensemble's generator where it has
+        one, else a generator seeded with ``fold_in(seed, member)``."""
+        if self.monte_carlo_steps <= 0:
+            return None
+        if self.generator is not None:
+            return DropoutSource(generator=self.generator)
+        gen = torch.Generator(device).manual_seed(fold_in(seed, member))
+        return DropoutSource(generator=gen)
+
     @torch.no_grad()
-    def raw_forward(self, image: torch.Tensor
+    def raw_forward(self, image: torch.Tensor, seed: int = 0
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
         """[B,H,W,C] -> (p1, p2) each [B, output_width, H, W, C_out/2].
         Each member runs in eval mode, whatever mode it is in (restored
         after): BatchNorm by its running statistics, which stay as they
-        are; the MC passes' dropout is live through ``mc_dropout``."""
-        return self.raw_forward_grad(image)
+        are; the MC passes' dropout is live through ``mc_dropout``, its
+        masks drawn from ``seed`` and the member's index."""
+        return self.raw_forward_grad(image, seed)
 
-    def raw_forward_grad(self, image: torch.Tensor
+    def raw_forward_grad(self, image: torch.Tensor, seed: int = 0
                          ) -> Tuple[torch.Tensor, torch.Tensor]:
         """``raw_forward`` as autograd sees it: with grad enabled and an
         ``image`` that requires it, every member runs its plain modules
@@ -101,10 +128,10 @@ class Ensemble:
         input gradient (FGSM, ``eval/fgsm.py``) flows."""
         mc = max(1, self.monte_carlo_steps)
         live = self.monte_carlo_steps > 0
-        source = DropoutSource(generator=self.generator) if live else None
         b = image.shape[0]
         p1s, p2s = [], []
-        for task, model in self.members:
+        for m, (task, model) in enumerate(self.members):
+            source = self._source(seed, m, image.device)
             x = repeat_subnetworks(image, task.num_subnetworks)
             if mc > 1:
                 x = x.repeat(mc, 1, 1, 1, 1)  # pass-major batch
@@ -119,17 +146,18 @@ class Ensemble:
             p2s.append(p2)
         return torch.cat(p1s, dim=1), torch.cat(p2s, dim=1)
 
-    def __call__(self, image: torch.Tensor):
-        p1, p2 = self.raw_forward(image)
+    def __call__(self, image: torch.Tensor, seed: int = 0):
+        p1, p2 = self.raw_forward(image, seed)
         if self.return_raw_predictions:
             return p1, p2
         return compute_uncertainties(self.loss_fn, p1, p2)
 
     def predict(self, images, batch_size: int = 32,
-                device: Optional[torch.device] = None):
+                device: Optional[torch.device] = None, seed: int = 0):
         """Run any number of images [N,H,W,C] through the ensemble in
         ``batch_size`` batches (the last one padded with copies of its last
-        image, then trimmed).  Returns numpy (mean, aleatoric_var,
+        image, then trimmed); the batch at ``start`` draws its masks from
+        ``fold_in(seed, start)``.  Returns numpy (mean, aleatoric_var,
         epistemic_var) over all inputs."""
         if device is None:
             device = next(self.members[0][1].parameters()).device
@@ -141,7 +169,7 @@ class Ensemble:
             if real < batch_size:
                 pad = chunk[-1:].expand(batch_size - real, *chunk.shape[1:])
                 chunk = torch.cat([chunk, pad])
-            p1, p2 = self.raw_forward(chunk.to(device))
+            p1, p2 = self.raw_forward(chunk.to(device), fold_in(seed, start))
             mean, ale, epi = compute_uncertainties(self.loss_fn, p1, p2)
             outs.append(tuple(t[:real].cpu().numpy() for t in (mean, ale, epi)))
         return tuple(np.concatenate(parts, axis=0) for parts in zip(*outs))

@@ -1,36 +1,49 @@
 """Training harness: the Lightning-Trainer role on one card.
 
-Counterpart of ``mimo_unet_tpu/train/trainer.py`` (:35-373), host-fed
-path: the train step of ``tasks/mimo.py``; batches assembled on a
-background thread and copied to the card on a side stream
-(``data/core.py`` ``prefetch_to_device``); scalar logs kept as device
-tensors and flushed one logging step late, so the host never waits on the
-step it just queued; image-grid monitoring (the reference's OutputMonitor
-callback); save_last + best-by-val_loss checkpoints with resume.
+Counterpart of ``mimo_unet_tpu/train/trainer.py`` (:35-373): the train
+step of ``tasks/mimo.py``; batches assembled on a background thread and
+copied to the card on a side stream (``data/core.py``
+``prefetch_to_device``), or, with ``device_cache``, the train split pinned
+on the card and each batch gathered there (``DeviceDataset``; past the
+budget ``PartialDeviceDataset``, whose host batches take the pinned
+copies); scalar logs kept as device tensors and flushed one logging step
+late, so the host never waits on the step it just queued; image-grid
+monitoring (the reference's OutputMonitor callback); save_last +
+best-by-val_loss checkpoints with resume.
 
 Equivalent reference surface: pl.Trainer(...).fit(model, dm) as configured
 in scripts/train/train_nyuv2_depth.py:70-82 (max_epochs,
 log_every_n_steps, 16-mixed AMP -> compute_dtype="bfloat16",
 ModelCheckpoint callbacks).
 
-Not ported yet: the device-resident dataset (``device_cache``, ROADMAP
-A.3) and data parallelism over several cards (``mesh``, ``num_devices``,
-ROADMAP A.7); both raise.
+Not ported yet: data parallelism over several cards (``mesh``,
+``num_devices``, ROADMAP A.7); it raises.
 """
 
 from __future__ import annotations
 
+import collections
 import time
 from typing import Optional
 
 import numpy as np
 import torch
 
-from mimo_unet_torch.data.core import DataModule, prefetch_to_device
+from mimo_unet_torch.data.core import (
+    DataModule,
+    DeviceDataset,
+    PartialDeviceDataset,
+    dataset_nbytes,
+    device_cache_budget_bytes,
+    iterate_index_batches,
+    prefetch_to_device,
+)
 from mimo_unet_torch.models.mimo_unet import resolve_device
 from mimo_unet_torch.train.checkpoint import CheckpointManager, load_checkpoint
 from mimo_unet_torch.train.logging import MetricLogger, TSVLogger
 from mimo_unet_torch.visualization import output_monitor_images
+
+ROWS = "_rows"  # a cached batch's rows as the prefetcher carries them
 
 
 class Trainer:
@@ -55,15 +68,13 @@ class Trainer:
         device=None,
     ):
         """The JAX Trainer's arguments, and ``device`` (the card when
-        None).  ``mesh``, ``num_devices`` > 1 (ROADMAP A.7) and
-        ``device_cache`` (with its ``device_cache_budget``, ROADMAP A.3)
-        raise; ``host_chunk`` must be 1 (``prefetch_to_device``)."""
+        None).  ``device_cache_budget`` is the bytes the device cache may
+        take (None: ``device_cache_budget_bytes``).  ``mesh`` and
+        ``num_devices`` > 1 raise (ROADMAP A.7); ``host_chunk`` must be 1
+        (``prefetch_to_device``)."""
         if mesh is not None or (num_devices or 1) > 1:
             raise NotImplementedError("training on several cards is not "
                                       "ported yet (ROADMAP A.7)")
-        if device_cache:
-            raise NotImplementedError("the device-resident dataset is not "
-                                      "ported yet (ROADMAP A.3)")
         if host_chunk != 1:
             raise ValueError(f"host_chunk must be 1, got {host_chunk}")
         self.task = task
@@ -74,10 +85,15 @@ class Trainer:
         self.monitor_targets = monitor_targets
         self.log_images = log_images
         self.seed = seed
+        self.device_cache = device_cache
+        self.device_cache_budget = device_cache_budget
         self.device = resolve_device(device)
         self.logger = logger if logger is not None else TSVLogger(checkpoint_path)
         self.ckpt = CheckpointManager(checkpoint_path, task.hparams())
         self.history: list = []
+        # train batches handed to the step, by where they were gathered:
+        # "cached" (on the card) or "host"
+        self.batches_fed: collections.Counter = collections.Counter()
         self._timing_warm = False  # the first step of the process warms up
 
     # ------------------------------------------------------------------ fit
@@ -104,14 +120,14 @@ class Trainer:
             state = task.init_state(steps_per_epoch, dev)
             start_epoch = 0
 
+        cache = self._device_cache(dm.train_dataset()) if self.device_cache else None
         global_step = state.step
         for epoch in range(start_epoch, self.max_epochs):
             # ---------------- train ----------------
             t_epoch = time.perf_counter()
             images_seen = 0
             pending_logs = None
-            for batch in prefetch_to_device(
-                    dm.train_batches(epoch, seed=self.seed), device=dev):
+            for batch in self._train_batches(cache, epoch):
                 want_images = (
                     self.log_images
                     and self.log_every_n_steps > 0
@@ -173,6 +189,53 @@ class Trainer:
         if hasattr(self.logger, "log_checkpoint"):
             self.logger.log_checkpoint(self.ckpt.last_path)
         return state
+
+    # ------------------------------------------------------------------ data
+
+    def _device_cache(self, train):
+        """The train split on the card: whole when it fits the budget
+        (``device_cache_budget``, else ``device_cache_budget_bytes``; no
+        gate on the CPU), else the rows that fit, the rest streamed."""
+        need = dataset_nbytes(train)
+        budget = self.device_cache_budget
+        if budget is None:
+            budget = device_cache_budget_bytes(self.device)
+        if budget is not None and need > budget:
+            cache = PartialDeviceDataset(train, budget, device=self.device, seed=self.seed)
+            print(f"[trainer] device cache (partial): {cache.n_cached}/{len(cache)} rows "
+                  f"pinned ({cache.nbytes / 1e6:.0f} of {need / 1e6:.0f} MB; remainder "
+                  f"streamed)")
+            return cache
+        cache = DeviceDataset(train, device=self.device)
+        print(f"[trainer] device cache: {len(cache)} items, {cache.nbytes / 1e6:.0f} MB "
+              f"on {self.device}")
+        return cache
+
+    def _train_batches(self, cache, epoch: int):
+        """One epoch's train batches on the card.  Host-fed without a
+        cache; with one, each batch's rows (drawn as the host-fed path
+        draws them, ``iterate_index_batches``, or in the partial cache's
+        stream) travel through ``prefetch_to_device`` beside the partial
+        cache's host batches, and the cached ones are gathered on the
+        card."""
+        dm = self.dm
+        if cache is None:
+            items = dm.train_batches(epoch, seed=self.seed)
+        elif isinstance(cache, PartialDeviceDataset):
+            items = ({ROWS: v} if kind == "cached" else v for kind, v in cache.epoch_batches(
+                dm.batch_size, seed=self.seed, epoch=epoch, shuffle=True, drop_last=True))
+            cache = cache.cached
+        else:
+            items = ({ROWS: idx} for idx in iterate_index_batches(
+                len(cache), dm.batch_size, shuffle=True, drop_last=True,
+                seed=self.seed, epoch=epoch))
+        for batch in prefetch_to_device(items, device=self.device):
+            if ROWS in batch:
+                self.batches_fed["cached"] += 1
+                yield cache.gather(batch[ROWS])
+            else:
+                self.batches_fed["host"] += 1
+                yield batch
 
     # ------------------------------------------------------------ validation
 

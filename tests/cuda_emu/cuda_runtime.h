@@ -1,23 +1,25 @@
 // A CPU stand-in for the CUDA runtime and device built-ins, enough to
-// compile a kernel source with g++ and run its blocks on host threads: one
-// std::thread per CUDA thread, a std::barrier per block (__syncthreads)
-// and per warp (the warp-collective instructions).  Blocks run one after
-// another; dynamic shared memory is a host buffer filled with 0xff (bf16
-// NaN) before each block, so a read of anything not written shows.  For
-// tests of index logic only: no timing, no asynchrony (cp.async copies at
-// once), and the f32 sums of mma run in double.  A fault (a shared-memory
-// access out of range, a misaligned copy) is recorded, the access skipped,
-// and the launch's cudaGetLastError() reports it.
+// compile a kernel source with g++ and run its blocks on the calling host
+// thread: each CUDA thread of a block is a fiber (ucontext) with a stack
+// of its own, and a barrier per block (__syncthreads) and per warp (the
+// warp-collective instructions) switches a fiber that waits back to the
+// block's scheduler, which resumes the block's fibers in turn until all
+// have returned (main.cpp).  Blocks run one after another; dynamic shared
+// memory is a host buffer filled with 0xff (bf16 NaN) before each block,
+// so a read of anything not written shows.  For tests of index logic
+// only: no timing, no asynchrony (cp.async copies at once), and the f32
+// sums of mma run in double.  A fault (a shared-memory access out of
+// range, a misaligned copy, a barrier some threads never reach) is
+// recorded, the access skipped, and the launch's cudaGetLastError()
+// reports it.
 #pragma once
 #include <algorithm>
-#include <barrier>
 #include <cmath>
 #include <cstdint>
 #include <cstdio>
 #include <cstdlib>
 #include <cstring>
 #include <memory>
-#include <thread>
 #include <vector>
 using std::max;
 using std::min;
@@ -49,15 +51,24 @@ inline float __fmul_rn(float a, float b) { return a * b; }
 inline float __fadd_rn(float a, float b) { return a + b; }
 inline float __uint_as_float(uint32_t u) { float f; std::memcpy(&f, &u, 4); return f; }
 
+// A barrier of ``count`` fibers of one block: the last to arrive moves the
+// generation on and goes on; the others switch back to the scheduler until
+// the generation has moved (main.cpp).
+struct EmuBarrier {
+  int count, arrived = 0;
+  unsigned gen = 0;
+  explicit EmuBarrier(int n) : count(n) {}
+  void arrive_and_wait();
+};
 struct EmuWarp {
-  std::barrier<> bar{32};
+  EmuBarrier bar{32};
   const void* addr[32];
   uint32_t a[32][4], b[32][2];
   float f[32];
   int i[32];
 };
 struct EmuBlock {
-  std::unique_ptr<std::barrier<>> bar;
+  std::unique_ptr<EmuBarrier> bar;
   std::vector<std::unique_ptr<EmuWarp>> warps;
   uint8_t* smem = nullptr;
   size_t smem_size = 0;
@@ -100,6 +111,10 @@ bool emu_check_smem(const void* p, size_t bytes, const char* what);
 // the dynamic shared memory the last launch asked for
 extern size_t emu_launch_smem;
 
+// run ``body(arg)`` as every thread of one block, each a fiber (main.cpp)
+void emu_run_block(int threads, void (*body)(void*), void* arg, dim3 block_idx,
+                   EmuBlock* blk);
+
 // kernel<<<grid, block, smem, stream>>>(args...), block by block
 template <typename K, typename... A>
 void emu_launch(K kernel, dim3 grid, dim3 block, size_t smem, cudaStream_t, A... args) {
@@ -108,24 +123,18 @@ void emu_launch(K kernel, dim3 grid, dim3 block, size_t smem, cudaStream_t, A...
   const int threads = (int)(block.x * block.y * block.z);
   gridDim = grid;
   std::vector<uint8_t> buf(smem + 64);
+  auto run = [&] { kernel(args...); };
   for (unsigned z = 0; z < grid.z; ++z)
     for (unsigned y = 0; y < grid.y; ++y)
       for (unsigned x = 0; x < grid.x; ++x) {
         EmuBlock blk;
-        blk.bar = std::make_unique<std::barrier<>>(threads);
+        blk.bar = std::make_unique<EmuBarrier>(threads);
         for (int w = 0; w < (threads + 31) / 32; ++w)
           blk.warps.push_back(std::make_unique<EmuWarp>());
         std::memset(buf.data(), 0xff, buf.size());
         blk.smem = (uint8_t*)(((uintptr_t)buf.data() + 15) & ~(uintptr_t)15);
         blk.smem_size = smem;
-        std::vector<std::thread> ts;
-        for (int t = 0; t < threads; ++t)
-          ts.emplace_back([&, t] {
-            threadIdx = dim3(t % block.x, t / block.x % block.y, t / (block.x * block.y));
-            blockIdx = dim3(x, y, z);
-            emu_block = &blk;
-            kernel(args...);
-          });
-        for (auto& th : ts) th.join();
+        emu_run_block(threads, [](void* f) { (*(decltype(run)*)f)(); }, &run,
+                      dim3(x, y, z), &blk);
       }
 }

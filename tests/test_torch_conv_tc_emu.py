@@ -1,6 +1,6 @@
 """The tensor-core train conv kernels K5 (fwd), K6 (dx) and K7 (dw) of
 ``mimo_unet_torch/csrc/conv3x3_train.cu``, compiled with g++ against a CPU
-stand-in of the CUDA runtime (``tests/cuda_emu``: a host thread per CUDA
+stand-in of the CUDA runtime (``tests/cuda_emu``: a fiber per CUDA
 thread, ldmatrix and mma.sync by their fragment layouts), held against
 their plain versions at small shapes: the halo staging, the reflect at
 the edges, the fold steps, the prologue and x2_half_h, the channel and

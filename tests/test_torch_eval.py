@@ -15,6 +15,9 @@
   reference ``.ckpt`` in concatenation order, mixed losses and an
   evidential member refused; with MC passes the FGSM gradient and the
   prediction draw the same masks.
+* MC serving and evaluation draw each batch's masks from (seed, member,
+  batch start): repeated ``predict`` and ``make_predictions`` calls are
+  bitwise equal, whatever ran before them.
 """
 
 import dataclasses
@@ -293,27 +296,94 @@ def test_ensemble_from_checkpoints_refuses(tmp_path):
         Ensemble.from_checkpoints([], device="cpu")
 
 
+def _mc_ensemble(members=1, **kw):
+    """An MC ensemble of ``members`` small members with live decoder
+    dropout, two passes each."""
+    tasks = [MimoUnetTask(**SMALL, num_subnetworks=2, decoder_dropout_rate=0.3,
+                          seed=10 + m) for m in range(members)]
+    return Ensemble([(t, t.build_model("cpu")) for t in tasks], monte_carlo_steps=2,
+                    return_raw_predictions=True, **kw)
+
+
+def _small_batch(n=2):
+    batch = _dataset(n=n)[np.arange(n)]
+    return (torch.from_numpy(batch["image"][:, :32, :32]),
+            torch.from_numpy(batch["label"][:, :32, :32]))
+
+
 def test_fgsm_with_mc_passes_shares_the_masks():
     """With MC passes, the prediction on the perturbed input draws the
-    masks the gradient drew: it equals a raw forward from the generator
-    state the attack started from, and the generator ends where that
-    forward leaves it."""
-    task = MimoUnetTask(**SMALL, num_subnetworks=2, decoder_dropout_rate=0.3)
-    model = task.build_model("cpu")
-    ens = Ensemble([(task, model)], monte_carlo_steps=2, return_raw_predictions=True)
-    batch = _dataset()[np.arange(2)]
-    image = torch.from_numpy(batch["image"][:, :32, :32])
-    label = torch.from_numpy(batch["label"][:, :32, :32])
-    start = ens.generator.get_state()
-    x, p1, _ = make_fgsm_fn(ens, 0.02)(image, label)
-    end = ens.generator.get_state()
+    masks the gradient drew: it equals a raw forward of the perturbed
+    input with the same seed.  An ensemble given its own generator is set
+    back between the two: the prediction equals a raw forward from the
+    generator state the attack started from, and the generator ends where
+    that forward leaves it."""
+    ens = _mc_ensemble()
+    image, label = _small_batch()
+    x, p1, _ = make_fgsm_fn(ens, 0.02)(image, label, 7)
     assert not torch.equal(x, image)
-    ens.generator.set_state(start)
-    q1, _ = ens.raw_forward(x)
+    q1, _ = ens.raw_forward(x, 7)
     torch.testing.assert_close(p1, q1, rtol=0, atol=0)
-    assert torch.equal(ens.generator.get_state(), end)
-    # the masks are live: another draw moves the predictions
-    assert not torch.equal(ens.raw_forward(x)[0], q1)
+    # the masks are live: another seed moves the predictions
+    assert not torch.equal(ens.raw_forward(x, 8)[0], q1)
+
+    own = _mc_ensemble(generator=torch.Generator().manual_seed(3))
+    start = own.generator.get_state()
+    x, p1, _ = make_fgsm_fn(own, 0.02)(image, label)
+    end = own.generator.get_state()
+    own.generator.set_state(start)
+    q1, _ = own.raw_forward(x)
+    torch.testing.assert_close(p1, q1, rtol=0, atol=0)
+    assert torch.equal(own.generator.get_state(), end)
+    assert not torch.equal(own.raw_forward(x)[0], q1)
+
+
+def test_mc_predict_is_a_function_of_its_inputs():
+    """Two MC ``predict`` calls on the same images are bitwise equal,
+    whatever ran between them and in a fresh ensemble over the same
+    members; the batch at ``start`` is the ensemble's answer to that batch
+    alone with seed ``fold_in(seed, start)``; another seed moves it."""
+    from mimo_unet_torch.models.ensemble import fold_in
+
+    ens = _mc_ensemble(members=2)
+    images = np.random.default_rng(9).uniform(0, 1, (5, 32, 32, 3)).astype(np.float32)
+    first = ens.predict(images, batch_size=2)
+    ens.predict(images[::-1].copy(), batch_size=2)
+    ens.raw_forward(torch.from_numpy(images[:2]))
+    again = ens.predict(images, batch_size=2)
+    fresh = Ensemble(ens.members, monte_carlo_steps=2).predict(images, batch_size=2)
+    alone = Ensemble(ens.members, monte_carlo_steps=2)(torch.from_numpy(images[2:4]),
+                                                      fold_in(0, 2))
+    for a, b, c, d in zip(first, again, fresh, alone):
+        np.testing.assert_array_equal(a, b)
+        np.testing.assert_array_equal(a, c)
+        np.testing.assert_array_equal(a[2:4], d.numpy())
+    other = ens.predict(images, batch_size=2, seed=1)
+    assert not np.array_equal(other[0], first[0])
+
+
+@pytest.mark.parametrize("eps", [0.0, 0.01])
+def test_make_predictions_draws_each_batch_from_its_start(eps):
+    """Two MC ``make_predictions`` calls are bitwise equal, and each batch
+    draws the masks of ``fold_in(seed, start)``, at eps 0 as at eps 0.01:
+    the predictions are the raw forwards of the returned inputs with those
+    seeds, so both epsilons of a sweep see the same masks for a batch."""
+    from mimo_unet_torch.models.ensemble import fold_in
+
+    ens = _mc_ensemble(members=2)
+    image, label = _small_batch(4)
+    ds = ArrayDataset({"image": image.numpy(), "label": label.numpy()})
+    got = make_predictions(ens, ds, batch_size=2, epsilon=eps)
+    again = make_predictions(ens, ds, batch_size=2, epsilon=eps)
+    for a, b in zip(got, again):
+        np.testing.assert_array_equal(a, b)
+    if eps == 0.0:
+        np.testing.assert_array_equal(got[0], image.numpy())
+    p1 = torch.cat([ens.raw_forward(torch.from_numpy(got[0][s:s + 2]), fold_in(0, s))[0]
+                    for s in (0, 2)]).numpy()
+    np.testing.assert_array_equal(got[1], p1.clip(0, 1).mean(axis=1)[..., 0])
+    other = make_predictions(ens, ds, batch_size=2, epsilon=eps, seed=1)
+    assert not np.array_equal(other[1], got[1])
 
 
 def test_input_gradient_runs_the_plain_modules_under_no_grad():

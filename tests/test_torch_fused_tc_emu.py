@@ -1,6 +1,6 @@
 """The tensor-core fused DoubleConv kernel (K1, and K2's im2col form) of
 ``mimo_unet_torch/csrc/fused_double_conv.cu``, compiled with g++ against a
-CPU stand-in of the CUDA runtime (``tests/cuda_emu``: a host thread per
+CPU stand-in of the CUDA runtime (``tests/cuda_emu``: a fiber per
 CUDA thread, ldmatrix and mma.sync by their fragment layouts, shared-memory
 range checks), launched with the arguments the wrapper builds
 (``kernel_args``: the host plan and the packed weights) and held against

@@ -1,7 +1,7 @@
 """K13 (``upsample2x`` and ``upsample2x_bwd``) and K14
 (``lerp_h2x_transpose``) of ``mimo_unet_torch/csrc/upsample2x.cu``,
 compiled with g++ against a CPU stand-in of the CUDA runtime
-(``tests/cuda_emu``: a host thread per CUDA thread, cp.async as a plain
+(``tests/cuda_emu``: a fiber per CUDA thread, cp.async as a plain
 copy with its alignment and range checks), launched as their wrappers
 launch them (the same tables) and held against their plain versions at
 small shapes: bands of rows and row tiles that do not divide the image, a

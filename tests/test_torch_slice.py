@@ -203,6 +203,11 @@ PORT_MODULES = [
     "mimo_unet_torch.eval.artifacts",
     "mimo_unet_torch.data",
     "mimo_unet_torch.data.core",
+    "mimo_unet_torch.data._native",
+    "mimo_unet_torch.data.nyuv2",
+    "mimo_unet_torch.data.sen12tp",
+    "mimo_unet_torch.data.make3d",
+    "mimo_unet_torch.data.muad",
     "mimo_unet_torch.utils",
     "mimo_unet_torch.visualization",
 ]

@@ -2,7 +2,7 @@
 (``conv1x1_prelu`` and its backward) and K11 (``conv1x1`` and its
 backward) of ``mimo_unet_torch/csrc/train_elem.cu``,
 compiled with g++ against a CPU stand-in of the CUDA runtime
-(``tests/cuda_emu``: a host thread per CUDA thread, cp.async as a plain
+(``tests/cuda_emu``: a fiber per CUDA thread, cp.async as a plain
 copy with its alignment and range checks), launched as their wrappers
 launch them and held against their plain versions at small shapes: the
 16-byte chunks of K9 and K8's forward and their scalar path (a ragged

@@ -16,7 +16,8 @@ capacity ladder, checkpoints, the trainer and its resume.
   to 2, bitwise a straight 2-epoch run in parameters, buffers, Adam's
   moments, the schedule, the loss buffer, ``step`` and both generators),
   the hparams-after-state commit order, the prefetcher, and what the
-  trainer refuses.
+  trainer refuses.  The device cache's own tests are
+  ``tests/test_torch_data.py``'s.
 """
 
 import dataclasses
@@ -446,15 +447,17 @@ def test_prefetch_on_cpu():
 
 
 def test_refusals_name_the_roadmap(tmp_path):
-    """The trainer refuses what is not ported (A.7, A.3), naming it; what
-    A.4 has ported loads: an evidential checkpoint gives an
-    EvidentialUnetTask, and a reference Lightning .ckpt its task and
-    weights."""
+    """The trainer and the device cache refuse what is not ported (A.7),
+    naming it, and take what is (A.3: ``device_cache``); what A.4 has
+    ported loads: an evidential checkpoint gives an EvidentialUnetTask,
+    and a reference Lightning .ckpt its task and weights."""
     task = MimoUnetTask(**SMALL)
-    for kw, item in ((dict(num_devices=2), "A.7"), (dict(mesh=object()), "A.7"),
-                     (dict(device_cache=True), "A.3")):
+    for kw, item in ((dict(num_devices=2), "A.7"), (dict(mesh=object()), "A.7")):
         with pytest.raises(NotImplementedError, match=item):
             _trainer(tmp_path, "x", 1, task, **kw)
+    with pytest.raises(NotImplementedError, match="A.7"):
+        core.DeviceDataset(core.ArrayDataset(_arrays(2, 0)), device="cpu", mesh=object())
+    assert _trainer(tmp_path, "x", 1, task, device_cache=True).device_cache
     ev = EvidentialUnetTask(in_channels=3, filter_base_count=4)
     checkpoint.save_checkpoint(str(tmp_path / "ev"), ev.init_state(1, "cpu"), ev.hparams())
     assert json.loads((tmp_path / "ev" / "hparams.json").read_text())["task"] == "evidential_unet"

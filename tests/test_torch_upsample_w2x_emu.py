@@ -1,6 +1,6 @@
 """K4 (``upsample_w2x``) and K4b (``upsample_w2x_bwd``) of
 ``mimo_unet_torch/csrc/upsample_w2x.cu``, compiled with g++ against a CPU
-stand-in of the CUDA runtime (``tests/cuda_emu``: a host thread per CUDA
+stand-in of the CUDA runtime (``tests/cuda_emu``: a fiber per CUDA
 thread, cp.async as a plain copy with its alignment and range checks),
 launched as their wrappers launch them (the same tables) and held against
 their plain versions at small shapes: rows cut into several tiles, tile
