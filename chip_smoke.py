@@ -196,9 +196,35 @@ Run from the root of the repository.  Phases, each raising on failure:
    cached and host-fed fits in turns, the native host gather serving
    every host batch; two MC ``predict`` calls (4 passes, B=32) bitwise
    equal with another request between them.
-17. Print the kernels' JSON line (K10/K13 launches from phase 11, K4b and
-   K14 from phase 13; the evidential sites and launches as entries of
-   their own), then the result line ``{"ok": true, "device": {...}}``
+17. The reference CLIs (``mimo_unet_torch/cli.py``, ``scripts/``) at the
+   MIMO CLI's defaults, S=3, fbc 32, B=32, bf16, and SEN12TP's VV/VH ->
+   NDVI at C_in = 2.  Prints which of h5py, pandas and matplotlib import
+   and names each step it leaves out for that reason.  (a) Every kernel
+   of the path at the S=3 fbc 32 sites (eval at 256x256 B=32; train at
+   640x480 B=4 and 256x256 B=32) against its plain version as in phases
+   3, 5 and 10, its time beside the flagship's at the same site; K2, K5
+   and K7 at C_in = 2 beside C_in = 3.  (b) ``train_nyuv2_depth``'s
+   parser with the required flags and ``--max_epochs 1``, its task from
+   ``cli.build_mimo_task`` and ``cli.run_training`` on 384 + 64
+   synthetic 640x480 NYUv2-schema frames, host-fed and then with
+   ``--device_cache``: every step exactly phase 14's launches, the eval
+   kernels' a validation batch, the loss falling, ``last/`` bitwise;
+   images/s, step time and peak memory; step times at 640x480 and
+   256x256, B=32, and a profile of one 640x480 B=32 step.  (c)
+   ``train_ndvi`` and ``train_ndvi_evidential`` whole, each in a process
+   of its own, at their defaults (``--max_epochs 1``) on seeded
+   2000x2000 ``.npz`` tiles with the real band names, their launches
+   counted in that process (phase 14's a step, the eval kernels' a
+   validation batch) and ``hparams.json`` in_channels 2; then
+   ``test_ndvi`` and ``test_ndvi_evidential`` on those checkpoints, whole
+   where pandas imports, else their prediction step here: the eval
+   kernels once a batch and member, finite predictions.  (d)
+   ``measure_inference_speed`` whole on the NYUv2 checkpoint at 480x640
+   and the NDVI one at 256x256, 200 repetitions: both lines.
+18. Print the kernels' JSON line (K10/K13 launches from phase 11, K4b and
+   K14 from phase 13; the evidential sites and launches and phase 17's
+   S=3 fbc 32 and C_in = 2 sites with the CLI runs' launches as entries
+   of their own), then the result line ``{"ok": true, "device": {...}}``
    last.
 
 Every time carries the card's name and power limit.  Exits non-zero,
@@ -598,12 +624,12 @@ def fdc_site(label, x1, dc, **kw):
                 seq=cudnn_seq(x1, dc, **kw), fdc=(x1, dc, kw))
 
 
-def eval_sites(dev, gen, s=S, f=F, b=B, oc=2, tag=""):
+def eval_sites(dev, gen, s=S, f=F, b=B, oc=2, tag="", cin=3):
     """The eval kernels at the call-site shapes of
     mimo_unet_torch/models/fast_path.py ``mimo_unet_apply_fast``: the
     flagship's (S=2, fbc 21, B=32, 2 outputs), or ``s`` subnetworks of
-    ``f`` filters, ``b`` images and ``oc`` outputs, each label prefixed
-    with ``tag``."""
+    ``f`` filters, ``b`` images, ``cin`` input channels and ``oc``
+    outputs, each label prefixed with ``tag``."""
     import torch
     import torch.nn.functional as Fn
     from mimo_unet_torch import kernels as K
@@ -619,9 +645,9 @@ def eval_sites(dev, gen, s=S, f=F, b=B, oc=2, tag=""):
 
     n = s * b
     sites = []
-    x = act(n, HW, HW, 3)
-    sites.append(fdc_site(f"{tag}in_conv 3->{f}->{f} @256 +hpool", x,
-                          _dc(dev, gen, s, 3, f, f), emit_hpool=True))
+    x = act(n, HW, HW, cin)
+    sites.append(fdc_site(f"{tag}in_conv {cin}->{f}->{f} @256 +hpool", x,
+                          _dc(dev, gen, s, cin, f, f), emit_hpool=True))
     hp1 = act(n, HW // 2, HW, f)
     sites.append(Site("pool_w", f"{tag}down1 pool [{n},{HW // 2},{HW},{f}]",
                       lambda: K.pool_w(hp1), lambda: K.pool_w_plain(hp1), True,
@@ -918,18 +944,22 @@ def prelu_sites(act, n, hh, ww, groups, affine, gen, dev, label, f=F, oc=2):
                  parts=prelu_bwd_parts(gl_, y6, sc6, sh6, wo))]
 
 
-def train_sites(dev, gen, s=S, f=F, oc=2, tag=""):
+def train_sites(dev, gen, s=S, f=F, oc=2, tag="", cin=3, b=TB, hw=NYU):
     """The train kernels at their call sites of
     mimo_unet_torch/models/fast_path.py ``mimo_unet_apply_train`` at
     640x480, B=4 (n = S*B images, S-major); down1's at half resolution.
-    The flagship's widths, or ``s`` subnetworks of ``f`` filters and
-    ``oc`` outputs, each label prefixed with ``tag``."""
+    The flagship's widths, or ``s`` subnetworks of ``f`` filters, ``cin``
+    input channels and ``oc`` outputs, ``b`` images of size ``hw``, each
+    label prefixed with ``tag`` (and, off 640x480 B=4, suffixed with the
+    size)."""
     import torch
     import torch.nn.functional as Fn
     from mimo_unet_torch import kernels as K
 
     bf = torch.bfloat16
-    n = s * TB
+    n = s * b
+    th, tw = hw
+    at = "" if (b, hw) == (TB, NYU) else f" @{th}x{tw} B={b}"
     c_up = f * s
     mid = (f + c_up) // 2
 
@@ -948,10 +978,10 @@ def train_sites(dev, gen, s=S, f=F, oc=2, tag=""):
         """The site's inputs as one NCHW (channels-last) tensor with the S
         groups on channels, reflect-padded: [B, S*C, H+2, W+2]."""
         hh, ww = x1.shape[1:3]
-        z = x1.view(s, TB, hh, ww, -1)
+        z = x1.view(s, b, hh, ww, -1)
         if x2 is not None:
             z = torch.cat([z, x2.unsqueeze(0).expand(s, *x2.shape)], dim=-1)
-        z = z.permute(1, 0, 4, 2, 3).reshape(TB, -1, hh, ww)
+        z = z.permute(1, 0, 4, 2, 3).reshape(b, -1, hh, ww)
         return Fn.pad(z, (1, 1, 1, 1), mode="reflect").contiguous(
             memory_format=torch.channels_last)
 
@@ -960,26 +990,26 @@ def train_sites(dev, gen, s=S, f=F, oc=2, tag=""):
 
     def lib_g(g):  # [S*B, H, W, O] -> [B, S*O, H, W]
         hh, ww = g.shape[1:3]
-        return g.view(s, TB, hh, ww, -1).permute(1, 0, 4, 2, 3).reshape(
-            TB, -1, hh, ww).contiguous(memory_format=torch.channels_last)
+        return g.view(s, b, hh, ww, -1).permute(1, 0, 4, 2, 3).reshape(
+            b, -1, hh, ww).contiguous(memory_format=torch.channels_last)
 
     sites = []
     # (label, x1, x2, w, prologue) per conv of the path; down1's conv1 is
     # the one without a prologue whose input needs a gradient (plain dx)
-    h2, w2 = TH // 2, TW // 2
-    x = act(n, TH, TW, 3)
-    y1, x1s, y5 = act(n, TH, TW, f), act(n, TH, TW, f), act(n, TH, TW, mid)
+    h2, w2 = th // 2, tw // 2
+    x = act(n, th, tw, cin)
+    y1, x1s, y5 = act(n, th, tw, f), act(n, th, tw, f), act(n, th, tw, mid)
     p1, y3 = act(n, h2, w2, f), act(n, h2, w2, 2 * f)
-    up = act(TB, TH, TW, c_up)
+    up = act(b, th, tw, c_up)
     convs = [
-        (f"{tag}in_conv.conv1 3->{f}", x, None, weight(3, f), None),
-        (f"{tag}in_conv.conv2 {f}->{f} +prologue", y1, None, weight(f, f), affine(f)),
-        (f"{tag}down1.conv1 {f}->{2 * f} @{w2}x{h2}", p1, None, weight(f, 2 * f), None),
-        (f"{tag}down1.conv2 {2 * f}->{2 * f} +prologue @{w2}x{h2}", y3, None,
+        (f"{tag}in_conv.conv1 {cin}->{f}{at}", x, None, weight(cin, f), None),
+        (f"{tag}in_conv.conv2 {f}->{f} +prologue{at}", y1, None, weight(f, f), affine(f)),
+        (f"{tag}down1.conv1 {f}->{2 * f} @{w2}x{h2}{at}", p1, None, weight(f, 2 * f), None),
+        (f"{tag}down1.conv2 {2 * f}->{2 * f} +prologue @{w2}x{h2}{at}", y3, None,
          weight(2 * f, 2 * f), affine(2 * f)),
-        (f"{tag}decoder conv1 ({f}+{c_up})->{mid} x2 period {TB}", x1s, up,
+        (f"{tag}decoder conv1 ({f}+{c_up})->{mid} x2 period {b}{at}", x1s, up,
          weight(f + c_up, mid), None),
-        (f"{tag}decoder conv2 {mid}->{f} +prologue", y5, None, weight(mid, f), affine(mid)),
+        (f"{tag}decoder conv2 {mid}->{f} +prologue{at}", y5, None, weight(mid, f), affine(mid)),
     ]
     for label, a1, a2, w, pro in convs:
         sc, sh = pro if pro is not None else (None, None)
@@ -1010,7 +1040,7 @@ def train_sites(dev, gen, s=S, f=F, oc=2, tag=""):
             True, 3.0 * cpx * o, 3 * y_bytes,
             seq=lambda g=g, yk=yk, ds=ds, dq=dq: g_eff_seq(g, yk, ds, dq),
             seq_label="bf16_seq_ms"))
-        dx_shape = (TB, s * cin, hh, ww)
+        dx_shape = (b, s * cin, hh, ww)
         if a2 is not None:
             sites.append(Site(
                 "conv3x3_dx_fold", label,
@@ -1037,13 +1067,13 @@ def train_sites(dev, gen, s=S, f=F, oc=2, tag=""):
             lambda xl=xl, wl=wl, gl=gl: torch.nn.grad.conv2d_weight(
                 xl, wl.shape, gl, groups=s)))
 
-    for label, hh, ww, c in ((f"{tag}in_conv output x1s {f} ch", TH, TW, f),
-                             (f"{tag}down1 output {2 * f} ch @{w2}x{h2}", h2, w2, 2 * f)):
+    for label, hh, ww, c in ((f"{tag}in_conv output x1s {f} ch{at}", th, tw, f),
+                             (f"{tag}down1 output {2 * f} ch @{w2}x{h2}{at}", h2, w2, 2 * f)):
         y2 = act(n, hh, ww, c, scale=3.0)
         sc2, sh2 = affine(c)
         sites += k8_sites(label, y2, act(n, hh, ww, c, scale=0.01), sc2, sh2, n, hh, ww, c)
-    return sites + prelu_sites(act, n, TH, TW, s, affine, gen, dev,
-                               f"{tag}decoder bn2 + ReLU + out-conv {f}->{oc}", f=f, oc=oc)
+    return sites + prelu_sites(act, n, th, tw, s, affine, gen, dev,
+                               f"{tag}decoder bn2 + ReLU + out-conv {f}->{oc}{at}", f=f, oc=oc)
 
 
 def dropout_kernel_sites(dev, gen):
@@ -2430,17 +2460,21 @@ def _same_state(a, b, what, grads=False):
         raise AssertionError(f"{what}: not bitwise: {bad[:10]}")
 
 
+def _want_launches(got, want, where):
+    """Launch counts ``got`` against ``want`` (every other kernel 0)."""
+    wrong = {k: (v, want.get(k, 0)) for k, v in got.items() if v != want.get(k, 0)}
+    if wrong:
+        raise AssertionError(f"{where}: launches (got, want) {wrong}")
+    return got
+
+
 def _launches_since(want, where):
     """The launch counters against ``want`` (every other kernel 0)."""
     import torch
     from mimo_unet_torch import kernels as K
 
     torch.cuda.synchronize()
-    got = K.launch_counts()
-    wrong = {k: (v, want.get(k, 0)) for k, v in got.items() if v != want.get(k, 0)}
-    if wrong:
-        raise AssertionError(f"{where}: launches (got, want) {wrong}")
-    return got
+    return _want_launches(K.launch_counts(), want, where)
 
 
 def _fit(dev, card, root):
@@ -2795,13 +2829,14 @@ EV_TAG = "evidential "       # the label prefix of its kernel sites
 EV_PRED_N, EV_EPS = 64, 0.01  # frames of the offline evaluation; its FGSM epsilon
 
 
-def _beside_flagship(ev_sites, flag_sites, card):
-    """Each evidential site's device time beside the flagship's at the
+def _beside_flagship(ev_sites, flag_sites, card, tag=EV_TAG):
+    """Each site's device time (its label prefixed with ``tag``: the
+    evidential's, or another configuration's) beside the flagship's at the
     same call site (the lists pair by position)."""
     for ev, fl in zip(ev_sites, flag_sites, strict=True):
         if ev.name != fl[0]:
             raise AssertionError(f"site lists out of step: {ev.name} vs {fl[0]}")
-        print(f"evidential {ev.name} [{ev.site[len(EV_TAG):]}] {SITE_MS[(ev.name, ev.site)]:.4f} "
+        print(f"{tag}{ev.name} [{ev.site[len(tag):]}] {SITE_MS[(ev.name, ev.site)]:.4f} "
               f"ms vs flagship [{fl[1]}] {SITE_MS[fl]:.4f} ms ({card})")
 
 
@@ -3079,11 +3114,12 @@ C7_B = 32                               # images of the MC predict checked on th
 
 class _StepRecorder:
     """A task that records, for every train step, the kernels it launched
-    (the launch counters' difference: no wait on the card) and the ``row``
-    column of its batch where there is one; otherwise the task it wraps."""
+    (the launch counters' difference: no wait on the card), its loss (a
+    device scalar) and the ``row`` column of its batch where there is one;
+    otherwise the task it wraps."""
 
     def __init__(self, task):
-        self.task, self.rows, self.launches = task, [], []
+        self.task, self.rows, self.launches, self.losses = task, [], [], []
 
     def __getattr__(self, name):
         return getattr(self.task, name)
@@ -3095,6 +3131,7 @@ class _StepRecorder:
             self.rows.append(batch["row"])
         before = K.launch_counts()
         out = self.task.train_step(state, batch, **kw)
+        self.losses.append(out[1]["train_loss"].detach())
         self.launches.append({k: v - before[k] for k, v in K.launch_counts().items()
                               if v != before[k]})
         return out
@@ -3107,22 +3144,22 @@ class _StepRecorder:
                                  f"{self.launches[bad[0]]}, want {STEP_LAUNCHES}")
 
 
-def _frames_module(arrays, train_rows, with_rows=False):
+def _frames_module(arrays, train_rows, with_rows=False, batch=TRAIN_B, val=DATA_VAL):
     """A DataModule over the first ``train_rows`` frames of ``arrays``
-    (views) and the DATA_VAL after them, batch TRAIN_B; ``with_rows`` adds
+    (views) and the ``val`` after them, batch ``batch``; ``with_rows`` adds
     each train frame's index as a ``row`` column."""
     import numpy as np
     from mimo_unet_torch.data.core import ArrayDataset, DataModule
 
     class Frames(DataModule):
-        batch_size = TRAIN_B
+        batch_size = batch
 
         def __init__(self):
             train = {k: v[:train_rows] for k, v in arrays.items()}
             if with_rows:
                 train["row"] = np.arange(train_rows, dtype=np.int64)
             self.train = ArrayDataset(train)
-            self.val = ArrayDataset({k: v[train_rows:train_rows + DATA_VAL]
+            self.val = ArrayDataset({k: v[train_rows:train_rows + val]
                                      for k, v in arrays.items()})
 
         def setup(self):
@@ -3374,6 +3411,341 @@ def data_layer(dev, card):
           flush=True)
 
 
+# ---- phase 17: the reference CLIs at the MIMO CLI's defaults ---------------
+
+CLI_S, CLI_F, CLI_B = 3, 32, 32     # MIMO CLI defaults (mimo_unet_torch/cli.py): S, fbc, batch
+CLI_TAG = f"S={CLI_S} fbc {CLI_F} "  # the label prefix of its kernel sites
+CLI_TAG2 = f"S={CLI_S} fbc {CLI_F} C_in 2 "  # ... and of SEN12TP's two-channel sites
+CLI_TRAIN, CLI_VAL = 384, 64         # synthetic NYUv2-schema frames of the train CLI's fit
+SEN_SIDE = 2000                      # SEN12TP tile side: 8 x 8 windows of 256 at stride 249
+SEN_TILES = {"train": 2, "val": 1, "test": 1}
+SEN_WINDOWS = 64                     # windows a tile
+SPEED_REPS = 200                     # measure_inference_speed --repetitions
+LAUNCHES = "kernel launches: "       # the line the script runner prints its counters on
+# runs a script's build_parser() and main() in a process of its own, then
+# prints the kernels its run launched (each process counts its own)
+SCRIPT_RUNNER = (
+    "import importlib, json, sys\n"
+    "from mimo_unet_torch import kernels as K\n"
+    "mod = importlib.import_module(sys.argv[1])\n"
+    "mod.main(mod.build_parser().parse_args(sys.argv[2:]))\n"
+    f"print({LAUNCHES!r} + json.dumps(K.launch_counts()))\n")
+
+
+def cli_sites(dev, card, flagship_sites):
+    """The kernels at the CLI default's call sites (S=3, fbc 32, OC 2):
+    eval at 256x256 B=32, train at 640x480 B=4 and 256x256 B=32, each
+    against its plain version, beside the flagship's time where it has the
+    same site; then K2, K5 and K7 at SEN12TP's C_in = 2 beside C_in = 3.
+    Returns the two configurations' stats."""
+    import torch
+
+    def gen(seed):
+        return torch.Generator(device=dev).manual_seed(seed)
+
+    paired = {
+        "eval": eval_sites(dev, gen(60), s=CLI_S, f=CLI_F, tag=CLI_TAG),
+        "train": _tc_marked(train_sites(dev, gen(61), s=CLI_S, f=CLI_F, tag=CLI_TAG)),
+        "resample": resample_sites(dev, gen(62), s=CLI_S, f=CLI_F, steps=((TB, NYU),),
+                                   prefix=CLI_TAG),
+    }
+    own = (_tc_marked(train_sites(dev, gen(63), s=CLI_S, f=CLI_F, tag=CLI_TAG, b=CLI_B,
+                                  hw=PATCH))
+           + resample_sites(dev, gen(64), s=CLI_S, f=CLI_F, steps=((CLI_B, PATCH),),
+                            prefix=CLI_TAG))
+    stats = check_kernels(_redesigned([st for v in paired.values() for st in v] + own), card)
+    for kind, sites in paired.items():
+        _beside_flagship(sites, flagship_sites[kind], card, tag=CLI_TAG)
+    del paired, own
+    torch.cuda.empty_cache()
+
+    def in_conv1(sites):
+        return [st for st in sites if st.name in ("fused_double_conv9", "conv3x3_fwd",
+                                                  "conv3x3_dw") and "in_conv" in st.site
+                and ("conv1" in st.site or st.name == "fused_double_conv9")]
+
+    two = in_conv1(eval_sites(dev, gen(65), s=CLI_S, f=CLI_F, tag=CLI_TAG2, cin=2))
+    two += in_conv1(_tc_marked(train_sites(dev, gen(66), s=CLI_S, f=CLI_F, tag=CLI_TAG2,
+                                           cin=2)))
+    two += in_conv1(_tc_marked(train_sites(dev, gen(67), s=CLI_S, f=CLI_F, tag=CLI_TAG2,
+                                           cin=2, b=CLI_B, hw=PATCH)))
+    stats2 = check_kernels(two, card)
+    for st in two:
+        three = (st.name, CLI_TAG + st.site[len(CLI_TAG2):].replace("2->", "3->", 1))
+        ms2, ms3 = SITE_MS[(st.name, st.site)], SITE_MS[three]
+        print(f"{CLI_TAG2}{st.name} [{st.site[len(CLI_TAG2):]}] {ms2:.4f} ms vs C_in 3 "
+              f"[{three[1][len(CLI_TAG):]}] {ms3:.4f} ms: ratio {ms2 / ms3:.3f} ({card})")
+    del two
+    torch.cuda.empty_cache()
+    return stats, stats2
+
+
+def _cli_fit(task, args, dm, dev, card, where):
+    """cli.run_training of ``args`` on ``dm``: every step exactly phase
+    14's train kernels, the eval kernels a validation batch, a finite loss
+    that falls, last/ loading bitwise; images/s, step time and peak memory
+    printed.  Returns (trainer, state, the launch counters)."""
+    import torch
+    from mimo_unet_torch import cli
+    from mimo_unet_torch import kernels as K
+    from mimo_unet_torch.train.checkpoint import load_checkpoint
+
+    steps = CLI_TRAIN // args.batch_size
+    recorder = _StepRecorder(task)
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    trainer, state = cli.run_training(args, recorder, dm)
+    torch.cuda.synchronize()
+    want = {k: steps * v for k, v in STEP_LAUNCHES.items()}
+    want.update({k: -(-CLI_VAL // args.batch_size) * v for k, v in EVAL_LAUNCHES.items()})
+    launches = _launches_since(want, where)
+    recorder.check_steps(where)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    losses = [float(v) for v in recorder.losses]
+    rate = trainer.history[0]["throughput_images_per_sec"]
+    print(f"{where}: {steps} steps {NYU[0]}x{NYU[1]} B={args.batch_size} S={task.num_subnetworks} "
+          f"fbc {task.filter_base_count}: batches {dict(trainer.batches_fed)}, train losses "
+          f"{[round(x, 4) for x in losses]}, val_loss {trainer.history[0]['val_loss']}, "
+          f"{rate:.2f} images/s = {args.batch_size / rate * 1e3:.1f} ms a step (the epoch after "
+          f"its first step), peak memory {peak:.2f} GiB, launches {launches} ({card})",
+          flush=True)
+    fed = {"cached" if args.device_cache else "host": steps}
+    if dict(trainer.batches_fed) != fed or state.step != steps:
+        raise AssertionError(f"{where}: batches {dict(trainer.batches_fed)}, step {state.step}")
+    if not (all(map(math.isfinite, losses)) and sum(losses[-2:]) < sum(losses[:2])):
+        raise AssertionError(f"{where}: the train loss does not fall: {losses}")
+    _, loaded = load_checkpoint(os.path.join(args.checkpoint_path, "last"), steps, device=dev)
+    _same_state(loaded, state, f"{where} last/ loaded vs the trained state")
+    return trainer, state, launches
+
+
+def cli_train(dev, card, root):
+    """The NYUv2 train CLI at its defaults (S=3, fbc 32, B=32, bf16) on
+    in-memory NYUv2-schema 640x480 frames, host-fed and with
+    --device_cache; then step times at 640x480 and 256x256, B=32, and a
+    profile of one 640x480 step.  Returns
+    the host-fed run's launches and its checkpoint."""
+    import torch
+    from mimo_unet_torch import cli
+    from mimo_unet_torch.scripts.train import train_nyuv2_depth
+
+    argv = ["--checkpoint_path", root, "--dataset_dir", root, "--seed", "1", "--max_epochs", "1"]
+    args = train_nyuv2_depth.build_parser().parse_args(argv)
+    print(f"train_nyuv2_depth {' '.join(argv)}: {vars(args)}")
+    task = cli.build_mimo_task(args, in_channels=3, out_channels=args.num_loss_function_params)
+    if (task.num_subnetworks, task.filter_base_count, args.batch_size, task.compute_dtype,
+            args.device) != (CLI_S, CLI_F, CLI_B, "bfloat16", "cuda"):
+        raise AssertionError(f"the CLI's defaults moved: {task}, {vars(args)}")
+    arrays = _nyu_arrays(CLI_TRAIN + CLI_VAL, 70, NYU)
+    dm = _frames_module(arrays, CLI_TRAIN, batch=args.batch_size, val=CLI_VAL)
+    runs = {}
+    for cached in (False, True):
+        name = "cached" if cached else "host"
+        args.device_cache = cached
+        args.checkpoint_path = os.path.join(root, name)
+        os.makedirs(args.checkpoint_path)
+        runs[name] = _cli_fit(task, args, dm, dev, card,
+                              f"train_nyuv2_depth (cli.run_training{', --device_cache' * cached})")
+    _, state, launches = runs["host"]
+    del runs, arrays, dm
+    torch.cuda.empty_cache()
+    gen = torch.Generator().manual_seed(72)
+    for hw in (NYU, PATCH):
+        _time_steps(task, state, gen, CLI_B, 3, card, f"S={CLI_S} fbc {CLI_F} (CLI defaults)", hw)
+    _profile_step(task, state, _frames(gen, CLI_B, NYU), card,
+                  f"S={CLI_S} fbc {CLI_F} {NYU[0]}x{NYU[1]} B={CLI_B}")
+    del state
+    torch.cuda.empty_cache()
+    return launches, os.path.join(root, "host", "last")
+
+
+def _sen_tiles(root):
+    """SEN12TP tiles as ``.npz`` of the bands the NDVI scripts read (the
+    real band names; float32 in their physical ranges), seeded."""
+    import numpy as np
+
+    rng = np.random.default_rng(73)
+    shape = (SEN_SIDE, SEN_SIDE)
+    for split, n in SEN_TILES.items():
+        os.makedirs(os.path.join(root, split))
+        for i in range(n):
+            np.savez(os.path.join(root, split, f"tile_{i}.npz"),
+                     VV_sigma0=rng.uniform(-30, 0, shape).astype(np.float32),
+                     VH_sigma0=rng.uniform(-40, 0, shape).astype(np.float32),
+                     B04=rng.uniform(0, 1e4, shape).astype(np.float32),
+                     B08=rng.uniform(0, 1e4, shape).astype(np.float32))
+
+
+def _run_script(module, argv, where, timeout=400):
+    """``module``'s build_parser() and main() in a process of its own; its
+    output lines and the kernels it launched."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", SCRIPT_RUNNER, module, *map(str, argv)],
+                          cwd=REPO, capture_output=True, text=True, timeout=timeout)
+    if proc.returncode != 0:
+        raise AssertionError(f"{where}: exit {proc.returncode}\n{proc.stdout[-4000:]}\n"
+                             f"{proc.stderr[-4000:]}")
+    lines = proc.stdout.splitlines()
+    launches = json.loads([ln for ln in lines if ln.startswith(LAUNCHES)][-1][len(LAUNCHES):])
+    print(f"{where}: exit 0 in {time.perf_counter() - t0:.1f} s (its process: start, kernel "
+          f"load, run), launches {({k: v for k, v in launches.items() if v})}", flush=True)
+    return lines, launches
+
+
+
+def cli_ndvi(dev, card, root, have_pandas):
+    """train_ndvi and train_ndvi_evidential whole at their defaults (S=3
+    fbc 32 and fbc 32, B=32, patch 256, stride 249, VV/VH -> NDVI), one
+    epoch; then test_ndvi and test_ndvi_evidential on their checkpoints,
+    whole where pandas imports, else their prediction step here.  Returns
+    train_ndvi's launches and checkpoint."""
+    import numpy as np
+    from mimo_unet_torch import kernels as K
+
+    sen = os.path.join(root, "sen12tp")
+    t0 = time.perf_counter()
+    _sen_tiles(sen)
+    print(f"SEN12TP tiles written: {SEN_TILES} of {SEN_SIDE}x{SEN_SIDE}, 4 bands float32, "
+          f"{time.perf_counter() - t0:.1f} s")
+    steps = SEN_TILES["train"] * SEN_WINDOWS // CLI_B
+    want_train = {k: steps * v for k, v in STEP_LAUNCHES.items()}
+    want_train.update({k: SEN_TILES["val"] * SEN_WINDOWS // CLI_B * v
+                       for k, v in EVAL_LAUNCHES.items()})
+    test_batches = -(-SEN_TILES["test"] * SEN_WINDOWS // 5)  # the test scripts' --batch_size 5
+    want_test = {k: test_batches * v for k, v in EVAL_LAUNCHES.items()}
+    out = {}
+    for family, out_channels in (("", 2), ("_evidential", 4)):
+        ck = os.path.join(root, "ndvi" + family)
+        os.makedirs(ck)
+        where = f"train_ndvi{family}"
+        lines, launches = _run_script(
+            f"mimo_unet_torch.scripts.train.train_ndvi{family}",
+            ["--checkpoint_path", ck, "--dataset_dir", sen, "--seed", 1, "--max_epochs", 1,
+             "-i", "VV_sigma0", "-i", "VH_sigma0", "-t", "NDVI"], where)
+        for ln in lines:
+            if ln.startswith("[epoch"):
+                print(f"{where}: {ln} (256x256 B={CLI_B}, C_in 2; {card})")
+        _want_launches(launches, want_train, where)
+        with open(os.path.join(ck, "last", "hparams.json")) as f:
+            hp = json.load(f)
+        if (hp["in_channels"], hp["out_channels"], hp["filter_base_count"]) != (2, out_channels,
+                                                                               CLI_F):
+            raise AssertionError(f"{where}: hparams {hp}")
+        print(f"{where}: hparams.json in_channels {hp['in_channels']}, out_channels "
+              f"{hp['out_channels']}, task {hp['task']}")
+        out[family] = (launches, os.path.join(ck, "last"))
+
+        test = f"test_ndvi{family}"
+        flag = "--model_checkpoint_path" + ("" if family else "s")
+        argv = [flag, os.path.join(ck, "last"), "--result_dir", os.path.join(root, test),
+                "--dataset_dir", os.path.join(sen, "test")]
+        if have_pandas:
+            _, launches = _run_script(f"mimo_unet_torch.scripts.test.{test}", argv, test)
+            preds = [np.load(os.path.join(root, test, f"{k}.npy"))
+                     for k in ("y_preds", "aleatoric_vars", "epistemic_vars")]
+            for name in ("df_pixels.pkl", "precision_recall.csv", "calibration.csv"):
+                if not os.path.getsize(os.path.join(root, test, name)):
+                    raise AssertionError(f"{test}: {name} is empty")
+        else:
+            launches, preds = _ndvi_predictions(test, argv, dev)
+        _want_launches(launches, want_test, test)
+        n = SEN_TILES["test"] * SEN_WINDOWS
+        if not (all(p.shape == (n, 256, 256) and np.isfinite(p).all() for p in preds)
+                and (preds[1] >= 0).all() and (preds[2] >= 0).all()):
+            raise AssertionError(f"{test}: predictions not finite, of shape ({n}, 256, 256) "
+                                 f"with variances >= 0")
+        print(f"{test}: {n} windows in {test_batches} batches of 5, eval kernels once a batch "
+              f"and member, predictions finite, variances >= 0")
+        K.reset_launch_counts()
+    return out[""]
+
+
+def _ndvi_predictions(test, argv, dev):
+    """The prediction step of test_ndvi[_evidential] on the card (what the
+    script runs before pandas writes its frames): the kernels it launched
+    and (y_preds, aleatoric, epistemic)."""
+    import importlib
+
+    from mimo_unet_torch import kernels as K
+    from mimo_unet_torch.eval import make_predictions, make_predictions_evidential
+    from mimo_unet_torch.models.ensemble import Ensemble
+    from mimo_unet_torch.scripts.test.test_ndvi import load_dataset
+    from mimo_unet_torch.train.checkpoint import load_checkpoint
+
+    args = importlib.import_module(f"mimo_unet_torch.scripts.test.{test}").build_parser(
+        ).parse_args(argv)
+    dataset = load_dataset(args)
+    K.reset_launch_counts()
+    if test == "test_ndvi":
+        ens = Ensemble.from_checkpoints(args.model_checkpoint_paths,
+                                        return_raw_predictions=True, device=dev)
+        preds = make_predictions(ens, dataset, batch_size=args.batch_size)
+    else:
+        task, state = load_checkpoint(args.model_checkpoint_path, device=dev)
+        preds = make_predictions_evidential(task, state.model, dataset,
+                                            batch_size=args.batch_size)
+    print(f"{test}: its prediction step on the card (pandas missing: the frames and curves "
+          f"left out)")
+    return K.launch_counts(), preds[1:4]
+
+
+def cli_speed(card, nyu_ckpt, ndvi_ckpt):
+    """measure_inference_speed whole on the NYUv2 checkpoint at 480x640
+    and the NDVI one at 256x256."""
+    for ckpt, c, h, w in ((nyu_ckpt, 3, NYU[0], NYU[1]), (ndvi_ckpt, 2, HW, HW)):
+        where = f"measure_inference_speed {h}x{w} C_in {c}"
+        lines, _ = _run_script("mimo_unet_torch.scripts.test.measure_inference_speed",
+                               ["--model_checkpoint_paths", ckpt, "--in_channels", c,
+                                "--height", h, "--width", w, "--repetitions", SPEED_REPS], where)
+        shown = [ln for ln in lines if ln.startswith(("mean: ", "per-exec (events): "))]
+        if len(shown) != 2:
+            raise AssertionError(f"{where}: want its two lines, got {lines[-5:]}")
+        for ln in shown:
+            print(f"{where} (S={CLI_S} fbc {CLI_F}, 1 image, {SPEED_REPS} repetitions): {ln}")
+
+
+def cli_phase(dev, card, flagship_sites):
+    """Phase 17; returns the kernel stats and launches of the S=3 fbc 32
+    configuration and of its C_in = 2 sites."""
+    import importlib.util
+    import shutil
+    import tempfile
+
+    import torch
+
+    t0 = time.perf_counter()
+    have = {m: importlib.util.find_spec(m) is not None
+            for m in ("h5py", "pandas", "matplotlib")}
+    print("phase 17: " + ", ".join(f"{m} {'imports' if v else 'missing'}"
+                                   for m, v in have.items()), flush=True)
+    print("phase 17 leaves out: test_nyuv2_depth and test_nyuv2_depth_evidential (their data "
+          "is .h5; their prediction step is phase 15's); train_nyuv2_depth's h5 loader "
+          f"({'not needed' if have['h5py'] else 'h5py missing'}: the CLI's task and "
+          "run_training run on in-memory frames)")
+    if not have["pandas"]:
+        print("phase 17 leaves out for want of pandas: test_ndvi's and test_ndvi_evidential's "
+              "frames and curves (df_pixels.pkl, precision_recall.csv, calibration.csv)")
+    if not have["matplotlib"]:
+        print("phase 17 leaves out for want of matplotlib: the train scripts' monitor image "
+              "grids (Trainer logs their failure and trains on)")
+    stats, stats2 = cli_sites(dev, card, flagship_sites)
+    os.makedirs(os.path.join(REPO, "build"), exist_ok=True)  # git-ignored, not checked out
+    root = tempfile.mkdtemp(prefix="chip_smoke_cli_", dir=os.path.join(REPO, "build"))
+    try:
+        launches, nyu_ckpt = cli_train(dev, card, root)
+        torch.cuda.empty_cache()
+        launches2, ndvi_ckpt = cli_ndvi(dev, card, root, have["pandas"])
+        cli_speed(card, nyu_ckpt, ndvi_ckpt)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    print(f"phase 17 (the reference CLIs at S={CLI_S} fbc {CLI_F}, SEN12TP C_in 2): "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return stats, launches, stats2, launches2
+
+
 def main() -> int:
     import torch
 
@@ -3482,7 +3854,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     data_layer(dev, card)
 
-    # ---- 17. results -------------------------------------------------------
+    # ---- 17. the reference CLIs at the MIMO CLI's defaults ---------------------
+    torch.cuda.empty_cache()
+    cli_stats, cli_launches, two_stats, two_launches = cli_phase(dev, card, flagship_sites)
+
+    # ---- 18. results -------------------------------------------------------
     rows = [{"name": k, "route": "cuda", "source": KERNEL_INFO[k][0],
              "replaces": KERNEL_INFO[k][1], "launches": launches[k], **stats[k]}
             for k in KERNEL_INFO]
@@ -3490,6 +3866,11 @@ def main() -> int:
               "source": KERNEL_INFO[k][0], "replaces": KERNEL_INFO[k][1],
               "launches": ev_launches[k], **ev_stats[k]}
              for k in KERNEL_INFO if k in ev_stats]
+    rows += [{"name": f"{k} ({what})", "route": "cuda", "source": KERNEL_INFO[k][0],
+              "replaces": KERNEL_INFO[k][1], "launches": counts[k], **st[k]}
+             for what, st, counts in ((f"S={CLI_S} fbc {CLI_F}", cli_stats, cli_launches),
+                                      (f"S={CLI_S} fbc {CLI_F} C_in 2", two_stats, two_launches))
+             for k in KERNEL_INFO if k in st]
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -183,8 +183,9 @@ def _dw(lib, g, x1, groups, *, x2=None, sc=None, sh=None, x2h=False):
 
 
 # (h, w, c1, c2, o, groups, images per group, prologue, x2_half_h): the
-# im2col form (C_in = 3), the prologue, x2 with period N2 < N and its
-# half-height form, several n-tiles (42, odd: 63), two output slices (80),
+# im2col form (C_in = 3; C_in = 2, SEN12TP's VV/VH, at S=3 fbc 32), the
+# prologue, x2 with period N2 < N and its half-height form, several
+# n-tiles (42, odd: 63), two output slices (80),
 # two channel slices (70; fbc 40's decoder conv1, 40 + 80 -> 60), partial
 # tiles (W = 17, 19, 20; H = 9: a second tile row of one row), H, W = 3
 FWD_SHAPES = [(3, 3, 3, 0, 5, 2, 1, False, False), (5, 20, 3, 0, 21, 1, 2, False, False),
@@ -192,7 +193,8 @@ FWD_SHAPES = [(3, 3, 3, 0, 5, 2, 1, False, False), (5, 20, 3, 0, 21, 1, 2, False
               (4, 17, 5, 9, 31, 2, 2, False, False), (6, 18, 5, 9, 11, 2, 1, False, True),
               (4, 5, 3, 6, 7, 1, 2, False, True), (9, 16, 42, 0, 42, 1, 2, False, False),
               (5, 7, 21, 0, 63, 2, 1, True, False), (4, 6, 40, 0, 80, 2, 1, False, False),
-              (5, 5, 70, 0, 40, 1, 1, True, False), (4, 4, 40, 80, 60, 2, 1, False, True)]
+              (5, 5, 70, 0, 40, 1, 1, True, False), (4, 4, 40, 80, 60, 2, 1, False, True),
+              (5, 20, 2, 0, 32, 3, 1, False, False)]
 
 
 @pytest.mark.parametrize("shape", FWD_SHAPES)
@@ -249,12 +251,14 @@ def test_dx_kernel_emulated(lib, shape, form):
 
 
 # (h, w, c1, c2, o, groups, images per group, prologue, x2_half_h): the
-# im2col form (C_in = 3), the prologue, x2 (shared by the groups) and its
-# half-height form, two output slices (42), two channel slices (70)
+# im2col form (C_in = 3; C_in = 2 at S=3 fbc 32), the prologue, x2 (shared
+# by the groups) and its half-height form, two output slices (42), two
+# channel slices (70)
 DW_SHAPES = [(3, 3, 3, 0, 5, 2, 1, False, False), (4, 5, 3, 0, 21, 1, 2, False, False),
              (5, 4, 6, 0, 9, 2, 1, True, False), (6, 19, 21, 0, 21, 2, 1, True, False),
              (4, 17, 5, 9, 31, 2, 2, False, False), (6, 18, 5, 9, 11, 2, 1, False, True),
-             (9, 16, 42, 0, 42, 1, 2, False, False), (5, 5, 70, 0, 40, 1, 1, False, False)]
+             (9, 16, 42, 0, 42, 1, 2, False, False), (5, 5, 70, 0, 40, 1, 1, False, False),
+             (4, 17, 2, 0, 32, 3, 1, False, False)]
 
 
 @pytest.mark.parametrize("shape", DW_SHAPES)

@@ -101,6 +101,18 @@ def test_k2_im2col_hpool_emulated(lib, hw):
     _close(_run(lib, x, dc, hpool=True), fused_double_conv_plain(x, *dc, emit_hpool=True))
 
 
+@pytest.mark.parametrize("hw", [(6, 20), (20, 6)])
+def test_k2_two_channels_emulated(lib, hw):
+    """K2 at SEN12TP's C_in = 2 (VV, VH): K = 18 -> 32, three groups of 32
+    filters (S=3, fbc 32), the row-pair max."""
+    h, w = hw
+    gen = torch.Generator().manual_seed(200 + h * 10 + w)
+    x = _bf(gen, 3, h, w, 2)
+    dc = _dc(gen, 3, 2, 32, 32)
+    assert plan_of(2, 0, 32, 32).im2col
+    _close(_run(lib, x, dc, hpool=True), fused_double_conv_plain(x, *dc, emit_hpool=True))
+
+
 @pytest.mark.parametrize("hw", EDGES)
 def test_decoder_out_conv_emulated(lib, hw):
     """The decoder: x1 (5) + x2 at half height (10, period 2), the concat

@@ -210,6 +210,17 @@ PORT_MODULES = [
     "mimo_unet_torch.data.muad",
     "mimo_unet_torch.utils",
     "mimo_unet_torch.visualization",
+    "mimo_unet_torch.cli",
+    "mimo_unet_torch.scripts.train.train_nyuv2_depth",
+    "mimo_unet_torch.scripts.train.train_nyuv2_depth_evidential",
+    "mimo_unet_torch.scripts.train.train_ndvi",
+    "mimo_unet_torch.scripts.train.train_ndvi_evidential",
+    "mimo_unet_torch.scripts.test.test_nyuv2_depth",
+    "mimo_unet_torch.scripts.test.test_nyuv2_depth_evidential",
+    "mimo_unet_torch.scripts.test.test_ndvi",
+    "mimo_unet_torch.scripts.test.test_ndvi_evidential",
+    "mimo_unet_torch.scripts.test.measure_inference_speed",
+    "mimo_unet_torch.examples.nyuv2_minimal",
 ]
 
 
