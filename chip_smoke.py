@@ -221,7 +221,31 @@ Run from the root of the repository.  Phases, each raising on failure:
    kernels once a batch and member, finite predictions.  (d)
    ``measure_inference_speed`` whole on the NYUv2 checkpoint at 480x640
    and the NDVI one at 256x256, 200 repetitions: both lines.
-18. Print the kernels' JSON line (K10/K13 launches from phase 11, K4b and
+18. Data parallelism (``mimo_unet_torch/parallel``).  (a) One rank on
+   NCCL (a file store): ``Trainer(num_devices=1)`` gives a mesh of one,
+   one NCCL all-reduce, and the flagship step (256x256 B=64, kernel
+   route) under it bitwise the step without a mesh.  (b) Two gloo ranks
+   sharing the card (``parallel.launch.spawn``, joined within
+   ``DP_TIMEOUT``), the flagship at full width, global B=64 (32 a rank),
+   rank 1's half of the batch from another distribution, deterministic
+   algorithms: each rank's first step against the one-process B=64 step
+   on the same card, weights and batch (the loss within 1e-2, every
+   gradient leaf and the parameter update at ``_grad_check``'s cosine,
+   the BatchNorm running statistics and the loss buffer); phase 14's
+   launches in each of 3 steps, the collectives of a step (calls and
+   bytes) printed, and after 3 steps the ranks' parameters bitwise
+   equal; each rank's step over the mesh peaks no higher than the
+   capacity ladder's probe of its rows alone, beyond the collectives'
+   own buffers.  (c) The final-dropout route once (K11, masks drawn per rank),
+   against the one-process step with those masks injected.  (d)
+   ``Trainer.fit`` over the mesh, one epoch on phase 14's 256 + 64
+   frames, host-fed and with the sharded device cache: launches exact,
+   rank 0 alone writes ``last/`` and ``best/``, ``last/`` loads as each
+   rank's state, val_loss within 2e-2 of a one-process fit; images/s of
+   the global batch, labelled (two ranks on one card price gloo's host
+   staging, not a multi-card speed).  (e) A profile of rank 0's step:
+   the host time of its collectives against the step's.
+19. Print the kernels' JSON line (K10/K13 launches from phase 11, K4b and
    K14 from phase 13; the evidential sites and launches and phase 17's
    S=3 fbc 32 and C_in = 2 sites with the CLI runs' launches as entries
    of their own), then the result line ``{"ok": true, "device": {...}}``
@@ -3746,6 +3770,409 @@ def cli_phase(dev, card, flagship_sites):
     return stats, launches, stats2, launches2
 
 
+# ---- phase 18: data parallelism (two ranks on the one card) -------------------
+
+DP_TIMEOUT = 420                  # seconds the two ranks may take together
+DP_B = BIG_B                      # the global batch: 32 rows a rank
+DP_STEPS = 3                      # steps after which the ranks' weights must be equal
+DP_GRAD_COS = 0.99                # _grad_check's threshold, rank step vs one process
+
+
+def _dp_rows(rows=slice(None)):
+    """Rows ``rows`` of the global uint8 batch of the data-parallel checks
+    (B=64 at 256x256); rank 1's half from another distribution (a third of
+    the range, shifted up)."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(40)
+    image = rng.integers(0, 256, (DP_B, *PATCH, 3), dtype=np.uint8)
+    label = rng.integers(0, 256, (DP_B, *PATCH, 1), dtype=np.uint8)
+    image[DP_B // 2:] = image[DP_B // 2:] // 3 + 150
+    label[DP_B // 2:] = label[DP_B // 2:] // 2 + 100
+    return {"image": torch.from_numpy(image[rows].copy()),
+            "label": torch.from_numpy(label[rows].copy())}
+
+
+def _dp_record(state, logs):
+    """A step's loss, gradients, parameters, BatchNorm buffers and loss
+    buffer, on the host."""
+    model = state.model
+    return {"loss": float(logs["train_loss"]),
+            "grads": {k: p.grad.float().cpu() for k, p in model.named_parameters()},
+            "params": {k: p.detach().float().cpu() for k, p in model.named_parameters()},
+            "buffers": {k: v.cpu() for k, v in model.state_dict().items()
+                        if k.endswith(("running_mean", "running_var"))},
+            "loss_buffer": state.loss_buffer.buffer.cpu()}
+
+
+def _dp_step(task, state, batch, dropout=None):
+    """One train step; returns its record and its kernel launches."""
+    import torch
+    from mimo_unet_torch import kernels as K
+
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    state, logs, _ = task.train_step(state, batch, dropout=dropout)
+    torch.cuda.synchronize()
+    return _dp_record(state, logs), K.launch_counts()
+
+
+def _dp_masks(task, rank, dev):
+    """The final-dropout masks rank ``rank`` draws at step 0 (its 32 rows)."""
+    from mimo_unet_torch.models.mimo_unet import dropout_sites
+    from mimo_unet_torch.tasks.mimo import rank_dropout_source
+
+    sites = dropout_sites(task.model_config, DP_B // 2, *PATCH)
+    drawn = rank_dropout_source(task.seed + 2, 0, rank, dev).draw(sites, dev)
+    return {k: m for k, (m, _) in drawn.items()}
+
+
+def _dp_fit(task, root, name, device_cache):
+    """One epoch of Trainer.fit over the mesh on the harness frames; the
+    launches and checkpoint writes of this rank."""
+    import torch
+    from mimo_unet_torch import kernels as K
+    from mimo_unet_torch.train import checkpoint
+    from mimo_unet_torch.train.trainer import Trainer
+
+    writes = []
+    save = checkpoint.save_checkpoint
+    checkpoint.save_checkpoint = lambda path, *a, **k: (writes.append(path), save(path, *a, **k))[1]
+    try:
+        trainer = Trainer(task, _harness_data(), max_epochs=1,
+                          checkpoint_path=os.path.join(root, name), log_every_n_steps=2,
+                          log_images=False, num_devices=2, seed=7, device="cuda",
+                          device_cache=device_cache)
+        torch.cuda.synchronize()
+        K.reset_launch_counts()
+        state = trainer.fit()
+        torch.cuda.synchronize()
+    finally:
+        checkpoint.save_checkpoint = save
+    launches = K.launch_counts()
+    _, last = checkpoint.load_checkpoint(os.path.join(root, name, "last"), 1,
+                                         device=trainer.device)
+    same = all(torch.equal(a, b) for a, b in zip(last.model.state_dict().values(),
+                                                 state.model.state_dict().values()))
+    return {"history": trainer.history, "launches": launches, "writes": len(writes),
+            "last_equal": same, "fed": dict(trainer.batches_fed), "step": state.step}
+
+
+def _dp_profile(task, state, batch, mesh):
+    """Rank 0's step under torch.profiler: the step's wall time and the host
+    time of its collectives (gloo on CUDA tensors blocks the host: it
+    copies to the host, exchanges, copies back), then the same step timed
+    plain, median of three."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        task.train_step(state, batch)
+        torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    coll = {}
+    for ev in prof.key_averages():
+        if ev.device_type == torch.autograd.DeviceType.CPU and (
+                "all_reduce" in ev.key or "allreduce" in ev.key or "gloo" in ev.key):
+            coll[ev.key] = (ev.count, ev.cpu_time_total / 1e3)
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        task.train_step(state, batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return {"profiled_ms": wall, "collectives": coll, "step_ms": sorted(times)[1],
+            "table": prof.key_averages().table(sort_by="cpu_time_total", row_limit=12,
+                                               max_name_column_width=50)}
+
+
+def _dp_peaks(task, state, batch, mesh):
+    """This rank's peak device bytes over what it held before: the capacity
+    ladder's probe at "none" (``capacity._fits``: this rank's rows alone,
+    collectives off, undone), less the bytes of the probe's own snapshot of
+    the state, then the real step over the mesh.  The real step may hold
+    more only by the collectives' own buffers: the gathered uint8 global
+    batch and the flat gradient buffer (``slack``)."""
+    import torch
+    from mimo_unet_torch.train import capacity
+
+    def tensors(x):
+        if isinstance(x, torch.Tensor):
+            yield x
+        elif isinstance(x, dict):
+            for v in x.values():
+                yield from tensors(v)
+        elif isinstance(x, (list, tuple)):
+            for v in x:
+                yield from tensors(v)
+
+    snap = capacity._snapshot(state)
+    snap_bytes = sum(t.numel() * t.element_size() for t in tensors(snap) if t.is_cuda)
+    del snap
+
+    def peak(run):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        run()
+        torch.cuda.synchronize()
+        return torch.cuda.max_memory_allocated() - before
+
+    err = []
+    probe = peak(lambda: err.append(capacity._fits(task, state, batch, "none"))) - snap_bytes
+    if err[0] is not None:
+        raise err[0]
+    step = peak(lambda: task.train_step(state, batch))
+    slack = (sum(p.numel() * p.element_size() for p in state.model.parameters())
+             + mesh.size * sum(v.numel() * v.element_size() for v in batch.values()))
+    return {"probe": probe, "step": step, "slack": slack, "snapshot": snap_bytes}
+
+
+def _dp_rank(out_dir):
+    """What each of the two gloo ranks runs (``parallel.launch.spawn``): the
+    flagship step checks, the final-dropout step, two fits and a profile;
+    results to ``out_dir/rank<r>.pt``."""
+    import torch
+    from mimo_unet_torch.kernels import _build
+    from mimo_unet_torch.parallel import collectives
+    from mimo_unet_torch.parallel.mesh import ct_mesh_scope, make_mesh
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = make_mesh(2, device="cuda")
+    dev = mesh.device
+    _build.load_library(mesh)
+    rows = slice(*mesh.rows(DP_B))
+    batch = _dp_rows(rows)
+    out = {"rank": mesh.rank, "device": str(dev)}
+    task = _train_task()
+    with _deterministic(), ct_mesh_scope(mesh):
+        state = task.init_state(1, dev)
+        steps, per_step = [], []
+        for i in range(DP_STEPS):
+            collectives.reset_counts()
+            rec, launches = _dp_step(task, state, batch)
+            steps.append(rec if i == 0 else {"params": rec["params"], "loss": rec["loss"]})
+            per_step.append((launches, collectives.counts()))
+        out["steps"], out["per_step"] = steps, per_step
+        out["peaks"] = _dp_peaks(task, state, batch, mesh)
+        final = _train_task(final_dropout_rate=0.1)
+        fstate = final.init_state(1, dev)
+        collectives.reset_counts()
+        out["final"], out["final_launches"] = _dp_step(final, fstate, batch)
+        out["final_counts"] = collectives.counts()
+        out["final_masks"] = {k: v.cpu() for k, v in _dp_masks(final, mesh.rank, dev).items()}
+        del fstate
+        torch.cuda.empty_cache()
+        # every rank takes the profiled steps: their collectives must pair
+        out["profile"] = _dp_profile(task, state, batch, mesh)
+    del state
+    torch.cuda.empty_cache()
+    root = os.path.join(out_dir, "fits")
+    out["fit_host"] = _dp_fit(task, root, "host", False)
+    out["fit_cached"] = _dp_fit(task, root, "cached", True)
+    torch.save(out, os.path.join(out_dir, f"rank{mesh.rank}.pt"))
+    # one more collective: no rank ends before both have saved
+    collectives.barrier(mesh)
+
+
+def _dp_one_rank_nccl(dev, card, root):
+    """One rank on NCCL (a file store): Trainer(num_devices=1) gives a mesh
+    of one, and the flagship step under it is bitwise the step without a
+    mesh; one NCCL all-reduce checks the group."""
+    import torch
+    import torch.distributed as dist
+    from mimo_unet_torch.parallel.mesh import ct_mesh_scope
+    from mimo_unet_torch.parallel.multihost import initialize_multihost
+    from mimo_unet_torch.train.trainer import Trainer
+
+    initialize_multihost("file://" + os.path.join(root, "nccl_store"), 1, 0, backend="nccl")
+    try:
+        task = _train_task()
+        trainer = Trainer(task, _harness_data(), max_epochs=1, log_images=False,
+                          checkpoint_path=os.path.join(root, "nccl"), num_devices=1)
+        mesh = trainer.mesh
+        one = torch.ones(4, device=dev)
+        dist.all_reduce(one, group=mesh.group)
+        if (mesh.size, mesh.rank, mesh.device) != (1, 0, dev) or float(one.sum()) != 4:
+            raise AssertionError(f"one-rank NCCL mesh: {mesh}, all-reduce {one.tolist()}")
+        batch = _dp_rows()
+        with _deterministic():
+            a = task.init_state(1, dev)
+            with ct_mesh_scope(mesh):
+                task.train_step(a, batch)
+            b = task.init_state(1, dev)
+            task.train_step(b, batch)
+        _same_state(a, b, f"one NCCL rank (backend {dist.get_backend(mesh.group)}) vs no mesh, "
+                          f"{PATCH[0]}x{PATCH[1]} B={DP_B}", grads=True)
+        del a, b
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+
+
+def _dp_hold(got, want, what, card):
+    """A rank's step against the one-process step: the loss within 1e-2,
+    every gradient leaf at _grad_check's cosine, the BatchNorm buffers
+    within 5e-3 + 1e-2 relative, the loss buffer within 1e-2."""
+    rel = abs(got["loss"] - want["loss"]) / abs(want["loss"])
+    cos = {k: _cos(got["grads"][k], g) for k, g in want["grads"].items()
+           if float(g.abs().max()) >= 5e-3}
+    low = {k: v for k, v in cos.items() if v < DP_GRAD_COS}
+    stat = max(float(((got["buffers"][k] - v).abs() / (5e-3 + 1e-2 * v.abs())).max())
+               for k, v in want["buffers"].items())
+    lb = float((got["loss_buffer"] - want["loss_buffer"]).abs().max())
+    print(f"{what}: loss {got['loss']} vs one process {want['loss']} (rel {rel:.2e}); "
+          f"{len(cos)} gradient leaves, cosine min {min(cos.values()):.6f} mean "
+          f"{sum(cos.values()) / len(cos):.6f}; running stats at {stat:.3f} of their bound; "
+          f"loss buffer max diff {lb:.2e} ({card})")
+    if rel > 1e-2 or low or stat > 1 or lb > 1e-2:
+        raise AssertionError(f"{what}: loss rel {rel}, low cosines {low}, stats {stat}, "
+                             f"loss buffer {lb}")
+    return cos
+
+
+def _dp_updates(got, before, want, grads, what, lr=1e-3):
+    """The parameters after Adam's first step (lr * g / (|g| + eps), about
+    lr * sign(g)) against the one-process step's: every element within
+    2 lr, and where the one-process gradient stands clear (|g| >= 1e-2 of
+    its leaf's largest) the update takes its sign in >= 99 % of those
+    elements over the model."""
+    import torch
+
+    worst, agree, clear_n = 0.0, 0, 0
+    for k, w in want.items():
+        worst = max(worst, float((got[k] - w).abs().max()))
+        g = grads[k]
+        if float(g.abs().max()) == 0:
+            continue
+        clear = g.abs() >= 1e-2 * float(g.abs().max())
+        same = torch.sign(got[k] - before[k])[clear] == torch.sign(w - before[k])[clear]
+        agree += int(same.sum())
+        clear_n += int(clear.sum())
+    share = agree / max(clear_n, 1)
+    print(f"{what}: parameters within {worst:.3e} of the one-process step's (2 lr = "
+          f"{2 * lr:.0e}); the update's sign agrees in {agree} of the {clear_n} elements "
+          f"whose gradient stands clear ({share:.4%})")
+    if worst > 2 * lr + 1e-6 or share < 0.99:
+        raise AssertionError(f"{what}: parameters {worst}, sign share {share}")
+
+
+def data_parallel(dev, card):
+    """Phase 18: one NCCL rank, then two gloo ranks sharing the card
+    (``parallel.launch.spawn``) against the one-process steps and fit."""
+    import shutil
+    import tempfile
+
+    import torch
+    from mimo_unet_torch.ops.dropout import DropoutSource
+    from mimo_unet_torch.parallel import launch
+    from mimo_unet_torch.train.trainer import Trainer
+
+    t0 = time.perf_counter()
+    os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
+    root = tempfile.mkdtemp(prefix="chip_smoke_dp_", dir=os.path.join(REPO, "build"))
+    try:
+        _dp_one_rank_nccl(dev, card, root)
+        t1 = time.perf_counter()
+        launch.spawn(_dp_rank, 2, (root,), device=dev, timeout=DP_TIMEOUT)
+        ranks = [torch.load(os.path.join(root, f"rank{r}.pt"), weights_only=False)
+                 for r in (0, 1)]
+        print(f"two gloo ranks on one card: {time.perf_counter() - t1:.1f} s, devices "
+              f"{[r['device'] for r in ranks]}", flush=True)
+
+        # ---- the one-process references, on the same card
+        task = _train_task()
+        with _deterministic():
+            state = task.init_state(1, dev)
+            before = {k: p.detach().float().cpu() for k, p in state.model.named_parameters()}
+            want, want_launches = _dp_step(task, state, _dp_rows())
+            _want_launches(want_launches, STEP_LAUNCHES, "one-process flagship step")
+            del state
+            final = _train_task(final_dropout_rate=0.1)
+            fstate = final.init_state(1, dev)
+            masks = {k: torch.cat([r["final_masks"][k] for r in ranks]).to(dev)
+                     for k in ranks[0]["final_masks"]}
+            fwant, fwant_launches = _dp_step(final, fstate, _dp_rows(),
+                                             DropoutSource(masks=masks))
+            del fstate
+        torch.cuda.empty_cache()
+        for r in ranks:
+            rank = r["rank"]
+            first = r["steps"][0]
+            _dp_hold(first, want, f"rank {rank} flagship step, {PATCH[0]}x{PATCH[1]} "
+                     f"B={DP_B} over 2 ranks", card)
+            _dp_updates(first["params"], before, want["params"], want["grads"],
+                        f"rank {rank} step")
+            for i, (launches, counts) in enumerate(r["per_step"]):
+                _want_launches(launches, STEP_LAUNCHES, f"rank {rank} step {i}")
+            print(f"rank {rank} collectives a step (calls, bytes): {r['per_step'][0][1]}")
+            pk = r["peaks"]
+            print(f"rank {rank} peak memory over its state: capacity probe at 'none' "
+                  f"{pk['probe'] / 2 ** 20:.1f} MiB (its {pk['snapshot'] / 2 ** 20:.1f} MiB "
+                  f"snapshot taken off), the step over the mesh {pk['step'] / 2 ** 20:.1f} MiB; "
+                  f"collective buffers {pk['slack'] / 2 ** 20:.1f} MiB ({card})")
+            if pk["step"] > pk["probe"] + pk["slack"]:
+                raise AssertionError(f"rank {rank}: the step over the mesh peaks above the "
+                                     f"capacity probe by more than its collective buffers: {pk}")
+            _dp_hold(r["final"], fwant, f"rank {rank} final-dropout step", card)
+            _want_launches(r["final_launches"], fwant_launches, f"rank {rank} final-dropout")
+            print(f"rank {rank} final-dropout step collectives: {r['final_counts']}; "
+                  f"launches {r['final_launches']}")
+        for i in range(DP_STEPS):
+            a, b = ranks[0]["steps"][i]["params"], ranks[1]["steps"][i]["params"]
+            bad = [k for k in a if not torch.equal(a[k], b[k])]
+            if bad:
+                raise AssertionError(f"step {i}: the ranks' parameters differ at {bad[:5]}")
+        print(f"after {DP_STEPS} steps the two ranks' parameters are bitwise equal; losses "
+              f"{[s['loss'] for s in ranks[0]['steps']]}")
+
+        # ---- Trainer.fit over the mesh against one process
+        ref = Trainer(task, _harness_data(), max_epochs=1, log_every_n_steps=2,
+                      log_images=False, seed=7, checkpoint_path=os.path.join(root, "one"),
+                      device=dev)
+        ref.fit()
+        steps = HARNESS_TRAIN // BIG_B
+        want_fit = {k: steps * v for k, v in STEP_LAUNCHES.items()}
+        want_fit.update(EVAL_LAUNCHES)  # one val batch, 32 rows a rank
+        for run in ("fit_host", "fit_cached"):
+            for r in ranks:
+                f = r[run]
+                _want_launches(f["launches"], want_fit, f"rank {r['rank']} {run}")
+                val = f["history"][0]["val_loss"]
+                print(f"rank {r['rank']} {run}: {f['step']} steps, batches {f['fed']}, "
+                      f"val_loss {val} (one process host-fed {ref.history[0]['val_loss']}), "
+                      f"{f['history'][0]['throughput_images_per_sec']:.1f} images/s of the "
+                      f"global batch: two ranks sharing one card through gloo, so this "
+                      f"prices gloo's host staging and the collectives, not a multi-card "
+                      f"speed ({card})")
+                if not f["last_equal"]:
+                    raise AssertionError(f"rank {r['rank']} {run}: last/ differs from its state")
+                if f["writes"] != (2 if r["rank"] == 0 else 0):  # last/ and best/
+                    raise AssertionError(f"rank {r['rank']} {run}: {f['writes']} writes")
+            if run == "fit_host":
+                rel = abs(val - ref.history[0]["val_loss"]) / ref.history[0]["val_loss"]
+                if rel > 2e-2:
+                    raise AssertionError(f"{run}: val_loss {val} vs one process "
+                                         f"{ref.history[0]['val_loss']}")
+            elif ranks[0][run]["fed"] != {"cached": steps}:
+                raise AssertionError(f"{run}: batches {ranks[0][run]['fed']}")
+        prof = ranks[0]["profile"]
+        coll_ms = sum(ms for _, ms in prof["collectives"].values())
+        print(f"rank 0 step profile: {prof['profiled_ms']:.1f} ms profiled, collectives "
+              f"{coll_ms:.1f} ms host time ({prof['collectives']}); step {prof['step_ms']:.1f} ms "
+              f"unprofiled (two gloo ranks on one card, {card})")
+        print(prof["table"])
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    print(f"phase 18 (data parallelism): {time.perf_counter() - t0:.1f} s", flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -3858,7 +4285,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     cli_stats, cli_launches, two_stats, two_launches = cli_phase(dev, card, flagship_sites)
 
-    # ---- 18. results -------------------------------------------------------
+    # ---- 18. data parallelism --------------------------------------------------
+    torch.cuda.empty_cache()
+    data_parallel(dev, card)
+
+    # ---- 19. results -------------------------------------------------------
     rows = [{"name": k, "route": "cuda", "source": KERNEL_INFO[k][0],
              "replaces": KERNEL_INFO[k][1], "launches": launches[k], **stats[k]}
             for k in KERNEL_INFO]

@@ -7,6 +7,8 @@ hand-written kernels of ``kernels/`` (sources in ``csrc/``), the losses,
 the MIMO and evidential tasks' forward, train and val steps, the ensemble,
 the training harness (``train/``: trainer, checkpoints, reference
 ``.ckpt`` loading, the remat capacity ladder, profiling, logging;
-``data/core.py``: the host-fed pipeline), and the offline evaluation
-(``eval/``: FGSM, predictions and uncertainty artifacts).
+``data/core.py``: the host-fed pipeline), the offline evaluation
+(``eval/``: FGSM, predictions and uncertainty artifacts), and data
+parallelism over several cards (``parallel/``: one process a card,
+``torch.distributed``).
 """

@@ -7,15 +7,20 @@ public API (Readme.md:33-115); the scripts in ``mimo_unet_torch/scripts``
 keep those flags, name for name, type for type and default for default.
 This module holds the shared argument groups and the train-run assembly.
 
-Flags kept that the port does not take yet: ``--num_devices`` > 1 (data
-parallelism over several cards, ROADMAP A.7) and ``--host_chunk`` other
-than 1 (a TPU transfer workaround, not ported); both reach ``Trainer``,
-which refuses them.  One flag is new: ``--device``, the torch device the
-run trains on (the card by default; ``cpu`` for a test).
+``--num_devices N`` trains over N ranks, one process a card
+(``parallel/``): under ``torchrun`` the environment gives the ranks;
+without a launcher, N > 1 starts N ranks on this host
+(``parallel.launch.spawn``: a card each where there are N cards, else
+sharing one over gloo; ``--device cpu``: CPU ranks over gloo).  A flag kept
+that the port does not take: ``--host_chunk`` other than 1 (a TPU transfer
+workaround, not ported), which ``Trainer`` refuses.  One flag is new:
+``--device``, the torch device the run trains on (the card by default;
+``cpu`` for a test).
 """
 
 from __future__ import annotations
 
+import os
 from argparse import ArgumentParser, Namespace
 from typing import Optional
 
@@ -76,8 +81,9 @@ def add_trainer_args(parser: ArgumentParser, project: str, max_epochs: int = 100
                         choices=["bf16", "f32"],
                         help="Compute precision (bf16 ~ reference 16-mixed).")
     parser.add_argument("--num_devices", type=int, default=None,
-                        help="Cards to train on; more than one is not "
-                             "ported yet (ROADMAP A.7) and raises.")
+                        help="Cards (data-parallel ranks) to train on; "
+                             "without torchrun, N > 1 starts N ranks on "
+                             "this host.")
     parser.add_argument("--resume", action="store_true",
                         help="Resume from the last checkpoint if present.")
     parser.add_argument("--use_wandb", action="store_true",
@@ -161,20 +167,51 @@ def run_training(
 ):
     """Assemble logger + trainer and fit (the pl.Trainer(...)/fit spine,
     reference train_nyuv2_depth.py:65-82) on ``args.device``.  Returns
-    (trainer, final state)."""
-    import numpy as np
+    (trainer, final state).  Under torchrun the process group starts from
+    its environment; with ``--num_devices`` N > 1 and no launcher, N ranks
+    are started here (their datamodule, not yet set up, pickled to each),
+    train in their own processes, and (None, None) is returned: the run's
+    logs and checkpoints are in ``--checkpoint_path``."""
+    import torch.distributed as dist
 
-    from mimo_unet_torch.train.logging import make_logger
+    from mimo_unet_torch.parallel import launch
+    from mimo_unet_torch.parallel.multihost import initialize_multihost
+
+    n = args.num_devices or 1
+    if n > 1 and not dist.is_initialized() and "WORLD_SIZE" not in os.environ:
+        launch.spawn(_rank_training, n, (args, task, datamodule, monitor_mode,
+                                         monitor_targets),
+                     device=getattr(args, "device", None))
+        return None, None
+    initialize_multihost(backend=launch.backend_for(
+        getattr(args, "device", None),
+        int(os.environ.get("LOCAL_WORLD_SIZE", os.environ.get("WORLD_SIZE", 1)))))
+    return _train(args, task, datamodule, monitor_mode, monitor_targets)
+
+
+def _rank_training(args, task, datamodule, monitor_mode, monitor_targets) -> None:
+    """One rank of ``run_training``'s own launch."""
+    _train(args, task, datamodule, monitor_mode, monitor_targets)
+
+
+def _train(args, task, datamodule, monitor_mode, monitor_targets):
+    import numpy as np
+    import torch.distributed as dist
+
+    from mimo_unet_torch.train.logging import NullLogger, make_logger
     from mimo_unet_torch.train.trainer import Trainer
 
     np.random.seed(args.seed)
-    logger = make_logger(
-        args.checkpoint_path,
-        project=args.project,
-        use_wandb=args.use_wandb,
-        use_tensorboard=getattr(args, "use_tensorboard", False),
-        config=vars(args),
-    )
+    if dist.is_initialized() and dist.get_rank() != 0:
+        logger = NullLogger()  # rank 0 logs the run
+    else:
+        logger = make_logger(
+            args.checkpoint_path,
+            project=args.project,
+            use_wandb=args.use_wandb,
+            use_tensorboard=getattr(args, "use_tensorboard", False),
+            config=vars(args),
+        )
     try:
         trainer = Trainer(
             task,

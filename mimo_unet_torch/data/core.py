@@ -19,7 +19,9 @@ gathers a batch there with one ``index_select`` a key, so a step's host
 work is drawing its rows.  ``PartialDeviceDataset`` pins what fits
 (``device_cache_budget_bytes``) and streams the rest; its epoch stream is
 the JAX package's, element for element, for the same seed and epoch.
-Pinning rows per card (the JAX ``mesh`` argument) is ROADMAP A.7.
+Under a data mesh ``DeviceDataset(mesh=)`` pins each rank's shard of the
+rows on its card and ``iterate_sharded_index_batches`` draws shard-local
+rows, both as the JAX package does.
 """
 
 from __future__ import annotations
@@ -122,19 +124,40 @@ class DeviceDataset:
     uint8: an NYUv2 640x480 frame and its depth take 1.2288 MB), and
     ``gather(idx)`` is one ``index_select`` a key with the index on the
     device; ``device_normalize`` (``tasks/mimo.py``) then does the /255
-    there.  The JAX package's ``mesh`` (rows pinned per device, sampled
-    shard-locally, the partition drawn from ``seed``) is ROADMAP A.7 and
-    raises.
+    there.
+
+    With ``mesh`` (a data mesh of more than one rank, ``parallel/mesh.py``)
+    each rank pins only its shard of the rows on its card (``device``, or
+    the mesh's), the JAX class's partition (mimo_unet_tpu/data/core.py
+    :148-200): the wrapped index space [0, ceil(n/D)*D) is drawn once from
+    ``seed`` (which rows are wrap-duplicated and which shard each lands
+    in), shard d holds ``wrapped[d*n_local:(d+1)*n_local]``, and each
+    epoch every shard permutes its fixed partition
+    (``iterate_sharded_index_batches``).  ``nbytes`` is this rank's.
     """
 
     def __init__(self, dataset: ArrayDataset, device=None, mesh=None,
                  seed: int = 0):
-        if mesh is not None:
-            raise NotImplementedError("pinning rows per card (mesh) is not ported "
-                                      "yet (ROADMAP A.7)")
         self.n = len(dataset)
+        self.mesh = mesh if (mesh is not None and mesh.size > 1) else None
+        rows = slice(None)
+        if self.mesh is None:
+            self.n_shards = 1
+            self.n_local = self.n
+        else:
+            d = self.mesh.size
+            self.n_shards = d
+            self.n_local = -(-self.n // d)  # ceil: wrapped pad to divisible
+            rng = np.random.default_rng(seed)
+            wrapped = rng.permutation(self.n)[np.arange(self.n_local * d) % self.n]
+            rng.shuffle(wrapped)
+            self.wrapped = wrapped
+            rank = self.mesh.rank
+            rows = wrapped[rank * self.n_local:(rank + 1) * self.n_local]
+            if device is None:
+                device = self.mesh.device
         self.device = resolve_device(device)
-        self.data = {k: torch.as_tensor(np.ascontiguousarray(v)).to(self.device)
+        self.data = {k: torch.as_tensor(np.ascontiguousarray(v[rows])).to(self.device)
                      for k, v in dataset.data.items() if v is not None}
 
     def __len__(self) -> int:
@@ -145,10 +168,42 @@ class DeviceDataset:
         return sum(v.numel() * v.element_size() for v in self.data.values())
 
     def gather(self, idx) -> Dict[str, torch.Tensor]:
-        """Rows ``idx`` [B] (numpy or a tensor) -> dict of [B, ...] on the
-        device."""
+        """Rows ``idx`` (numpy or a tensor) -> dict of [B, ...] on the
+        device.  Unsharded: ``idx`` [B] global rows.  Sharded: shard-local
+        rows, this rank's [B/D] or the [D, B/D] of every rank
+        (``iterate_sharded_index_batches``), whose row ``rank`` is taken."""
+        if self.mesh is not None and np.ndim(idx) == 2:
+            idx = idx[self.mesh.rank]
         idx = torch.as_tensor(idx).to(self.device, non_blocking=True)
         return {k: v.index_select(0, idx) for k, v in self.data.items()}
+
+
+def iterate_sharded_index_batches(
+    n: int,
+    n_shards: int,
+    batch_size: int,
+    *,
+    shuffle: bool = False,
+    seed: Optional[int] = None,
+    epoch: int = 0,
+) -> Iterator[np.ndarray]:
+    """Shard-local sampling for a mesh-sharded DeviceDataset: yields
+    [D, B/D] int32 arrays of shard-LOCAL rows.  Each shard permutes its
+    FIXED partition per epoch (the partition was drawn once at
+    DeviceDataset construction); batches are always full (drop_last on
+    the per-shard remainder).  The JAX generator's output
+    (mimo_unet_tpu/data/core.py:250-277), element for element."""
+    assert batch_size % n_shards == 0, (batch_size, n_shards)
+    bd = batch_size // n_shards
+    n_local = -(-n // n_shards)
+    rng = np.random.default_rng(None if seed is None else seed + epoch)
+    if shuffle:
+        orders = np.stack([rng.permutation(n_local) for _ in range(n_shards)])
+    else:
+        orders = np.tile(np.arange(n_local), (n_shards, 1))
+    for start in range(0, (n_local // bd) * bd, bd):
+        yield np.ascontiguousarray(
+            orders[:, start:start + bd].astype(np.int32))
 
 
 def device_cache_budget_bytes(device=None) -> Optional[int]:

@@ -12,7 +12,9 @@ ptxas's report (registers, shared memory, spills per kernel) of the build
 this process ran is kept in ``build_log``.  The build directory
 (``mimo_unet_torch/_build/``, git-ignored) is keyed by a
 hash of the sources and the command, so an edited source rebuilds and an
-unchanged one loads the existing library.  Nothing here runs at import: the
+unchanged one loads the existing library.  Under a data mesh of several
+ranks, ``load_library(mesh)`` lets rank 0 build while the others wait at a
+barrier, then they load its build.  Nothing here runs at import: the
 CPU tests import every module on machines without ``nvcc``.
 """
 
@@ -170,9 +172,19 @@ def bind(path: Path) -> ctypes.CDLL:
     return lib
 
 
-def load_library() -> ctypes.CDLL:
-    """The kernel library, built first if this source tree has no build."""
+def load_library(mesh=None) -> ctypes.CDLL:
+    """The kernel library, built first if this source tree has no build.
+    Every rank of ``mesh`` (a data mesh, ``parallel/mesh.py``) must call it
+    with the mesh: rank 0 loads (building if need be) while the others
+    wait at a barrier, then they load, so a fresh tree builds once, not
+    once a rank."""
     global _lib
+    if mesh is not None and mesh.size > 1:
+        from mimo_unet_torch.parallel.collectives import barrier
+
+        if mesh.rank == 0:
+            load_library()
+        barrier(mesh)
     with _lock:
         if _lib is None:
             path = library_path()

@@ -71,7 +71,10 @@ route: the TPU's lane conditions are not ported, so 256x256 patches and
 
 Every conv is a ``Conv3x3Train`` (forward K5; backward g_eff K9, dx K6 in
 plain or fold form, dw K7).  BatchNorm running statistics update in place,
-from the raw conv output before any dropout site.
+from the raw conv output before any dropout site.  Under a data mesh of
+several ranks (``parallel/mesh.py``) each site's K5 sums are summed over
+the ranks before the affine, and their cotangents before K9
+(``_conv_bn``; ``_psum_stats``, :1048).
 
 ``remat`` (:1443-1451, :1484) recomputes the encoder section ("enc":
 K5 x4, K8 x2, K10's forward x2 again in the backward) and, under "all",
@@ -122,6 +125,8 @@ from mimo_unet_torch.ops.dropout import (
     scale_channels,
 )
 from mimo_unet_torch.ops.norm import update_running_stats
+from mimo_unet_torch.parallel.collectives import all_reduce_sum
+from mimo_unet_torch.parallel.mesh import current_ct_mesh, rank_count
 
 # what the train kernels take: a 3x3 conv's input and output channels
 # (conv3x3_train.MAX_C), the 1x1 out-conv's input and output channels
@@ -375,11 +380,19 @@ def _w_train(convs: Sequence[torch.nn.Conv2d]) -> torch.Tensor:
 
 def _conv_bn(x1, dcs, idx, count, *, x2=None, prologue=None, x2_half_h=False):
     """One train conv (position ``idx`` = 0 or 1 of each group's
-    DoubleConv) and its BatchNorm: returns (y_raw, scale, shift)."""
+    DoubleConv) and its BatchNorm: returns (y_raw, scale, shift).  Under a
+    mesh of several ranks the group sums of K5 are summed over the ranks
+    (one all-reduce a site, its backward the cotangents' sum, the
+    ``_psum_stats`` of fast_path.py:1048) and ``count``, this rank's, is
+    scaled to the global batch's: every rank normalizes with the global
+    batch's statistics and moves its running statistics alike."""
     convs = [dc.double_conv[3 * idx] for dc in dcs]
     bns = [dc.double_conv[3 * idx + 1] for dc in dcs]
     sc, sh = prologue if prologue is not None else (None, None)
     y, s, q = Conv3x3Train.apply(x1, x2, _w_train(convs), sc, sh, x2_half_h)
+    mesh = current_ct_mesh()
+    s, q = all_reduce_sum(torch.stack([s, q]), mesh).unbind(0)
+    count *= rank_count(mesh)
     scale, shift = _bn_affine_from_stats(s, q, count, convs, bns)
     return y, scale, shift
 

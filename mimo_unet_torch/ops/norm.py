@@ -7,6 +7,11 @@ Train mode (:63-86) normalizes with the *biased* batch variance and updates
 the running statistics in place with the *unbiased* one, momentum 0.1.
 With ``fold_conv_bias`` the producing conv skipped its bias (it cancels
 out of ``x - mean``), and the bias is added to the running mean only.
+
+Under a mesh of several ranks (``parallel/mesh.py`` ``ct_mesh_scope``)
+the per-channel sums and sums of squares are summed over the ranks and
+divided by the global count, so every rank normalizes with the global
+batch's statistics (what the JAX package's global-batch math gives).
 """
 
 from __future__ import annotations
@@ -14,6 +19,9 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+
+from mimo_unet_torch.parallel.collectives import all_reduce_sum
+from mimo_unet_torch.parallel.mesh import current_ct_mesh, rank_count
 
 
 def batch_norm_eval(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
@@ -38,38 +46,38 @@ def update_running_stats(running_mean: torch.Tensor, running_var: torch.Tensor,
     running_var.copy_((1 - momentum) * running_var + momentum * unbiased)
 
 
-class _BatchStats(torch.autograd.Function):
-    """Per-channel (mean, biased variance) of [N, C, H, W] in f32, as
-    ``E[x]`` and ``E[x^2] - E[x]^2`` (mimo_unet_tpu/ops/norm.py:64-68).
-    Saves only ``x`` in its own dtype: autograd through the f32 upcast
-    would keep an f32 copy of every normalized activation for the
-    backward, twice a bf16 activation's memory."""
+class _BatchSums(torch.autograd.Function):
+    """Per-channel f32 (sum, sum of squares) of [N, C, H, W], stacked [2, C]
+    (the form that sums over ranks), for ``E[x]`` and ``E[x^2] - E[x]^2``
+    (mimo_unet_tpu/ops/norm.py:64-68).  Saves only ``x`` in its own dtype:
+    autograd through the f32 upcast would keep an f32 copy of every
+    normalized activation for the backward, twice a bf16 activation's
+    memory."""
 
     @staticmethod
     def forward(ctx, x):
         xf = x.float()
-        mean = xf.mean((0, 2, 3))
-        var = (xf * xf).mean((0, 2, 3)) - mean * mean
-        ctx.save_for_backward(x, mean)
-        return mean, var
+        ctx.save_for_backward(x)
+        return torch.stack([xf.sum((0, 2, 3)), (xf * xf).sum((0, 2, 3))])
 
     @staticmethod
-    def backward(ctx, dmean, dvar):
-        x, mean = ctx.saved_tensors
-        n = x.numel() // x.shape[1]
-        # d mean / dx = 1/n;  d var / dx = 2 (x - mean) / n
-        g = (dmean / n).view(1, -1, 1, 1) + (2.0 / n) * dvar.view(1, -1, 1, 1) * (
-            x.float() - mean.view(1, -1, 1, 1))
-        return g.to(x.dtype)
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        ds, dq = g[0].view(1, -1, 1, 1), g[1].view(1, -1, 1, 1)
+        return (ds + 2.0 * dq * x.float()).to(x.dtype)
 
 
 def batch_norm_train(x: torch.Tensor, bn: torch.nn.BatchNorm2d, *,
                      fold_conv_bias: Optional[torch.Tensor] = None
                      ) -> torch.Tensor:
     """Normalize [N, C, H, W] with its batch statistics (computed in f32)
-    and update ``bn``'s running statistics in place."""
-    mean, var = _BatchStats.apply(x)
-    count = x.numel() // x.shape[1]
+    and update ``bn``'s running statistics in place; under a mesh of
+    several ranks, with the global batch's."""
+    mesh = current_ct_mesh()
+    count = x.numel() // x.shape[1] * rank_count(mesh)
+    s, q = all_reduce_sum(_BatchSums.apply(x), mesh).unbind(0)
+    mean = s / count
+    var = q / count - mean * mean
     stat_mean = mean.detach()
     if fold_conv_bias is not None:
         stat_mean = stat_mean + fold_conv_bias.detach().float()

@@ -13,6 +13,12 @@ kernels of ``models/fast_path.py``, every grouped kernel with one group.
 The ``TrainState`` is the MIMO task's, with an unused loss buffer, so the
 trainer, checkpoints and the capacity ladder take both tasks alike.
 Entry points build on the card unless the caller passes ``device="cpu"``.
+
+Under a mesh of several ranks a step is the global batch's, as the MIMO
+task's (``tasks/mimo.py``), with no input transform to gather rows for:
+each rank trains on its own rows, every BatchNorm normalizes with the
+global batch's statistics, the gradients are averaged over the ranks and
+the logs are the global batch's.
 """
 
 from __future__ import annotations
@@ -28,7 +34,16 @@ from mimo_unet_torch.losses import EvidentialLoss
 from mimo_unet_torch.metrics import compute_regression_metrics
 from mimo_unet_torch.models.mimo_unet import MimoUNet, MimoUNetConfig, eval_mode
 from mimo_unet_torch.ops.dropout import DropoutSource
-from mimo_unet_torch.tasks.mimo import TrainState, device_normalize
+from mimo_unet_torch.parallel.collectives import all_reduce, sync_gradients
+from mimo_unet_torch.parallel.mesh import current_ct_mesh, rank_count, spans_ranks
+from mimo_unet_torch.tasks.mimo import (
+    TrainState,
+    device_normalize,
+    mesh_reducer,
+    rank_dropout_source,
+    valid_means,
+    valid_part,
+)
 from mimo_unet_torch.train.optim import adam_with_steplr
 from mimo_unet_torch.utils import count_parameters
 
@@ -148,9 +163,12 @@ class EvidentialUnetTask:
         from ``state.dropout_generator``.  Returns (state, logs,
         outputs-or-None)."""
         model = state.model.train()
-        if dropout is None and state.dropout_generator is not None:
-            dropout = DropoutSource(generator=state.dropout_generator)
+        mesh = current_ct_mesh()
         dev = next(model.parameters()).device
+        if dropout is None and spans_ranks(mesh):
+            dropout = rank_dropout_source(self.seed + 2, state.step, mesh.rank, dev)
+        elif dropout is None and state.dropout_generator is not None:
+            dropout = DropoutSource(generator=state.dropout_generator)
         batch = device_normalize({k: v.to(dev) for k, v in batch.items()})
         image, label, mask = batch["image"], batch["label"], batch.get("mask")
 
@@ -162,6 +180,7 @@ class EvidentialUnetTask:
         for p in model.parameters():
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
+        sync_gradients(model.parameters(), mesh)
         state.optimizer.step()
         state.scheduler.step()
         state.step += 1
@@ -169,8 +188,11 @@ class EvidentialUnetTask:
         with torch.no_grad():
             out = out.detach()
             y_pred = self.loss_fn.mode(out)[..., None]
-            logs = {"train_loss": loss.detach()}
-            for name, value in compute_regression_metrics(y_pred, label).items():
+            # equal rows a rank: the global mean is the ranks' mean
+            loss = all_reduce(loss.detach()[None], mesh, "logs")[0] / rank_count(mesh)
+            logs = {"train_loss": loss}
+            for name, value in compute_regression_metrics(
+                    y_pred, label, reduce=mesh_reducer(mesh, "logs")).items():
                 logs[f"metric_train/{name}"] = value
             outputs = None
             if with_outputs:
@@ -191,7 +213,8 @@ class EvidentialUnetTask:
         [B,H,W,1] and ``valid`` [B] (0/1), on any device (moved to the
         model's): padded rows get weight 0 in every logged statistic.  The
         model runs in eval mode, whatever mode it is in (restored after).
-        Returns (logs, outputs)."""
+        Under a mesh of several ranks ``batch`` is this rank's rows and the
+        logs are the global batch's.  Returns (logs, outputs)."""
         loss_fn = self.loss_fn
         dev = next(model.parameters()).device
         batch = device_normalize({k: None if v is None else v.to(dev)
@@ -199,12 +222,9 @@ class EvidentialUnetTask:
         image, label, mask = batch["image"], batch["label"], batch.get("mask")
         mask_sq = mask.squeeze(-1) if mask is not None else None
         valid = batch.get("valid")
-
-        def wmean(x):
-            if valid is None:
-                return x.mean()
-            w = valid.to(x.dtype).reshape((-1,) + (1,) * (x.ndim - 1))
-            return (x * w).sum() / (valid.sum() * (x.numel() // x.shape[0]))
+        if valid is None:
+            valid = torch.ones(image.shape[0], device=dev)
+        mesh = current_ct_mesh()
 
         with eval_mode(model):
             out = self.forward(model, image)
@@ -213,15 +233,17 @@ class EvidentialUnetTask:
         aleatoric_std = torch.sqrt(loss_fn.aleatoric_var(out))[..., None]
         epistemic_std = torch.sqrt(loss_fn.epistemic_var(out))[..., None]
 
-        row_w = None if valid is None else valid.reshape(
-            (-1,) + (1,) * (label.ndim - 1))
-        logs = {
-            "val_loss": wmean(loss),
-            "metric_val/aleatoric_std_mean": wmean(torch.clamp(aleatoric_std, 0, 5)),
-            "metric_val/epistemic_std_mean": wmean(torch.clamp(epistemic_std, 0, 5)),
-        }
+        logs = valid_means({
+            "val_loss": valid_part(loss, valid),
+            "metric_val/aleatoric_std_mean": valid_part(
+                torch.clamp(aleatoric_std, 0, 5), valid),
+            "metric_val/epistemic_std_mean": valid_part(
+                torch.clamp(epistemic_std, 0, 5), valid),
+        }, valid, mesh)
+        row_w = valid.reshape((-1,) + (1,) * (label.ndim - 1))
         for name, value in compute_regression_metrics(
-                y_pred, label, weights=row_w).items():
+                y_pred, label, weights=row_w,
+                reduce=mesh_reducer(mesh, "val")).items():
             logs[f"metric_val/{name}"] = value
         outputs = {
             "label": label,

@@ -15,11 +15,25 @@ statistics), the optimizer and its schedule, and the loss buffer, and
 state's generator on the model's device (the JAX step's ``k_dropout``,
 mimo_unet_tpu/tasks/mimo.py:189), or from masks the caller passes.  Entry
 points build on the card unless the caller passes ``device="cpu"``.
+
+Under a mesh of several ranks (``parallel/mesh.py`` ``ct_mesh_scope``) a
+step computes what one device computes on the global batch: ``batch`` is
+this rank's rows; the rows of every rank are gathered, the input
+transform permutes the global batch with the (shared) generator and each
+rank keeps its slice of the result; every BatchNorm normalizes with the
+global batch's statistics; each rank backpropagates its own loss and the
+gradients are averaged over the ranks before the optimizer step; the
+per-subnetwork losses are averaged over the ranks before the loss buffer
+and the logs, and the metrics are those of the global batch.  Dropout
+masks are drawn per rank (``rank_dropout_source``).  ``val_step`` takes
+this rank's rows of a validation batch and logs the global batch's
+values.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -32,8 +46,20 @@ from mimo_unet_torch.loss_buffer import (
 )
 from mimo_unet_torch.losses import UncertaintyLoss
 from mimo_unet_torch.metrics import compute_regression_metrics
+from mimo_unet_torch.models.ensemble import fold_in
 from mimo_unet_torch.models.mimo_unet import MimoUNet, MimoUNetConfig, eval_mode
 from mimo_unet_torch.ops.dropout import DropoutSource
+from mimo_unet_torch.parallel.collectives import (
+    all_gather_rows,
+    all_reduce,
+    sync_gradients,
+)
+from mimo_unet_torch.parallel.mesh import (
+    current_ct_mesh,
+    local_slice,
+    rank_count,
+    spans_ranks,
+)
 from mimo_unet_torch.train.optim import adam_with_steplr
 from mimo_unet_torch.transforms import (
     apply_input_transform,
@@ -57,6 +83,45 @@ def device_normalize(batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         return v if k in _NO_RESCALE_KEYS else v / 255.0
 
     return {k: norm(k, v) for k, v in batch.items()}
+
+
+def rank_dropout_source(seed: int, step: int, rank: int, device) -> DropoutSource:
+    """Where rank ``rank`` of a mesh draws step ``step``'s dropout masks: a
+    generator on ``device`` seeded ``fold_in(fold_in(seed, step), rank)``,
+    as the JAX kernel path folds the data axis index into its step's key
+    (mimo_unet_tpu/models/fast_path.py:376, :1117).  A function of the
+    step, so a resumed run draws what a straight one draws."""
+    gen = torch.Generator(device).manual_seed(fold_in(fold_in(seed, step), rank))
+    return DropoutSource(generator=gen)
+
+
+def mesh_reducer(mesh, kind: str):
+    """A sum over the mesh's ranks for ``compute_regression_metrics``."""
+    return lambda t: all_reduce(t, mesh, kind)
+
+
+def valid_part(x: torch.Tensor, valid: torch.Tensor, dims=None):
+    """A part of ``valid_means``: (the sum over ``dims``, all when None, of
+    ``x`` [B, ...] with row b weighted by ``valid[b]`` (0/1), the elements
+    of a row that each sum takes)."""
+    dims = tuple(range(x.ndim)) if dims is None else dims
+    w = valid.to(x.dtype).reshape((-1,) + (1,) * (x.ndim - 1))
+    return (x * w).sum(dim=dims), math.prod(x.shape[d] for d in dims if d != 0)
+
+
+def valid_means(parts: Dict[str, Tuple[torch.Tensor, int]], valid: torch.Tensor,
+                mesh) -> Dict[str, torch.Tensor]:
+    """Means over the valid rows of every rank of ``mesh``: ``parts`` maps
+    a name to (the valid rows' sum, the elements of a row).  One
+    all-reduce of the sums and of the valid rows' count (none without a
+    mesh)."""
+    sums = [v.float().reshape(-1) for v, _ in parts.values()]
+    total = all_reduce(torch.cat(sums + [valid.float().sum()[None]]), mesh, "val")
+    out, i = {}, 0
+    for (k, (v, per_row)), flat in zip(parts.items(), sums):
+        out[k] = (total[i:i + flat.numel()] / (total[-1] * per_row)).reshape(v.shape)
+        i += flat.numel()
+    return out
 
 
 @dataclasses.dataclass
@@ -199,15 +264,26 @@ class MimoUnetTask:
         from ``state.dropout_generator``.  Returns (state, logs,
         outputs-or-None)."""
         model = state.model.train()
-        if dropout is None and state.dropout_generator is not None:
-            dropout = DropoutSource(generator=state.dropout_generator)
+        mesh = current_ct_mesh()
         dev = next(model.parameters()).device
-        batch = device_normalize({k: v.to(dev) for k, v in batch.items()})
+        if dropout is None and spans_ranks(mesh):
+            dropout = rank_dropout_source(self.seed + 2, state.step, mesh.rank, dev)
+        elif dropout is None and state.dropout_generator is not None:
+            dropout = DropoutSource(generator=state.dropout_generator)
+        # the global batch, rank-major, on every rank; the transform
+        # gathers only this rank's rows of its result, and normalizes those
+        # (elementwise), so no rank holds more than its share past here
+        batch = {k: all_gather_rows(v.to(dev), mesh) for k, v in batch.items()}
+        rows = local_slice(mesh, len(batch["image"]) * self.batch_repetitions)
         image_t, label_t, mask_t = apply_input_transform(
             state.generator, batch["image"], batch["label"], batch.get("mask"),
             num_subnetworks=self.num_subnetworks,
             input_repetition_probability=self.input_repetition_probability,
-            batch_repetitions=self.batch_repetitions)
+            batch_repetitions=self.batch_repetitions, rows=rows)
+        del batch
+        norm = device_normalize({"image": image_t, "label": label_t, "mask": mask_t})
+        image_t, label_t, mask_t = norm["image"], norm["label"], norm["mask"]
+        del norm
 
         state.optimizer.zero_grad(set_to_none=True)
         loss, loss_vec, weights, p1, p2 = self.objective(
@@ -219,20 +295,23 @@ class MimoUnetTask:
         for p in model.parameters():
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
+        sync_gradients(model.parameters(), mesh)
         state.optimizer.step()
         state.scheduler.step()
+        # equal rows a rank: the global mean is the ranks' mean
+        loss_vec = all_reduce(loss_vec.detach(), mesh, "logs") / rank_count(mesh)
         loss_buffer_add(state.loss_buffer, loss_vec, self.loss_buffer_size)
         state.step += 1
 
         with torch.no_grad():
-            loss_vec = loss_vec.detach()
             p1, p2 = p1.detach(), p2.detach()
             y_pred = self.loss_fn.mode(p1, p2)
             logs = {"train_loss": loss_vec.mean()}
             for i in range(self.num_subnetworks):
                 logs[f"train_loss_{i}"] = loss_vec[i]
                 logs[f"train_weight_{i}"] = weights[i]
-            for name, value in compute_regression_metrics(y_pred, label_t).items():
+            for name, value in compute_regression_metrics(
+                    y_pred, label_t, reduce=mesh_reducer(mesh, "logs")).items():
                 logs[f"metric_train/{name}"] = value
             outputs = None
             if with_outputs:
@@ -254,7 +333,9 @@ class MimoUnetTask:
         [B,H,W,1] and ``valid`` [B] (0/1), on any device (moved to the
         model's): padded rows get weight 0 in every logged statistic.  The
         model runs in eval mode, whatever mode it is in (restored after).
-        Returns (logs, outputs)."""
+        Under a mesh of several ranks ``batch`` is this rank's rows and the
+        logs are the global batch's (one reduction of the weighted sums,
+        two for the metrics).  Returns (logs, outputs)."""
         loss_fn = self.loss_fn
         dev = next(model.parameters()).device
         batch = device_normalize({k: None if v is None else v.to(dev)
@@ -265,22 +346,13 @@ class MimoUnetTask:
         mask = batch.get("mask")
         mask_t = repeat_subnetworks(mask, s) if mask is not None else None
         valid = batch.get("valid")
-
-        def wmean(x):
-            if valid is None:
-                return x.mean()
-            w = valid.to(x.dtype).reshape((-1,) + (1,) * (x.ndim - 1))
-            return (x * w).sum() / (valid.sum() * (x.numel() // x.shape[0]))
+        if valid is None:
+            valid = torch.ones(image.shape[0], device=dev)
+        mesh = current_ct_mesh()
 
         with eval_mode(model):
             p1, p2 = self.forward(model, image)
         per_px = loss_fn(p1, p2, label, mask=mask_t, reduce_mean=False)
-        if valid is None:
-            val_loss = per_px.mean(dim=(0, 2, 3, 4))
-        else:
-            w = valid.to(per_px.dtype)[:, None, None, None, None]
-            n_elem = per_px.shape[2] * per_px.shape[3] * per_px.shape[4]
-            val_loss = (per_px * w).sum(dim=(0, 2, 3, 4)) / (valid.sum() * n_elem)
 
         y_pred_mean, aleatoric_var, epistemic_var = compute_uncertainties(
             loss_fn, p1, p2)
@@ -290,21 +362,25 @@ class MimoUnetTask:
         epistemic_std = torch.sqrt(epistemic_var)
         combined_log_param = loss_fn.calculate_dist_param(std=combined_std,
                                                           log=True)
-        val_loss_combined = wmean(loss_fn(p1.mean(dim=1), combined_log_param,
-                                          y_mean, mask=mask, reduce_mean=False))
+        means = valid_means({
+            "val_loss": valid_part(per_px, valid, dims=(0, 2, 3, 4)),
+            "val_loss_combined": valid_part(
+                loss_fn(p1.mean(dim=1), combined_log_param, y_mean, mask=mask,
+                        reduce_mean=False), valid),
+            "metric_val/aleatoric_std_mean": valid_part(
+                torch.clamp(aleatoric_std, 0, 5), valid),
+            "metric_val/epistemic_std_mean": valid_part(
+                torch.clamp(epistemic_std, 0, 5), valid),
+        }, valid, mesh)
+        val_loss = means.pop("val_loss")
 
-        row_w = None if valid is None else valid.reshape(
-            (-1,) + (1,) * (y_mean.ndim - 1))
-        logs = {
-            "val_loss": val_loss.mean(),
-            "val_loss_combined": val_loss_combined,
-            "metric_val/aleatoric_std_mean": wmean(torch.clamp(aleatoric_std, 0, 5)),
-            "metric_val/epistemic_std_mean": wmean(torch.clamp(epistemic_std, 0, 5)),
-        }
+        logs = {"val_loss": val_loss.mean(), **means}
         for i in range(s):
             logs[f"val_loss_{i}"] = val_loss[i]
+        row_w = valid.reshape((-1,) + (1,) * (y_mean.ndim - 1))
         for name, value in compute_regression_metrics(
-                y_pred_mean, y_mean, weights=row_w).items():
+                y_pred_mean, y_mean, weights=row_w,
+                reduce=mesh_reducer(mesh, "val")).items():
             logs[f"metric_val/{name}"] = value
         outputs = {
             "label": y_mean,

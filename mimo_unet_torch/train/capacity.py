@@ -16,6 +16,13 @@ model's parameters, gradients and buffers, Adam's moments, the schedule,
 the loss buffer, ``step`` and both generators, bit for bit) and the same
 batch is tried one rung up.  As in the JAX package, ``Trainer`` does not
 call the ladder: it is a library function.
+
+Under a mesh of several ranks (``parallel/mesh.py`` ``ct_mesh_scope``)
+every rank probes the rungs on its own rows with the collectives off
+(every rank has the same shapes), undoing each probe; the ranks then agree
+on the highest rung any of them needed, so that no rank is left waiting
+in a collective by another that ran out of memory, and all take the step
+at that rung together.
 """
 
 from __future__ import annotations
@@ -25,6 +32,9 @@ import dataclasses
 from typing import Callable, Optional, Tuple
 
 import torch
+
+from mimo_unet_torch.parallel.collectives import agree_max
+from mimo_unet_torch.parallel.mesh import ct_mesh_scope, current_ct_mesh, spans_ranks
 
 RUNGS = ("none", "enc", "all")
 
@@ -85,8 +95,12 @@ def make_train_step(task, state, batch, *, rungs: Tuple[str, ...] = RUNGS,
     logs are not kept).  An attempt that runs out of memory leaves
     ``state`` exactly as it found it; the rung is switched on the live
     model (``state.model.config``), whose weights stay.  Raises a failure that is not an out-of-memory error as it is,
-    and the last one if every rung runs out of memory."""
+    and the last one if every rung runs out of memory.  Under a mesh of
+    several ranks ``batch`` is this rank's rows (see the module
+    docstring)."""
     start = rungs.index(task.remat) if task.remat in rungs else 0
+    if spans_ranks(current_ct_mesh()):
+        return _agreed_rung(task, state, batch, rungs[start:], verbose)
     model = state.model
     last_err: Optional[BaseException] = None
     for rung in rungs[start:]:
@@ -111,3 +125,51 @@ def make_train_step(task, state, batch, *, rungs: Tuple[str, ...] = RUNGS,
             torch.cuda.empty_cache()
     model.config = dataclasses.replace(model.config, remat=task.remat)
     raise last_err
+
+
+def _fits(task, state, batch, rung: str) -> Optional[BaseException]:
+    """Run one step at ``rung`` on this rank alone, then undo it: None if it
+    fit, else its out-of-memory error (another failure is raised)."""
+    used = dataclasses.replace(task, remat=rung)
+    state.model.config = dataclasses.replace(state.model.config, remat=rung)
+    snap = _snapshot(state)
+    err = None
+    try:
+        with ct_mesh_scope(None):
+            used.train_step(state, batch)
+    except Exception as e:  # noqa: BLE001 (classified, else re-raised)
+        if not is_cuda_oom(e):
+            raise
+        err = e.with_traceback(None)
+    _restore(state, snap)
+    del snap
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
+    return err
+
+
+def _agreed_rung(task, state, batch, rungs: Tuple[str, ...], verbose: bool):
+    """The ladder over the ranks of the active mesh: each rank finds its
+    first fitting rung alone, the ranks take the highest, then step
+    together."""
+    mesh = current_ct_mesh()
+    last_err: Optional[BaseException] = None
+    mine = len(rungs)  # no rung fits
+    for i, rung in enumerate(rungs):
+        last_err = _fits(task, state, batch, rung)
+        if last_err is None:
+            mine = i
+            break
+    agreed = agree_max(mine, mesh)
+    if agreed == len(rungs):
+        state.model.config = dataclasses.replace(state.model.config, remat=task.remat)
+        if last_err is not None:
+            raise last_err
+        raise RuntimeError("another rank ran out of the card's memory at every rung")
+    used = dataclasses.replace(task, remat=rungs[agreed])
+    state.model.config = dataclasses.replace(state.model.config, remat=used.remat)
+    used.train_step(state, batch)
+    if verbose and used.remat != task.remat and mesh.is_main:
+        print(f"[capacity] train step needs remat={used.remat!r} to fit "
+              f"the card's memory at this batch size on every rank")
+    return used.train_step, used

@@ -21,6 +21,10 @@ a stale state.  An asynchronous save copies the state to the host before
 it returns, stages ``hparams.json.pending`` and writes the state on the
 manager's thread; ``CheckpointManager.wait_until_finished`` promotes the
 staged file once its state write has succeeded.
+
+Under a data mesh of several ranks every rank holds the same state, and
+only rank 0 writes; ``wait_until_finished`` ends with a barrier, so no
+rank reads a checkpoint before rank 0 has written it.
 """
 
 from __future__ import annotations
@@ -185,23 +189,28 @@ class CheckpointManager:
     """save_last + best-by-val_loss retention, like the reference's
     ModelCheckpoint callbacks (train_nyuv2_depth.py:22-36).  Asynchronous
     saves run in order on one thread the manager starts at its first
-    save and stops in ``wait_until_finished``."""
+    save and stops in ``wait_until_finished``.  With a ``mesh`` of several
+    ranks only rank 0 writes, and every rank tracks the best val_loss."""
 
     def __init__(self, root: str, hparams: Dict[str, Any],
-                 async_save: bool = True):
+                 async_save: bool = True, mesh=None):
         self.root = os.path.abspath(root)
         self.hparams = hparams
         self.best_val_loss = float("inf")
         self._async = async_save
         self._executor: Optional[concurrent.futures.ThreadPoolExecutor] = None
         self._pending: List[Tuple[concurrent.futures.Future, str]] = []
-        os.makedirs(self.root, exist_ok=True)
+        self.mesh = mesh
+        self.writes = mesh is None or mesh.is_main
+        if self.writes:
+            os.makedirs(self.root, exist_ok=True)
 
     def wait_until_finished(self) -> None:
         """Block until every dispatched save has finished, then publish the
         staged hparams file of each save whose state write succeeded (the
         state-first order of ``save_checkpoint``); raise the first failed
-        write's error."""
+        write's error.  Under a mesh every rank then waits for the others
+        (rank 0's writes are durable when any rank returns)."""
         pending, self._pending = self._pending, []
         if self._executor is not None:
             self._executor.shutdown(wait=True)
@@ -215,6 +224,10 @@ class CheckpointManager:
                 error = e
         if error is not None:
             raise error
+        if self.mesh is not None:
+            from mimo_unet_torch.parallel.collectives import barrier
+
+            barrier(self.mesh)
 
     @property
     def last_path(self) -> str:
@@ -225,6 +238,8 @@ class CheckpointManager:
         return os.path.join(self.root, "best")
 
     def _save(self, path: str, state, hparams) -> None:
+        if not self.writes:
+            return
         executor = None
         if self._async:
             if self._executor is None:

@@ -35,6 +35,16 @@ class MetricLogger:
         pass
 
 
+class NullLogger(MetricLogger):
+    """Logs nothing: the logger of data-parallel ranks other than 0."""
+
+    def log_scalars(self, step: int, scalars: Dict[str, float]) -> None:
+        pass
+
+    def log_image(self, step: int, name: str, image: np.ndarray) -> None:
+        pass
+
+
 class TSVLogger(MetricLogger):
     """Append-only metrics.tsv (one JSON-ish row per log call) + PNG dumps."""
 

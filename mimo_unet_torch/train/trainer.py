@@ -16,8 +16,17 @@ in scripts/train/train_nyuv2_depth.py:70-82 (max_epochs,
 log_every_n_steps, 16-mixed AMP -> compute_dtype="bfloat16",
 ModelCheckpoint callbacks).
 
-Not ported yet: data parallelism over several cards (``mesh``,
-``num_devices``, ROADMAP A.7); it raises.
+Data parallelism (``mesh`` or ``num_devices``, ``parallel/mesh.py``): one
+process a card, each a rank of a ``torch.distributed`` process group
+(started by torchrun, ``parallel.launch.spawn`` or ``--num_devices``).
+``fit`` runs inside ``ct_mesh_scope``, so each step is the global batch's
+(``tasks/mimo.py``); host-fed, every rank draws the same global batches
+and copies only its rows to its card; with ``device_cache`` each rank pins
+its shard (``DeviceDataset(mesh=)``) and gathers shard-local rows, and a
+split past the budget is host-fed (a partial cache is single-device, as in
+the JAX trainer).  Validation pads each batch to a multiple of the ranks
+and weighs the padded rows 0.  Rank 0 alone logs (the global values) and
+writes checkpoints; every rank resumes from the same ``last/``.
 """
 
 from __future__ import annotations
@@ -36,11 +45,18 @@ from mimo_unet_torch.data.core import (
     dataset_nbytes,
     device_cache_budget_bytes,
     iterate_index_batches,
+    iterate_sharded_index_batches,
     prefetch_to_device,
 )
-from mimo_unet_torch.models.mimo_unet import resolve_device
+from mimo_unet_torch.parallel.collectives import agree_max, barrier
+from mimo_unet_torch.parallel.mesh import (
+    ct_mesh_scope,
+    make_mesh,
+    pad_batch_to_divisible,
+    spans_ranks,
+)
 from mimo_unet_torch.train.checkpoint import CheckpointManager, load_checkpoint
-from mimo_unet_torch.train.logging import MetricLogger, TSVLogger
+from mimo_unet_torch.train.logging import MetricLogger, NullLogger, TSVLogger
 from mimo_unet_torch.visualization import output_monitor_images
 
 ROWS = "_rows"  # a cached batch's rows as the prefetcher carries them
@@ -68,15 +84,16 @@ class Trainer:
         device=None,
     ):
         """The JAX Trainer's arguments, and ``device`` (the card when
-        None).  ``device_cache_budget`` is the bytes the device cache may
-        take (None: ``device_cache_budget_bytes``).  ``mesh`` and
-        ``num_devices`` > 1 raise (ROADMAP A.7); ``host_chunk`` must be 1
+        None; under a process group this rank's card, ``rank_device``).
+        ``mesh`` (``parallel.make_mesh``), else ``make_mesh(num_devices)``:
+        a mesh of one without a process group, else the group's first
+        ``num_devices`` ranks (all when None).  ``device_cache_budget`` is
+        the bytes the device cache may take (None:
+        ``device_cache_budget_bytes``).  ``host_chunk`` must be 1
         (``prefetch_to_device``)."""
-        if mesh is not None or (num_devices or 1) > 1:
-            raise NotImplementedError("training on several cards is not "
-                                      "ported yet (ROADMAP A.7)")
         if host_chunk != 1:
             raise ValueError(f"host_chunk must be 1, got {host_chunk}")
+        self.mesh = mesh if mesh is not None else make_mesh(num_devices, device)
         self.task = task
         self.dm = datamodule
         self.max_epochs = max_epochs
@@ -87,9 +104,14 @@ class Trainer:
         self.seed = seed
         self.device_cache = device_cache
         self.device_cache_budget = device_cache_budget
-        self.device = resolve_device(device)
+        self.device = self.mesh.device
+        self.main = self.mesh.is_main  # the rank that logs and writes
+        if not self.main:
+            logger = NullLogger()
         self.logger = logger if logger is not None else TSVLogger(checkpoint_path)
-        self.ckpt = CheckpointManager(checkpoint_path, task.hparams())
+        self.ckpt = CheckpointManager(
+            checkpoint_path, task.hparams(),
+            mesh=self.mesh if spans_ranks(self.mesh) else None)
         self.history: list = []
         # train batches handed to the step, by where they were gathered:
         # "cached" (on the card) or "host"
@@ -101,11 +123,27 @@ class Trainer:
     def fit(self, resume: bool = False):
         """Train from epoch 0, or with ``resume`` from ``last/`` when it
         exists; validate and checkpoint after every epoch.  Returns the
-        final ``TrainState``."""
-        task, dm, dev = self.task, self.dm, self.device
+        final ``TrainState``.  Under a mesh of several ranks every rank
+        calls it, and the steps run inside ``ct_mesh_scope``."""
+        with ct_mesh_scope(self.mesh):
+            return self._fit(resume)
+
+    def _fit(self, resume: bool):
+        task, dm, dev, mesh = self.task, self.dm, self.device, self.mesh
         dm.setup()
         n_train = len(dm.train_dataset())
         steps_per_epoch = max(n_train // dm.batch_size, 1)
+        if dm.batch_size % mesh.size != 0:
+            raise ValueError(
+                f"batch_size={dm.batch_size} must be divisible by the mesh "
+                f"size ({mesh.size} devices); pass num_devices to shrink "
+                f"the mesh or adjust --batch_size"
+            )
+        if dev.type == "cuda" and spans_ranks(mesh):
+            from mimo_unet_torch.kernels import _build
+
+            _build.load_library(mesh)  # rank 0 builds, the others wait
+        barrier(mesh)  # no rank reads last/ before its writer has finished
 
         if resume and self.ckpt.has_last():
             _, state = load_checkpoint(self.ckpt.last_path, steps_per_epoch,
@@ -115,7 +153,7 @@ class Trainer:
             # best/ (the reference's ModelCheckpoint keeps this in its own
             # state, train_nyuv2_depth.py:22-36)
             self.ckpt.restore_best_tracking()
-            print(f"[trainer] resumed from step {state.step} (epoch {start_epoch})")
+            self._print(f"[trainer] resumed from step {state.step} (epoch {start_epoch})")
         else:
             state = task.init_state(steps_per_epoch, dev)
             start_epoch = 0
@@ -137,7 +175,7 @@ class Trainer:
                     state, batch, with_outputs=want_images)
                 if want_images:
                     self._log_images(global_step, outputs, stage="train")
-                images_seen += len(batch["image"])
+                images_seen += len(batch["image"]) * mesh.size
                 if not self._timing_warm:
                     # the first step of the process builds the kernels and
                     # plans; restart the epoch clock so throughput reads
@@ -168,7 +206,7 @@ class Trainer:
             }
             self.logger.log_scalars(global_step, epoch_scalars)
             self.history.append(epoch_scalars)
-            print(
+            self._print(
                 f"[epoch {epoch}] {throughput:.1f} img/s  "
                 + "  ".join(
                     f"{k}={v:.5f}" for k, v in val_logs.items() if k == "val_loss"
@@ -195,11 +233,27 @@ class Trainer:
     def _device_cache(self, train):
         """The train split on the card: whole when it fits the budget
         (``device_cache_budget``, else ``device_cache_budget_bytes``; no
-        gate on the CPU), else the rows that fit, the rest streamed."""
+        gate on the CPU), else the rows that fit, the rest streamed.  Under
+        a mesh of several ranks each rank pins its shard when every rank's
+        shard fits its budget, else none is pinned and the split is
+        host-fed (the JAX trainer's fallback, :148-163)."""
         need = dataset_nbytes(train)
         budget = self.device_cache_budget
         if budget is None:
             budget = device_cache_budget_bytes(self.device)
+        mesh = self.mesh
+        if spans_ranks(mesh):
+            per_dev = need // mesh.size
+            # the ranks' budgets may differ: they agree before any pins
+            if agree_max(int(budget is not None and per_dev > budget), mesh):
+                self._print(f"[trainer] device cache disabled: split needs "
+                            f"{per_dev / 1e6:.0f} MB/device > its budget on some "
+                            f"rank (host-fed fallback; use more devices)")
+                return None
+            cache = DeviceDataset(train, device=self.device, mesh=mesh, seed=self.seed)
+            self._print(f"[trainer] device cache: {len(cache)} items, "
+                        f"{cache.nbytes / 1e6:.0f} MB a rank x {cache.n_shards} shards")
+            return cache
         if budget is not None and need > budget:
             cache = PartialDeviceDataset(train, budget, device=self.device, seed=self.seed)
             print(f"[trainer] device cache (partial): {cache.n_cached}/{len(cache)} rows "
@@ -217,10 +271,18 @@ class Trainer:
         draws them, ``iterate_index_batches``, or in the partial cache's
         stream) travel through ``prefetch_to_device`` beside the partial
         cache's host batches, and the cached ones are gathered on the
-        card."""
-        dm = self.dm
+        card.  Under a mesh of several ranks each rank takes its rows of
+        every host batch, or its row of each shard-local index batch."""
+        dm, mesh = self.dm, self.mesh
         if cache is None:
             items = dm.train_batches(epoch, seed=self.seed)
+            if spans_ranks(mesh):
+                items = ({k: v[slice(*mesh.rows(len(v)))] for k, v in batch.items()
+                          if v is not None} for batch in items)
+        elif isinstance(cache, DeviceDataset) and cache.mesh is not None:
+            items = ({ROWS: idx[mesh.rank]} for idx in iterate_sharded_index_batches(
+                len(cache), cache.n_shards, dm.batch_size, shuffle=True,
+                seed=self.seed, epoch=epoch))
         elif isinstance(cache, PartialDeviceDataset):
             items = ({ROWS: v} if kind == "cached" else v for kind, v in cache.epoch_batches(
                 dm.batch_size, seed=self.seed, epoch=epoch, shuffle=True, drop_last=True))
@@ -241,19 +303,28 @@ class Trainer:
 
     def validate(self, state) -> dict:
         """The val split's logs, each batch weighted by its rows (the JAX
-        trainer's :330-352 on one device, where no batch is padded, so
-        none carries a ``valid`` column); the first batch's outputs are
-        logged as images."""
+        trainer's :330-352); the first batch's outputs (rank 0's rows) are
+        logged as images.  Under a mesh of several ranks each batch is
+        padded to a multiple of the ranks, its pad rows marked by a
+        ``valid`` column of 0, and each rank runs ``val_step`` on its rows
+        (whose logs are the global batch's)."""
+        mesh = self.mesh
         sums: dict = {}
         count = 0
         first_outputs = None
         for batch in self.dm.val_batches():
-            batch = {k: torch.from_numpy(v) for k, v in batch.items()
-                     if v is not None}
+            batch = {k: v for k, v in batch.items() if v is not None}
+            batch, w = pad_batch_to_divisible(batch, mesh.size)
+            b = len(next(iter(batch.values())))
+            if w != b:
+                # 0/1 row validity: pad rows must not enter any logged mean
+                batch["valid"] = (np.arange(b) < w).astype(np.float32)
+            rows = slice(*mesh.rows(b))
+            batch = {k: torch.from_numpy(np.ascontiguousarray(v[rows]))
+                     for k, v in batch.items()}
             logs, outputs = self.task.val_step(state.model, batch)
             if first_outputs is None:
                 first_outputs = outputs
-            w = len(batch["image"])
             # one wait on the card a batch
             values = torch.stack([v.float() for v in logs.values()]).tolist()
             for k, v in zip(logs, values):
@@ -271,12 +342,16 @@ class Trainer:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
+    def _print(self, message: str) -> None:
+        if self.main:
+            print(message)
+
     def _flush_scalars(self, step: int, logs) -> None:
         values = torch.stack([v.float() for v in logs.values()]).tolist()
         self.logger.log_scalars(step, dict(zip(logs, values)))
 
     def _log_images(self, step: int, outputs: dict, stage: str) -> None:
-        if not self.log_images:
+        if not (self.log_images and self.main):
             return
         try:
             host = {

@@ -16,7 +16,8 @@ def apply_input_transform(generator: torch.Generator, image: torch.Tensor,
                           label: torch.Tensor, mask: Optional[torch.Tensor],
                           num_subnetworks: int,
                           input_repetition_probability: float = 0.0,
-                          batch_repetitions: int = 1
+                          batch_repetitions: int = 1,
+                          rows: slice = slice(None)
                           ) -> Tuple[torch.Tensor, torch.Tensor,
                                      Optional[torch.Tensor]]:
     """Per-subnetwork shuffled batches [B*reps, S, ...] from [B, ...]
@@ -25,7 +26,9 @@ def apply_input_transform(generator: torch.Generator, image: torch.Tensor,
     ``batch_repetitions`` times; its first ``(1 - p)`` fraction is
     re-shuffled independently per subnetwork, the tail is shared.  The
     permutations are drawn on the CPU from ``generator`` (torch's numbers,
-    not JAX's) and the gather runs on the data's device."""
+    not JAX's) and the gather runs on the data's device.  Only the
+    transformed rows ``rows`` of the B*reps are gathered (a data-parallel
+    rank's share); the permutations are those of the whole batch."""
     b = image.shape[0]
     main = torch.randperm(b, generator=generator).repeat(batch_repetitions)
     to_shuffle = int(main.shape[0] * (1.0 - input_repetition_probability))
@@ -33,7 +36,7 @@ def apply_input_transform(generator: torch.Generator, image: torch.Tensor,
         torch.cat([main[:to_shuffle][torch.randperm(to_shuffle,
                                                     generator=generator)],
                    main[to_shuffle:]])
-        for _ in range(num_subnetworks)])  # [S, B*reps]
+        for _ in range(num_subnetworks)])[:, rows]  # [S, B*reps]
 
     def gather(x):
         # [B, ...] -> [B*reps, S, ...]

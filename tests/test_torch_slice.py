@@ -188,6 +188,11 @@ PORT_MODULES = [
     "mimo_unet_torch.loss_buffer",
     "mimo_unet_torch.transforms",
     "mimo_unet_torch.metrics",
+    "mimo_unet_torch.parallel",
+    "mimo_unet_torch.parallel.collectives",
+    "mimo_unet_torch.parallel.launch",
+    "mimo_unet_torch.parallel.mesh",
+    "mimo_unet_torch.parallel.multihost",
     "mimo_unet_torch.train",
     "mimo_unet_torch.train.optim",
     "mimo_unet_torch.train.capacity",

@@ -447,16 +447,23 @@ def test_prefetch_on_cpu():
 
 
 def test_refusals_name_the_roadmap(tmp_path):
-    """The trainer and the device cache refuse what is not ported (A.7),
-    naming it, and take what is (A.3: ``device_cache``); what A.4 has
-    ported loads: an evidential checkpoint gives an EvidentialUnetTask,
-    and a reference Lightning .ckpt its task and weights."""
+    """The trainer refuses several cards in one process, naming how to
+    start the ranks (A.7 runs them: tests/test_torch_parallel.py), and
+    takes one (a mesh of one, no collectives) and the device cache (A.3);
+    what A.4 has ported loads: an evidential checkpoint gives an
+    EvidentialUnetTask, and a reference Lightning .ckpt its task and
+    weights."""
+    from mimo_unet_torch.parallel.mesh import make_mesh
+
     task = MimoUnetTask(**SMALL)
-    for kw, item in ((dict(num_devices=2), "A.7"), (dict(mesh=object()), "A.7")):
-        with pytest.raises(NotImplementedError, match=item):
-            _trainer(tmp_path, "x", 1, task, **kw)
-    with pytest.raises(NotImplementedError, match="A.7"):
-        core.DeviceDataset(core.ArrayDataset(_arrays(2, 0)), device="cpu", mesh=object())
+    with pytest.raises(ValueError, match="torchrun"):
+        _trainer(tmp_path, "x", 1, task, num_devices=2)
+    one = make_mesh(device="cpu")
+    for kw in (dict(num_devices=1), dict(mesh=one)):
+        trainer = _trainer(tmp_path, "x", 1, task, **kw)
+        assert trainer.mesh.size == 1 and trainer.device == torch.device("cpu")
+    one_rank = core.DeviceDataset(core.ArrayDataset(_arrays(2, 0)), device="cpu", mesh=one)
+    assert one_rank.mesh is None and one_rank.n_shards == 1
     assert _trainer(tmp_path, "x", 1, task, device_cache=True).device_cache
     ev = EvidentialUnetTask(in_channels=3, filter_base_count=4)
     checkpoint.save_checkpoint(str(tmp_path / "ev"), ev.init_state(1, "cpu"), ev.hparams())
