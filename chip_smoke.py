@@ -245,7 +245,18 @@ Run from the root of the repository.  Phases, each raising on failure:
    the global batch, labelled (two ranks on one card price gloo's host
    staging, not a multi-card speed).  (e) A profile of rank 0's step:
    the host time of its collectives against the step's.
-19. Print the kernels' JSON line (K10/K13 launches from phase 11, K4b and
+19. The transpose and unpool decoders (``MimoUNetConfig(bilinear=False[,
+   use_pooling_indices=True])``, the plain modules: no kernel route takes
+   them) at the flagship's width, S=2, fbc 21, 256x256, bf16.  For each
+   decoder: one B=32 forward against the same weights in f32 (cosine >=
+   0.9999; no output past 3e-2 of the scale for the transpose decoder,
+   at most 1e-5 of them for the unpool decoder); a
+   B=64 step's loss and gradients against f32, no further from it than
+   the bilinear decoder's plain bf16 step (``_grad_check``'s slack); the
+   remat rungs bitwise "none" under deterministic algorithms; step time,
+   images/s and peak memory beside the plain bilinear step; two MC
+   ``predict`` calls (4 passes) bitwise equal; no kernel launched.
+20. Print the kernels' JSON line (K10/K13 launches from phase 11, K4b and
    K14 from phase 13; the evidential sites and launches and phase 17's
    S=3 fbc 32 and C_in = 2 sites with the CLI runs' launches as entries
    of their own), then the result line ``{"ok": true, "device": {...}}``
@@ -1556,14 +1567,7 @@ def _flagship(dev, s=S, f=F, **rates):
                         compute_dtype="bfloat16", **rates)
     cpu_gen = torch.Generator().manual_seed(1)
     model = task.build_model(dev, cpu_gen)
-    with torch.no_grad():
-        for mod in model.modules():
-            if isinstance(mod, torch.nn.BatchNorm2d):
-                c = mod.num_features
-                mod.weight.copy_(torch.rand(c, generator=cpu_gen) + 0.5)
-                mod.bias.copy_(torch.randn(c, generator=cpu_gen) * 0.1)
-                mod.running_mean.copy_(torch.randn(c, generator=cpu_gen) * 0.1)
-                mod.running_var.copy_(torch.rand(c, generator=cpu_gen) + 0.5)
+    _random_bn(model, cpu_gen)
     return task, model
 
 
@@ -4173,6 +4177,274 @@ def data_parallel(dev, card):
     print(f"phase 18 (data parallelism): {time.perf_counter() - t0:.1f} s", flush=True)
 
 
+# ---- phase 19: the transpose and unpool decoders ----------------------------
+
+UP_MODES = {"transpose": dict(bilinear=False),
+            "unpool": dict(bilinear=False, use_pooling_indices=True)}
+# share of the bf16 eval outputs allowed past 3e-2 of the f32 output's scale
+PAST_SHARE = {"transpose": 0.0, "unpool": 1e-5}
+
+
+def _random_bn(model, cpu_gen):
+    """Random BatchNorm affine and running statistics, drawn from
+    ``cpu_gen``."""
+    import torch
+
+    with torch.no_grad():
+        for mod in model.modules():
+            if isinstance(mod, torch.nn.BatchNorm2d):
+                c = mod.num_features
+                mod.weight.copy_(torch.rand(c, generator=cpu_gen) + 0.5)
+                mod.bias.copy_(torch.randn(c, generator=cpu_gen) * 0.1)
+                mod.running_mean.copy_(torch.randn(c, generator=cpu_gen) * 0.1)
+                mod.running_var.copy_(torch.rand(c, generator=cpu_gen) + 0.5)
+
+
+def _mode_model(cfg, dev, seed, state_dict=None):
+    """A ``MimoUNet`` of ``cfg`` on ``dev``: seeded weights and random
+    BatchNorm statistics, or ``state_dict``."""
+    import torch
+    from mimo_unet_torch.models.mimo_unet import MimoUNet
+
+    gen = torch.Generator().manual_seed(seed)
+    model = MimoUNet(cfg, device=dev, generator=gen)
+    if state_dict is None:
+        _random_bn(model, gen)
+    else:
+        model.load_state_dict(state_dict)
+    return model
+
+
+def _no_launches(where):
+    """Raise if a kernel wrapper counted a launch since the last reset."""
+    from mimo_unet_torch import kernels as K
+
+    launched = {k: v for k, v in K.launch_counts().items() if v}
+    if launched:
+        raise AssertionError(f"{where}: kernel launches {launched} (want none)")
+
+
+def _host_ms(fn, iters=5):
+    """Median host-clock ms of ``fn()`` ended by a synchronise, after one
+    warm-up call."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(iters):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return sorted(times)[len(times) // 2]
+
+
+def _mode_eval(cfg, dev, card, mode):
+    """One B=32 forward of ``mode`` in bf16: zero kernel launches, held
+    against the same weights in f32: cosine >= 0.9999, and at most
+    ``PAST_SHARE[mode]`` of the outputs past 3e-2 of the f32 output's
+    scale (phase 4's bound).  The transpose decoder has none there.  Where
+    bf16 rounding flips a pool window's argmax, the unpool decoder puts the
+    value on another pixel, an error of the activations' size at a few
+    outputs (41 of 8.4 M past 3e-2 seen on the H100).  Host-clock and
+    device-busy times."""
+    import torch
+    from mimo_unet_torch import kernels as K
+
+    model = _mode_model(cfg, dev, seed=1).eval()
+    f32 = _mode_model(dataclasses.replace(cfg, compute_dtype=None), dev, 1,
+                      model.state_dict()).eval()
+    x = torch.rand((B, S, HW, HW, 3), generator=torch.Generator().manual_seed(50)).to(dev)
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        K.reset_launch_counts()
+        out = model(x)
+        torch.cuda.synchronize()
+        _no_launches(f"{mode} eval")
+        ref = f32(x)
+        cos = _cos(out.flatten(), ref.flatten())
+        diff = (out - ref).abs()
+        err, mean_err, scale = float(diff.max()), float(diff.mean()), float(ref.abs().max())
+        past = int((diff > 3e-2 * scale).sum())
+        host = _host_ms(lambda: model(x))
+        busy = busy_ms(lambda: model(x))
+    print(f"{mode} eval B={B} {HW}x{HW} bf16: out {tuple(out.shape)}, vs f32 cosine {cos:.6f}, "
+          f"max abs {err:.3e}, mean abs {mean_err:.3e} (scale {scale:.3e}), {past} of "
+          f"{diff.numel()} past 3e-2 of the scale; host {host:.2f} ms, device busy "
+          f"{busy:.2f} ms, {B / host * 1e3:.1f} patches/s, 0 kernel launches ({card})",
+          flush=True)
+    if (not bool(torch.isfinite(out).all()) or not cos >= 0.9999
+            or past > PAST_SHARE[mode] * diff.numel()):
+        raise AssertionError(f"{mode} eval: bf16 vs f32 cosine {cos}, {past} outputs past "
+                             f"3e-2 of the scale {scale} (max abs {err})")
+
+
+def _objective_grads(task, cfg, state_dict, dev, image_t, label_t, source=None):
+    """(loss, {name: f32 gradient}, running statistics) of one train
+    forward + backward of a ``cfg`` model holding ``state_dict``."""
+    from mimo_unet_torch.loss_buffer import loss_buffer_init
+
+    model = _mode_model(cfg, dev, 1, state_dict).train()
+    loss = task.objective(model, image_t, label_t, None,
+                          loss_buffer_init(S, task.loss_buffer_size, dev), source)[0]
+    loss.backward()
+    grads = {k: p.grad.float() for k, p in model.named_parameters() if p.grad is not None}
+    stats = {k: v.clone() for k, v in model.state_dict().items()
+             if k.endswith(("running_mean", "running_var", "num_batches_tracked"))}
+    return loss.detach(), grads, stats
+
+
+def _cosines_to_f32(task, cfg, dev, image_t, label_t):
+    """Loss and per-leaf gradient cosines of the bf16 ``cfg`` step against
+    the f32 step on the same weights and inputs, over the leaves above
+    _grad_check's noise threshold."""
+    sd = _mode_model(cfg, dev, 1).state_dict()
+    lb, gb, _ = _objective_grads(task, cfg, sd, dev, image_t, label_t)
+    lf, gf, _ = _objective_grads(task, dataclasses.replace(cfg, compute_dtype=None), sd,
+                                 dev, image_t, label_t)
+    cos = {k: _cos(gb[k], g) for k, g in gf.items() if float(g.abs().max()) >= 5e-3}
+    return float(lb), float(lf), cos
+
+
+def _mode_train(task, cfg, dev, card, mode, yard):
+    """Phase 19's B=64 256x256 step of ``mode`` through ``task``'s step
+    functions (its ``train_step`` and ``objective`` on a model of the
+    mode): loss and gradients against the f32 step (the loss within 2e-2,
+    cosines no further from f32 than the bilinear decoder's plain bf16
+    step, ``yard``, up to _grad_check's slack of 0.15 on the minimum and
+    0.05 on the mean), the remat rungs bitwise "none" under deterministic
+    algorithms, no kernel launch, step time, images/s and peak memory."""
+    import torch
+    from mimo_unet_torch import kernels as K
+
+    t0 = time.perf_counter()
+    image_t, label_t = yard["inputs"]
+    lb, lf, cos = _cosines_to_f32(task, cfg, dev, image_t, label_t)
+    rel = abs(lb - lf) / abs(lf)
+    lo, mean = min(cos.values()), sum(cos.values()) / len(cos)
+    print(f"{mode} train B={BIG_B}: loss bf16 {lb} vs f32 {lf} (rel {rel:.3e}); gradient "
+          f"cosine to f32 over {len(cos)} leaves: min {lo:.5f} ({min(cos, key=cos.get)}), "
+          f"mean {mean:.5f}; bilinear plain bf16: min {yard['min']:.5f}, mean "
+          f"{yard['mean']:.5f} ({card}); {time.perf_counter() - t0:.1f} s", flush=True)
+    if not rel <= 2e-2 or lo < yard["min"] - 0.15 or mean < yard["mean"] - 0.05:
+        raise AssertionError(f"{mode} train: bf16 step further from f32 than the bilinear "
+                             "decoder's")
+    torch.cuda.empty_cache()
+
+    sd = _mode_model(cfg, dev, 2).state_dict()
+    runs = {}
+    K.reset_launch_counts()
+    with _deterministic():
+        for rung in ("none", "enc", "all"):
+            runs[rung] = _objective_grads(task, dataclasses.replace(cfg, remat=rung), sd,
+                                          dev, image_t, label_t)
+    torch.cuda.synchronize()
+    _no_launches(f"{mode} remat steps")
+    l0, g0, st0 = runs["none"]
+    for rung in ("enc", "all"):
+        loss, g, st = runs[rung]
+        bad = [k for k in g0 if k not in g or not torch.equal(g[k], g0[k])]
+        bad += [k for k in st0 if not torch.equal(st[k], st0[k])]
+        if not torch.equal(loss, l0) or bad or g.keys() != g0.keys():
+            raise AssertionError(f"{mode} remat={rung}: not bitwise 'none': {bad[:10]}")
+    print(f"{mode} remat enc, all: loss, {len(g0)} gradients and {len(st0)} BatchNorm "
+          f"buffers bitwise remat='none' (deterministic algorithms) ({card}); "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    del runs
+    torch.cuda.empty_cache()
+
+    state = task.init_state(-(-795 // BIG_B), dev)
+    state.model = _mode_model(cfg, dev, 1).train()
+    state.optimizer, state.scheduler = task.make_optimizer(state.model, -(-795 // BIG_B))
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    med = _time_steps(task, state, torch.Generator().manual_seed(52), BIG_B, 5, card,
+                      f"{mode} decoder (plain, bf16)", PATCH)
+    _no_launches(f"{mode} train steps")
+    if not all(bool(torch.isfinite(p).all()) for p in state.model.parameters()):
+        raise AssertionError(f"{mode}: non-finite parameters after the timed steps")
+    del state
+    torch.cuda.empty_cache()
+    return med
+
+
+def _mode_mc(cfg, dev, card, mode):
+    """Two MC ``predict`` calls (monte_carlo_steps=4, 8 images, the MC
+    recipe's rates) on one member of ``mode``: bitwise equal, no kernel
+    launch."""
+    import numpy as np
+    import torch
+    from mimo_unet_torch import kernels as K
+    from mimo_unet_torch.models.ensemble import Ensemble
+
+    task = _train_task(**MC_RECIPE)
+    model = _mode_model(dataclasses.replace(cfg, **MC_RECIPE), dev, 3).eval()
+    ens = Ensemble([(task, model)], monte_carlo_steps=MC_STEPS)
+    images = torch.rand((MC_B, HW, HW, 3), generator=torch.Generator().manual_seed(53)).numpy()
+    K.reset_launch_counts()
+    with _deterministic():
+        first = ens.predict(images, batch_size=MC_B)
+        again = ens.predict(images, batch_size=MC_B)
+    _no_launches(f"{mode} MC predict")
+    same = all(np.array_equal(a, b) for a, b in zip(first, again))
+    finite = all(np.isfinite(a).all() for a in first)
+    print(f"{mode} MC predict x {MC_STEPS} passes B={MC_B}: two calls bitwise equal: {same}, "
+          f"finite {finite}, epistemic var max {float(first[2].max()):.3e} ({card})")
+    if not same or not finite or not float(first[2].max()) > 0:
+        raise AssertionError(f"{mode} MC predict: calls differ, or no MC spread")
+
+
+def up_modes(dev, card):
+    """Phase 19: the transpose and unpool decoders at the flagship's width
+    (S=2, fbc 21, 256x256, bf16, NYUv2's 3 -> 2 channels; random weights
+    from a seed), on the plain route (no kernel applies to them)."""
+    import torch
+    from mimo_unet_torch.models.fast_path import fast_path_supported, train_path_supported
+    from mimo_unet_torch.tasks.mimo import device_normalize
+    from mimo_unet_torch.transforms import apply_input_transform
+
+    t0 = time.perf_counter()
+    task = _train_task()
+    batch = device_normalize({k: v.to(dev) for k, v in _frames(
+        torch.Generator().manual_seed(51), BIG_B, PATCH).items()})
+    image_t, label_t, _ = apply_input_transform(
+        torch.Generator().manual_seed(6), batch["image"], batch["label"], None, S)
+    lb, lf, cos = _cosines_to_f32(task, task.model_config, dev, image_t, label_t)
+    yard = {"inputs": (image_t, label_t), "min": min(cos.values()),
+            "mean": sum(cos.values()) / len(cos)}
+    print(f"bilinear plain bf16 B={BIG_B} yardstick: loss {lb} vs f32 {lf}; gradient cosine "
+          f"to f32 min {yard['min']:.5f}, mean {yard['mean']:.5f} ({card}); "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    torch.cuda.empty_cache()
+    plain = dataclasses.replace(task, ct_kernels="off")
+    pstate = plain.init_state(-(-795 // BIG_B), dev)
+    bilinear_ms = _time_steps(plain, pstate, torch.Generator().manual_seed(52), BIG_B, 5,
+                              card, "bilinear decoder (plain, bf16)", PATCH)
+    del pstate
+    torch.cuda.empty_cache()
+    print(f"phase 19 yardstick: {time.perf_counter() - t0:.1f} s", flush=True)
+    for mode, kw in UP_MODES.items():
+        t1 = time.perf_counter()
+        cfg = dataclasses.replace(task.model_config, **kw)
+        shape = (BIG_B, S, *PATCH, 3)
+        if (fast_path_supported(cfg, shape, dev, training=False)
+                or train_path_supported(cfg, shape, dev, training=True)):
+            raise AssertionError(f"{mode}: a kernel route applies")
+        _mode_eval(cfg, dev, card, mode)
+        torch.cuda.empty_cache()
+        med = _mode_train(task, cfg, dev, card, mode, yard)
+        print(f"{mode} step {med * 1e3:.2f} ms vs the plain bilinear step "
+              f"{bilinear_ms * 1e3:.2f} ms ({card})")
+        _mode_mc(cfg, dev, card, mode)
+        torch.cuda.empty_cache()
+        print(f"phase 19 {mode}: {time.perf_counter() - t1:.1f} s", flush=True)
+    del yard, image_t, label_t, batch
+    torch.cuda.empty_cache()
+    print(f"phase 19 (transpose and unpool decoders): {time.perf_counter() - t0:.1f} s",
+          flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -4289,7 +4561,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     data_parallel(dev, card)
 
-    # ---- 19. results -------------------------------------------------------
+    # ---- 19. the transpose and unpool decoders --------------------------------
+    torch.cuda.empty_cache()
+    up_modes(dev, card)
+
+    # ---- 20. results -------------------------------------------------------
     rows = [{"name": k, "route": "cuda", "source": KERNEL_INFO[k][0],
              "replaces": KERNEL_INFO[k][1], "launches": launches[k], **stats[k]}
             for k in KERNEL_INFO]

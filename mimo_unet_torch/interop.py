@@ -10,11 +10,14 @@ axis -- into a ``MimoUNet`` state dict with the reference's keys:
   params['encoder']['in_conv'][s] -> encoder.in_convs.{s}
   params['encoder']['down1'][s]   -> encoder.down1s.{s}.conv
   params['core'][down2..down4]    -> core.{name}.conv
-  params['core'][up1..up3]        -> core.{name}.conv
-  params['decoder']['up4'][s]     -> decoder.up4s.{s}.conv
+  params['core'][up1..up3]        -> core.{name}.conv (and .up)
+  params['decoder']['up4'][s]     -> decoder.up4s.{s}.conv (and .up)
   params['decoder']['outc'][s]    -> decoder.outcs.{s}.conv
 
-A DoubleConv maps onto ``double_conv.{0,1,3,4}`` (conv, BN, conv, BN).
+A DoubleConv maps onto ``double_conv.{0,1,3,4}`` (conv, BN, conv, BN); the
+transpose mode's ``up`` ConvTranspose2d goes from the JAX HWIO
+[kh, kw, in, out] back to torch's [in, out, kh, kw]
+(mimo_unet_tpu/interop.py:46-51, :80-86).
 ``jax_loss_buffer_to_state`` carries the train state's loss-buffer ring
 over; Adam's moments start at zero on both sides and need no converter.
 Only arrays cross over (anything with ``__array__``), so this module needs
@@ -47,6 +50,11 @@ def _conv(sd: Dict[str, torch.Tensor], prefix: str, p: dict) -> None:
     sd[f"{prefix}.bias"] = _t(p["b"])
 
 
+def _conv_transpose(sd: Dict[str, torch.Tensor], prefix: str, p: dict) -> None:
+    sd[f"{prefix}.weight"] = _t(np.transpose(np.asarray(p["w"]), (2, 3, 0, 1)))
+    sd[f"{prefix}.bias"] = _t(p["b"])
+
+
 def _bn(sd, prefix: str, p: dict, st: dict) -> None:
     sd[f"{prefix}.weight"] = _t(p["scale"])
     sd[f"{prefix}.bias"] = _t(p["bias"])
@@ -62,6 +70,12 @@ def _double_conv(sd, prefix: str, p: dict, st: dict) -> None:
     _bn(sd, f"{prefix}.double_conv.4", p["bn2"], st["bn2"])
 
 
+def _up(sd, prefix: str, p: dict, st: dict, mode: str) -> None:
+    _double_conv(sd, f"{prefix}.conv", p["conv"], st["conv"])
+    if mode == "transpose":
+        _conv_transpose(sd, f"{prefix}.up", p["up"])
+
+
 def _index(tree, i: int):
     """Leaf-wise ``tree[i]`` of a nested dict with a leading [S] axis."""
     if isinstance(tree, dict):
@@ -72,8 +86,7 @@ def _index(tree, i: int):
 def jax_pytree_to_state_dict(params: dict, state: dict,
                              cfg: MimoUNetConfig) -> Dict[str, torch.Tensor]:
     """``(params, state)`` of the JAX package -> ``MimoUNet`` state dict."""
-    if cfg.mode != "bilinear":
-        raise NotImplementedError("only the bilinear up mode is ported")
+    mode = cfg.mode
     sd: Dict[str, torch.Tensor] = {}
     enc_p, enc_s = params["encoder"], state["encoder"]
     dec_p, dec_s = params["decoder"], state["decoder"]
@@ -86,12 +99,10 @@ def jax_pytree_to_state_dict(params: dict, state: dict,
         _double_conv(sd, f"core.{name}.conv", params["core"][name],
                      state["core"][name])
     for name in ("up1", "up2", "up3"):
-        _double_conv(sd, f"core.{name}.conv", params["core"][name]["conv"],
-                     state["core"][name]["conv"])
+        _up(sd, f"core.{name}", params["core"][name], state["core"][name], mode)
     for i in range(cfg.num_subnetworks):
-        _double_conv(sd, f"decoder.up4s.{i}.conv",
-                     _index(dec_p["up4"]["conv"], i),
-                     _index(dec_s["up4"]["conv"], i))
+        _up(sd, f"decoder.up4s.{i}", _index(dec_p["up4"], i),
+            _index(dec_s["up4"], i), mode)
         _conv(sd, f"decoder.outcs.{i}.conv", _index(dec_p["outc"], i))
     return sd
 

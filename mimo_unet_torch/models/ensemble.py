@@ -17,9 +17,15 @@ the seed, as the JAX package folds them into its key (``rng=None`` being
 ``key(0)``, JAX ensemble.py:168,193,217,228): one input gives one answer,
 call after call, whatever ran before it.  The bits are torch's, not
 JAX's.  ``predict`` serves any number of images in fixed-size batches,
-padding the last one.  The stacked-member program (one program over the
-stacked parameters of same-architecture members) is not ported yet
-(ROADMAP A.4).
+padding the last one.
+
+Every member runs this member loop (the eval kernels where they apply).
+The JAX package serves a run of same-architecture members off its
+kernel route through one program over their stacked parameters
+(ensemble.py:141-199), which saves XLA dispatches.  The port does not:
+on the H100 such a program (``torch.func.vmap`` over the stacked
+members) gave the loop's predictions but took 1.22-1.24x the loop's
+device time in bf16 and 2.44-2.50x in f32 (ROADMAP A.4).
 """
 
 from __future__ import annotations
@@ -71,6 +77,11 @@ class Ensemble:
         self.monte_carlo_steps = monte_carlo_steps
         self.generator = generator
 
+    @property
+    def num_subnetworks(self) -> int:
+        """The members' subnetworks summed (reference ensemble.py:68-70)."""
+        return sum(task.num_subnetworks for task, _ in self.members)
+
     @classmethod
     def from_checkpoints(cls, checkpoint_paths: Sequence[str],
                          monte_carlo_steps: int = 0,
@@ -97,8 +108,7 @@ class Ensemble:
     def output_width(self) -> int:
         """Predictions per image: the members' subnetworks times the MC
         passes."""
-        return (sum(task.num_subnetworks for task, _ in self.members)
-                * max(1, self.monte_carlo_steps))
+        return self.num_subnetworks * max(1, self.monte_carlo_steps)
 
     def _source(self, seed: int, member: int, device) -> Optional[DropoutSource]:
         """Member ``member``'s masks: the ensemble's generator where it has

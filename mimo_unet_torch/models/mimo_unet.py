@@ -31,6 +31,15 @@ the decoder, on both train routes (``run_section``).  The sections draw no
 randomness (the dropout masks enter as inputs), so the recompute replays
 the forward bit for bit, and it leaves the BatchNorm running statistics
 as the forward left them: they move once a step at every rung.
+
+The up mode (``bilinear``, ``use_pooling_indices``) picks the decoder:
+bilinear (the tasks' and the kernel routes'), transpose
+(``bilinear=False``: ConvTranspose2d upsampling, ``factor`` 1 widens
+down4 and up1-up3) or unpool (``use_pooling_indices``: every Down keeps
+its pool's indices and the Up of its level unpools with them).  The
+non-bilinear modes run the plain modules, with the JAX package's
+corrected decoder channel math (mimo_unet_tpu/models/mimo_unet.py:88-106;
+the reference's own wiring crashes, docs/MIGRATION.md:62-76).
 """
 
 from __future__ import annotations
@@ -43,7 +52,7 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from mimo_unet_torch.models.blocks import DoubleConv, Down, OutConv, Up
+from mimo_unet_torch.models.blocks import DoubleConv, Down, OutConv, Up, init_conv_
 from mimo_unet_torch.ops import max_pool_2x2_skip
 from mimo_unet_torch.ops.dropout import (
     NO_DROPOUT,
@@ -104,6 +113,7 @@ class MimoUNetConfig:
         if self.remat not in REMAT_MODES:
             raise ValueError(f"remat must be one of {REMAT_MODES}, "
                              f"got {self.remat!r}")
+        up_mode(self.bilinear, self.use_pooling_indices)  # raises if both
 
     @property
     def factor(self) -> int:
@@ -214,7 +224,8 @@ class Encoder(nn.Module):
         f, s = cfg.filter_base_count, cfg.num_subnetworks
         self.in_convs = nn.ModuleList(
             DoubleConv(cfg.in_channels, f) for _ in range(s))
-        self.down1s = nn.ModuleList(Down(f, 2 * f) for _ in range(s))
+        self.down1s = nn.ModuleList(Down(f, 2 * f, cfg.use_pooling_indices)
+                                    for _ in range(s))
 
 
 class Core(nn.Module):
@@ -223,12 +234,14 @@ class Core(nn.Module):
     def __init__(self, cfg: MimoUNetConfig):
         super().__init__()
         fs, factor = cfg.filter_base_count * cfg.num_subnetworks, cfg.factor
-        self.down2 = Down(2 * fs, 4 * fs)
-        self.down3 = Down(4 * fs, 8 * fs)
-        self.down4 = Down(8 * fs, 16 * fs // factor)
-        self.up1 = Up(16 * fs, 8 * fs // factor)
-        self.up2 = Up(8 * fs, 4 * fs // factor)
-        self.up3 = Up(4 * fs, 2 * fs // factor)
+        mode, ind = cfg.mode, cfg.use_pooling_indices
+        self.down2 = Down(2 * fs, 4 * fs, ind)
+        self.down3 = Down(4 * fs, 8 * fs, ind)
+        self.down4 = Down(8 * fs, 16 * fs // factor, ind)
+        self.up1 = Up(16 * fs, 8 * fs // factor, mode)
+        self.up2 = Up(8 * fs, 4 * fs // factor, mode)
+        self.up3 = Up(4 * fs, 2 * fs // factor, mode)
+        self.use_pooling_indices = ind
 
     def mid(self, pooled: torch.Tensor, drops: Drops = NO_DROPOUT
             ) -> torch.Tensor:
@@ -237,15 +250,14 @@ class Core(nn.Module):
         an Up skip is pooled through ``max_pool_2x2_skip`` and the skip
         reads its identity output, as ``core_apply`` routes them
         (mimo_unet_tpu/models/mimo_unet.py:293-373): the two cotangents
-        meet inside the pool backward."""
+        meet inside the pool backward.  (Not in the unpool mode, whose
+        Downs pool with indices.)"""
         x3 = self.down2.conv(pooled, drops.get("core.down2"))
         p3, x3 = max_pool_2x2_skip(x3)
         x4 = self.down3(p3, pre_pooled=True, drop=drops.get("core.down3"))
         p4, x4 = max_pool_2x2_skip(x4)
         x5 = self.down4(p4, pre_pooled=True, drop=drops.get("core.down4"))
-        if "core.center" in drops:
-            mask, keep = drops["core.center"]
-            x5 = apply_dropout(x5, mask.permute(0, 3, 1, 2), keep)
+        x5 = _center_dropout(x5, drops)
         x_up = self.up1(x5, x4, drops.get("core.up1"))
         return self.up2(x_up, x3, drops.get("core.up2"))
 
@@ -256,18 +268,48 @@ class Core(nn.Module):
         cotangent fused into its backward); ``x2_concat`` is then only
         up3's skip (``core_apply(x2_pooled=)``,
         mimo_unet_tpu/models/mimo_unet.py:292-325)."""
+        if self.use_pooling_indices:
+            return self._forward_unpool(x2_concat, drops)
         if x2_pooled is None:
             x2_pooled, x2_concat = max_pool_2x2_skip(x2_concat)
         return self.up3(self.mid(x2_pooled, drops), x2_concat,
                         drops.get("core.up3"))
+
+    def _forward_unpool(self, x2: torch.Tensor, drops: Drops) -> torch.Tensor:
+        """The unpool core: each Down pools with indices and the Up at its
+        level unpools with them (``core_apply`` with ``fuse_skip`` off,
+        mimo_unet_tpu/models/mimo_unet.py:321-373)."""
+        x3, ind3 = self.down2(x2, drop=drops.get("core.down2"))
+        x4, ind4 = self.down3(x3, drop=drops.get("core.down3"))
+        x5, ind5 = self.down4(x4, drop=drops.get("core.down4"))
+        x5 = _center_dropout(x5, drops)
+        x_up = self.up1(x5, x4, drops.get("core.up1"), ind5)
+        x_up = self.up2(x_up, x3, drops.get("core.up2"), ind4)
+        return self.up3(x_up, x2, drops.get("core.up3"), ind3)
+
+
+def _center_dropout(x5: torch.Tensor, drops: Drops) -> torch.Tensor:
+    """The elementwise center site (reference model.py:210), if live."""
+    if "core.center" not in drops:
+        return x5
+    mask, keep = drops["core.center"]
+    return apply_dropout(x5, mask.permute(0, 3, 1, 2), keep)
 
 
 class Decoder(nn.Module):
     def __init__(self, cfg: MimoUNetConfig):
         super().__init__()
         f, s = cfg.filter_base_count, cfg.num_subnetworks
-        c_up = 2 * f * s // cfg.factor
-        self.up4s = nn.ModuleList(Up(c_up + f, f) for _ in range(s))
+        fs = f * s
+        if cfg.mode == "transpose":
+            # corrected math: the transpose halves the core's 2FS output
+            # to FS before the skip concat (mimo_unet_tpu/models/
+            # mimo_unet.py:150-158; docs/MIGRATION.md:62-76)
+            ups = (Up(fs + f, f, "transpose", x1_channels=2 * fs)
+                   for _ in range(s))
+        else:
+            ups = (Up(2 * fs // cfg.factor + f, f, cfg.mode) for _ in range(s))
+        self.up4s = nn.ModuleList(ups)
         self.outcs = nn.ModuleList(OutConv(f, cfg.out_channels)
                                    for _ in range(s))
 
@@ -287,9 +329,6 @@ class MimoUNet(nn.Module):
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         device = resolve_device(device)
-        if cfg.mode != "bilinear":
-            raise NotImplementedError(
-                f"up mode {cfg.mode!r} is not ported yet (bilinear only)")
         self.config = cfg
         with torch.device("meta"):
             self.encoder = Encoder(cfg)
@@ -299,6 +338,8 @@ class MimoUNet(nn.Module):
         for module in self.modules():  # registration order: deterministic
             if isinstance(module, (DoubleConv, OutConv)):
                 module.reset_parameters(generator)
+            elif isinstance(module, nn.ConvTranspose2d):
+                init_conv_(module, generator)
         self.to(device)
 
     def forward(self, x: torch.Tensor, *, mc_dropout: bool = False,
@@ -360,33 +401,42 @@ class MimoUNet(nn.Module):
         remat = self.config.remat if self.training else "none"
         enc_remat, all_remat = remat in ("enc", "all"), remat == "all"
         x = x.to(self.config.torch_dtype)
-        x1s, x2s = [], []
+        x1s, x2s, ind2s = [], [], []
         for i, (in_conv, down1) in enumerate(
                 zip(self.encoder.in_convs, self.encoder.down1s)):
             def encoder_one(xi, i=i, in_conv=in_conv, down1=down1):
                 x1 = in_conv(xi.permute(0, 3, 1, 2),
                              drops.get(f"encoder.{i}.in_conv"))
-                return x1, down1(x1, drop=drops.get(f"encoder.{i}.down1"))
+                x2 = down1(x1, drop=drops.get(f"encoder.{i}.down1"))
+                # the unpool mode's Down also returns its indices
+                return (x1, *x2) if down1.use_pooling_indices else (x1, x2, None)
 
-            x1, x2 = run_section(encoder_one, (in_conv, down1), x[:, i],
-                                 remat=enc_remat)
+            x1, x2, ind2 = run_section(encoder_one, (in_conv, down1), x[:, i],
+                                       remat=enc_remat)
             x1s.append(x1)
             x2s.append(x2)
+            ind2s.append(ind2)
         # subnetwork-major channel concat (reference model.py:113)
         x_up = run_section(lambda xc: self.core(xc, drops), (self.core,),
                            torch.cat(x2s, dim=1), remat=all_remat)
         logits = []
-        for i, (up4, outc, x1) in enumerate(
-                zip(self.decoder.up4s, self.decoder.outcs, x1s)):
-            def decoder_one(xu, x1, i=i, up4=up4, outc=outc):
-                y = up4(xu, x1, drops.get(f"decoder.{i}.up4"))
+        for i, (up4, outc, x1, ind2) in enumerate(
+                zip(self.decoder.up4s, self.decoder.outcs, x1s, ind2s)):
+            if ind2 is not None:
+                # corrected math: this subnetwork's down1 indices (F
+                # channels) unpool every S-group of the core's FS-channel
+                # output (jnp.tile, mimo_unet_tpu/models/mimo_unet.py:258-266)
+                ind2 = ind2.repeat(1, x_up.shape[1] // ind2.shape[1], 1, 1)
+
+            def decoder_one(xu, x1, ind2, i=i, up4=up4, outc=outc):
+                y = up4(xu, x1, drops.get(f"decoder.{i}.up4"), ind2)
                 if f"decoder.{i}.final" in drops:
                     mask, keep = drops[f"decoder.{i}.final"]
                     y = apply_dropout(y, mask.permute(0, 3, 1, 2), keep)
                 return outc(y)
 
             logits.append(run_section(decoder_one, (up4, outc), x_up, x1,
-                                      remat=all_remat))
+                                      ind2, remat=all_remat))
         # [B, S, C, H, W] -> [B, S, H, W, C]; the loss boundary is float32
         return torch.stack(logits, dim=1).permute(0, 1, 3, 4, 2).float()
 

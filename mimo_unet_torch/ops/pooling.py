@@ -1,14 +1,18 @@
-"""2x2 max pooling (NCHW) with the JAX package's backward.
+"""2x2 max pooling (NCHW) with the JAX package's backward, and the
+pooling indices of the unpool decoder.
 
-Counterpart of ``mimo_unet_tpu/ops/pooling.py`` ``max_pool_2x2`` (:23-72)
-and ``max_pool_2x2_skip`` (:74-108) for the reference ``Down`` block
-(components.py:36-57).  An odd trailing row or column is dropped (torch
-floor).
+Counterpart of ``mimo_unet_tpu/ops/pooling.py`` ``max_pool_2x2`` (:23-72),
+``max_pool_2x2_skip`` (:74-108), ``max_pool_2x2_with_indices``,
+``max_unpool_2x2`` and ``local_to_torch_flat_indices`` (:110-153) for the
+reference ``Down`` and unpool ``Up`` blocks (components.py:36-120).  An
+odd trailing row or column is dropped (torch floor).
 
 The backward routes the cotangent through an equality mask: under exact
 ties inside a window *every* tied element gets the gradient.
 ``F.max_pool2d``'s own backward gives it to one element, and ties are
-common in bf16 after a ReLU, so it would break gradient parity.
+common in bf16 after a ReLU, so it would break gradient parity.  The
+index pool's backward is the gradient of the JAX op's ``jnp.max``
+instead: tied maxima share the cotangent equally.
 """
 
 from __future__ import annotations
@@ -58,6 +62,44 @@ class _MaxPool2x2Skip(torch.autograd.Function):
         return gx if g_skip is None else gx + g_skip.to(gx.dtype)
 
 
+def _windows(x: torch.Tensor) -> torch.Tensor:
+    """[N, C, H, W] -> [N, C, H/2, W/2, 4]: each 2x2 window in row-major
+    order, an odd trailing row or column dropped."""
+    n, c, h, w = x.shape
+    x = x[:, :, :h - h % 2, :w - w % 2]
+    return (x.reshape(n, c, h // 2, 2, w // 2, 2).permute(0, 1, 2, 4, 3, 5)
+            .reshape(n, c, h // 2, w // 2, 4))
+
+
+class _MaxPool2x2WithIndices(torch.autograd.Function):
+    """The pooled max and its window code; the backward splits the
+    cotangent equally among tied maxima, as the gradient of ``jnp.max``
+    does (``g * (x == max) / count``)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        xw = _windows(x)
+        y = xw.amax(dim=-1)
+        below = xw != y[..., None]
+        a, b, c = below[..., 0], below[..., 1], below[..., 2]
+        ab = a & b
+        idx = a.to(torch.uint8) + ab + (ab & c)  # the first maximum's code
+        ctx.mark_non_differentiable(idx)
+        ctx.save_for_backward(x, y)
+        return y, idx
+
+    @staticmethod
+    def backward(ctx, g, g_idx):
+        x, y = ctx.saved_tensors
+        at_max = (_windows(x) == y[..., None]).to(g.dtype)
+        gw = (g / at_max.sum(-1))[..., None] * at_max
+        n, c, hp, wp, _ = gw.shape
+        gx = (gw.reshape(n, c, hp, wp, 2, 2).permute(0, 1, 2, 4, 3, 5)
+              .reshape(n, c, 2 * hp, 2 * wp))
+        h, w = x.shape[-2:]
+        return F.pad(gx, (0, w - 2 * wp, 0, h - 2 * hp))
+
+
 def max_pool_2x2(x: torch.Tensor) -> torch.Tensor:
     """[N, C, H, W] -> [N, C, H // 2, W // 2]."""
     return _MaxPool2x2.apply(x)
@@ -68,3 +110,37 @@ def max_pool_2x2_skip(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     skip connection; the skip's cotangent is added inside the pool's
     backward (one pass, one rounding)."""
     return _MaxPool2x2Skip.apply(x)
+
+
+def max_pool_2x2_with_indices(x: torch.Tensor
+                              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(pooled [N, C, H // 2, W // 2], code uint8 of the same shape): the
+    code is the row-major position 0..3 of the window's maximum, the first
+    one under ties (torch's ``MaxPool2d(return_indices=True)`` order;
+    ``local_to_torch_flat_indices`` gives torch's flat indices)."""
+    return _MaxPool2x2WithIndices.apply(x)
+
+
+def max_unpool_2x2(x: torch.Tensor, idx: torch.Tensor, out_h: int,
+                   out_w: int) -> torch.Tensor:
+    """The inverse of ``max_pool_2x2_with_indices``: each value of
+    [N, C, Hp, Wp] ``x`` goes to its window's position ``idx``, zeros
+    elsewhere, zero-padded at the bottom and right to (``out_h``,
+    ``out_w``).  Its backward gathers the cotangent at the positions."""
+    n, c, hp, wp = x.shape
+    onehot = idx[..., None] == torch.arange(4, device=idx.device, dtype=idx.dtype)
+    y = (x[..., None] * onehot.to(x.dtype)).reshape(n, c, hp, wp, 2, 2)
+    y = y.permute(0, 1, 2, 4, 3, 5).reshape(n, c, 2 * hp, 2 * wp)
+    if (out_h, out_w) != (2 * hp, 2 * wp):
+        y = F.pad(y, (0, out_w - 2 * wp, 0, out_h - 2 * hp))
+    return y
+
+
+def local_to_torch_flat_indices(idx: torch.Tensor, in_w: int) -> torch.Tensor:
+    """Window codes [N, C, Hp, Wp] -> torch ``MaxPool2d`` flat indices
+    ``h * in_w + w`` into the pooled input (int64)."""
+    hp, wp = idx.shape[-2:]
+    i = torch.arange(hp, device=idx.device).view(hp, 1)
+    j = torch.arange(wp, device=idx.device).view(1, wp)
+    r, s = idx.long() // 2, idx.long() % 2
+    return (2 * i + r) * in_w + (2 * j + s)

@@ -18,6 +18,9 @@
 * MC serving and evaluation draw each batch's masks from (seed, member,
   batch start): repeated ``predict`` and ``make_predictions`` calls are
   bitwise equal, whatever ran before them.
+* Every member runs the member loop: a run that the JAX package serves
+  through its stacked program gives its predictions within 2e-4; member
+  m's columns are its own forward, masks from ``fold_in(seed, m)``.
 """
 
 import dataclasses
@@ -50,7 +53,9 @@ from mimo_unet_torch.eval import (
     write_artifacts,
 )
 from mimo_unet_torch.eval.fgsm import input_gradient
-from mimo_unet_torch.models.ensemble import Ensemble
+from mimo_unet_torch.models.ensemble import Ensemble, fold_in
+from mimo_unet_torch.models.mimo_unet import eval_mode
+from mimo_unet_torch.ops.dropout import DropoutSource
 from mimo_unet_torch.tasks import EvidentialUnetTask, MimoUnetTask
 from mimo_unet_torch.train import checkpoint
 from mimo_unet_torch.transforms import repeat_subnetworks
@@ -397,3 +402,73 @@ def test_input_gradient_runs_the_plain_modules_under_no_grad():
         g = input_gradient(lambda x: ens.loss_fn(*ens.raw_forward_grad(x),
                                                  repeat_subnetworks(label, 1)), image)
     assert g.shape == image.shape and float(g.abs().max()) > 0
+
+
+def test_member_loop_matches_the_jax_stacked_program(ensembles):
+    """The two f32 members (``ct_kernels="off"``) are one run, which the JAX
+    ``raw_forward`` serves through its stacked program (JAX
+    ensemble.py:170-183) and the port through its member loop: the
+    predictions agree within 2e-4."""
+    jens, ens = ensembles
+    image = _dataset()[np.arange(2)]["image"]
+    got = ens.raw_forward(torch.from_numpy(image))
+    want = jens.raw_forward(jnp.asarray(image), jax.random.key(0))
+    assert jens._runs == [(0, 2)] and 0 in jens._stacked
+    for a, b in zip(got, want):
+        assert tuple(a.shape) == (2, 4, 32, 256, 1)
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=2e-4, rtol=0)
+
+
+@pytest.mark.parametrize("own_generator", [False, True])
+def test_mc_member_columns_draw_the_members_masks(own_generator):
+    """With MC passes, member m's columns of ``raw_forward`` are bitwise
+    that member's forward with masks drawn from ``fold_in(seed, m)`` (or
+    from the ensemble's generator, member by member), pass-major per
+    member; another seed moves them."""
+    gen = torch.Generator().manual_seed(4) if own_generator else None
+    ens = _mc_ensemble(members=2, generator=gen)
+    image, _ = _small_batch()
+    start = gen.get_state() if gen is not None else None
+    got = ens.raw_forward(image, 7)
+    assert tuple(got[0].shape) == (2, 8, 32, 32, 1)
+    if gen is not None:
+        gen.set_state(start)
+    x = repeat_subnetworks(image, 2).repeat(2, 1, 1, 1, 1)  # [mc*B, S, ...]
+    for m, (task, model) in enumerate(ens.members):
+        draws = gen if gen is not None else torch.Generator().manual_seed(fold_in(7, m))
+        with torch.no_grad(), eval_mode(model):
+            want = task.forward(model, x, mc_dropout=True,
+                                dropout=DropoutSource(generator=draws))
+        for a, b in zip(got, want):
+            b = b.reshape(2, 2, 2, 32, 32, 1).transpose(0, 1).reshape(2, 4, 32, 32, 1)
+            assert torch.equal(a[:, 4 * m:4 * m + 4], b)
+    assert float((ens.raw_forward(image, 8)[0] - got[0]).abs().max()) > 1e-3
+
+
+def test_members_run_alone_in_concatenation_order():
+    """Members of mixed signatures and routes (a same-signature pair that
+    the JAX package would stack, an S=1 member, a bf16 member on the kernel
+    route) each run alone: member m's columns of ``raw_forward`` are
+    bitwise its own one-member ensemble's."""
+    two = [MimoUnetTask(**SMALL, num_subnetworks=2, seed=s) for s in (1, 2)]
+    one = MimoUnetTask(**SMALL, num_subnetworks=1)
+    fast = dataclasses.replace(two[0], ct_kernels="force", compute_dtype="bfloat16")
+    members = [(t, t.build_model("cpu")) for t in two + [one, fast]]
+    ens = Ensemble(members, return_raw_predictions=True)
+    image, _ = _small_batch()
+    got = ens.raw_forward(image)
+    assert tuple(got[0].shape) == (2, 7, 32, 32, 1)
+    col = 0
+    for member in members:
+        want = Ensemble([member], return_raw_predictions=True).raw_forward(image)
+        width = want[0].shape[1]
+        for a, b in zip(got, want):
+            assert torch.equal(a[:, col:col + width], b.to(a.dtype))
+        col += width
+    assert col == ens.num_subnetworks
+
+
+def test_num_subnetworks():
+    tasks = [MimoUnetTask(**SMALL, num_subnetworks=s) for s in (2, 1)]
+    ens = Ensemble([(t, t.build_model("cpu")) for t in tasks], monte_carlo_steps=3)
+    assert ens.num_subnetworks == 3 and ens.output_width == 9

@@ -169,6 +169,7 @@ PORT_MODULES = [
     "mimo_unet_torch.ops.dropout",
     "mimo_unet_torch.ops.norm",
     "mimo_unet_torch.ops.pooling",
+    "mimo_unet_torch.ops.regularization",
     "mimo_unet_torch.ops.resize",
     "mimo_unet_torch.models.blocks",
     "mimo_unet_torch.models.mimo_unet",

@@ -345,14 +345,18 @@ def test_train_path_routing(kw, shape, want):
 
 @pytest.mark.parametrize("kw", [dict(bilinear=False)])
 def test_train_forward_raises_for_unported_options(kw):
-    """The unpool and transpose up modes (ROADMAP A.5) are not ported;
-    remat, refused here until it was ported, runs on both routes
-    (tests/test_torch_remat.py)."""
+    """The one refused up-mode option is bilinear together with
+    use_pooling_indices, as in the JAX package; the transpose and unpool
+    modes (ROADMAP A.5, tests/test_torch_up_modes.py) and remat
+    (tests/test_torch_remat.py) run on the plain route, a train forward
+    with either ``ct_kernels``."""
+    with pytest.raises(ValueError, match="use_pooling_indices and bilinear"):
+        MimoUNetConfig(**dict(BASE, use_pooling_indices=True))
     for ct in ("force", "off"):
-        with pytest.raises(NotImplementedError):
-            model = MimoUNet(MimoUNetConfig(**dict(BASE, ct_kernels=ct, **kw)),
-                             device="cpu").train()
-            model(torch.zeros(1, 2, 32, 128, 3))
+        model = MimoUNet(MimoUNetConfig(**dict(BASE, ct_kernels=ct, **kw)),
+                         device="cpu").train()
+        y = model(torch.zeros(1, 2, 32, 128, 3))
+        assert y.shape == (1, 2, 32, 128, 2) and bool(torch.isfinite(y).all())
 
 
 def test_entry_points_default_to_cuda(monkeypatch):
