@@ -256,7 +256,20 @@ Run from the root of the repository.  Phases, each raising on failure:
    remat rungs bitwise "none" under deterministic algorithms; step time,
    images/s and peak memory beside the plain bilinear step; two MC
    ``predict`` calls (4 passes) bitwise equal; no kernel launched.
-20. Print the kernels' JSON line (K10/K13 launches from phase 11, K4b and
+20. The spatial (H) split (``make_mesh_2d``, ``parallel/halo.py``): two
+   gloo ranks sharing the card (``parallel.launch.spawn``, joined within
+   ``SP_TIMEOUT``) on a 1x2 mesh, the flagship at full width (S=2, fbc 21)
+   on 640x480 frames, each rank holding 240 rows of every frame of the
+   global batch of 16.  The eval forward, bf16 and f32, its rows gathered
+   (``gather_image``) against the one-process plain forward: bf16 within
+   phase 4's 3e-2 of the scale at cosine >= 0.9999, f32 (TF32 off) within
+   1e-5 of the scale.  The train step against the one-process plain step
+   on the same global batch, held as phase 18 holds its ranks.  No kernel
+   launched in either rank (the kernel routes stand aside under a spatial
+   mesh).  Printed: the collectives (calls, bytes) of a forward and of a
+   step by kind, each rank's peak memory beside the one-process plain
+   step's, and host-clock forward and step times.
+21. Print the kernels' JSON line (K10/K13 launches from phase 11, K4b and
    K14 from phase 13; the evidential sites and launches and phase 17's
    S=3 fbc 32 and C_in = 2 sites with the CLI runs' launches as entries
    of their own), then the result line ``{"ok": true, "device": {...}}``
@@ -4445,6 +4458,185 @@ def up_modes(dev, card):
           flush=True)
 
 
+# ---- phase 20: the spatial (H) split (two ranks on the one card) ------------
+
+SP_TIMEOUT = 300                  # seconds the two ranks may take together
+SP_B = TRAIN_B                    # the global batch: 16 frames, 240 rows of each a rank
+SP_ITERS = 3                      # timed calls after a warm-up, median
+
+
+def _sp_image():
+    """The global float input [SP_B, S, 480, 640, 3] of the eval checks."""
+    import torch
+
+    return torch.rand((SP_B, S, *NYU, 3), generator=torch.Generator().manual_seed(60))
+
+
+def _sp_eval(cfg, dev, x, mesh=None, timed=True):
+    """One eval forward of the seeded ``cfg`` model (random BatchNorm
+    statistics): its output, gathered over ``mesh`` when given, the kernel
+    launches and collectives of that call, this process's peak device
+    bytes over the call and, ``timed``, its host-clock ms."""
+    import torch
+    from mimo_unet_torch import kernels as K
+    from mimo_unet_torch.parallel import collectives
+
+    model = _mode_model(cfg, dev, 1).eval()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    K.reset_launch_counts()
+    collectives.reset_counts()
+    with torch.no_grad():
+        y = model(x)
+        torch.cuda.synchronize()
+        out = {"launches": dict(K.launch_counts()), "counts": collectives.counts(),
+               "peak": torch.cuda.max_memory_allocated() - before}
+        if timed:
+            out["ms"] = _host_ms(lambda: model(x), SP_ITERS)
+    out["y"] = (y if mesh is None else collectives.gather_image(y, mesh)).cpu()
+    del model, y
+    torch.cuda.empty_cache()
+    return out
+
+
+def _sp_step(task, dev, batch):
+    """A fresh state's first train step (deterministic algorithms): its
+    record, kernel launches, collectives and peak device bytes (the model,
+    optimizer and batch included); then the host-clock ms of ``SP_ITERS``
+    more steps after a warm-up, median."""
+    import torch
+    from mimo_unet_torch import kernels as K
+    from mimo_unet_torch.parallel import collectives
+
+    state = task.init_state(1, dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    collectives.reset_counts()
+    with _deterministic():
+        state, logs, _ = task.train_step(state, batch)
+    torch.cuda.synchronize()
+    out = {"record": _dp_record(state, logs), "launches": dict(K.launch_counts()),
+           "counts": collectives.counts(), "peak": torch.cuda.max_memory_allocated()}
+    out["ms"] = _host_ms(lambda: task.train_step(state, batch), SP_ITERS)
+    out["launches_timed"] = dict(K.launch_counts())
+    del state
+    torch.cuda.empty_cache()
+    return out
+
+
+def _sp_rank(out_dir):
+    """What each of the two gloo ranks of a 1x2 mesh runs
+    (``parallel.launch.spawn``): the bf16 and f32 eval forwards of its
+    240 rows of each frame, gathered, and the flagship's train step on its
+    rows of the global batch; results to ``out_dir/rank<r>.pt``."""
+    import torch
+    from mimo_unet_torch.parallel import collectives
+    from mimo_unet_torch.parallel.mesh import ct_mesh_scope, make_mesh_2d, shard_image
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = make_mesh_2d(1, 2, device="cuda")
+    dev = mesh.device
+    task = _train_task()
+    x = shard_image(_sp_image(), mesh)
+    batch = {k: shard_image(v, mesh, rank=4)
+             for k, v in _frames(torch.Generator().manual_seed(61), SP_B).items()}
+    out = {"rank": mesh.rank, "device": str(dev), "shard": tuple(x.shape)}
+    with ct_mesh_scope(mesh):
+        for name, dtype in (("bf16", "bfloat16"), ("f32", None)):
+            out[name] = _sp_eval(dataclasses.replace(task.model_config, compute_dtype=dtype),
+                                 dev, x, mesh, timed=dtype is not None)
+        out["step"] = _sp_step(task, dev, batch)
+    torch.save(out, os.path.join(out_dir, f"rank{mesh.rank}.pt"))
+    collectives.barrier(mesh)  # no rank ends before both have saved
+
+
+def _sp_forward_hold(got, want, name, card):
+    """Gathered rows against the one-process plain forward: bf16 within
+    phase 4's 3e-2 of the scale at cosine >= 0.9999, f32 (TF32 off) within
+    1e-5 of the scale."""
+    diff = (got - want).abs()
+    err, scale = float(diff.max()), float(want.abs().max())
+    cos = _cos(got.flatten().double(), want.flatten().double())
+    bound = 3e-2 if name == "bf16" else 1e-5
+    print(f"spatial 1x2 {name} eval B={SP_B} {NYU[0]}x{NYU[1]}: gathered rows vs one process "
+          f"max abs {err:.3e} ({err / scale:.2e} of the scale {scale:.3e}), mean abs "
+          f"{float(diff.mean()):.3e}, cosine {cos:.7f} ({card})", flush=True)
+    if not bool(got.isfinite().all()) or err > bound * scale or (name == "bf16"
+                                                                  and not cos >= 0.9999):
+        raise AssertionError(f"spatial {name} eval: max abs {err} vs bound {bound * scale}, "
+                             f"cosine {cos}")
+
+
+def spatial_split(dev, card):
+    """Phase 20: two gloo ranks sharing the card on a 1x2 (data x spatial)
+    mesh, the flagship at full width on 640x480 frames, held against the
+    one-process plain forward and step."""
+    import shutil
+    import tempfile
+
+    import torch
+    from mimo_unet_torch.parallel import launch
+
+    t0 = time.perf_counter()
+    os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
+    root = tempfile.mkdtemp(prefix="chip_smoke_sp_", dir=os.path.join(REPO, "build"))
+    print(f"phase 20: this process holds {torch.cuda.memory_allocated() / 2 ** 30:.3f} GiB "
+          f"allocated, {torch.cuda.memory_reserved() / 2 ** 30:.3f} GiB reserved beside the "
+          f"ranks", flush=True)
+    try:
+        launch.spawn(_sp_rank, 2, (root,), device=dev, timeout=SP_TIMEOUT)
+        ranks = [torch.load(os.path.join(root, f"rank{r}.pt"), weights_only=False)
+                 for r in (0, 1)]
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    print(f"two gloo ranks on one card, a 1x2 mesh: {time.perf_counter() - t0:.1f} s, "
+          f"devices {[r['device'] for r in ranks]}, shards {[r['shard'] for r in ranks]}",
+          flush=True)
+
+    # ---- the one-process references, on the same card
+    task = _train_task()
+    plain = dataclasses.replace(task, ct_kernels="off")
+    x = _sp_image().to(dev)
+    batch = _frames(torch.Generator().manual_seed(61), SP_B)
+    for name, dtype in (("bf16", "bfloat16"), ("f32", None)):
+        want = _sp_eval(dataclasses.replace(plain.model_config, compute_dtype=dtype), dev, x,
+                        timed=dtype is not None)
+        _sp_forward_hold(ranks[0][name]["y"], want["y"], name, card)
+        for r in ranks:
+            e = r[name]
+            times = (f"host {e['ms']:.2f} ms (one process {want['ms']:.2f} ms)" if "ms" in e
+                     else "not timed")
+            print(f"rank {r['rank']} {name} eval: {times}, peak {e['peak'] / 2 ** 30:.3f} GiB "
+                  f"over its inputs "
+                  f"(one process {want['peak'] / 2 ** 30:.3f} GiB), collectives (calls, "
+                  f"bytes) {e['counts']} ({card})")
+            if any(e["launches"].values()):
+                raise AssertionError(f"rank {r['rank']} {name} eval: kernel launches "
+                                     f"{e['launches']}")
+        del want
+    del x
+    torch.cuda.empty_cache()
+    want = _sp_step(plain, dev, batch)
+    for r in ranks:
+        st = r["step"]
+        _dp_hold(st["record"], want["record"], f"rank {r['rank']} flagship step, "
+                 f"{NYU[0]}x{NYU[1]} B={SP_B} over a 1x2 spatial mesh", card)
+        print(f"rank {r['rank']} step: host {st['ms']:.2f} ms (one process plain "
+              f"{want['ms']:.2f} ms), {SP_B / st['ms'] * 1e3:.2f} images/s of the global "
+              f"batch; peak {st['peak'] / 2 ** 30:.3f} GiB (one process plain "
+              f"{want['peak'] / 2 ** 30:.3f} GiB); collectives a step (calls, bytes) "
+              f"{st['counts']}; two ranks sharing one card through gloo, so the time prices "
+              f"gloo's host staging, not a multi-card speed ({card})", flush=True)
+        launched = {k: v for k, v in {**st["launches"], **st["launches_timed"]}.items() if v}
+        if launched:
+            raise AssertionError(f"rank {r['rank']} step: kernel launches {launched}")
+    torch.cuda.empty_cache()
+    print(f"phase 20 (spatial split): {time.perf_counter() - t0:.1f} s", flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -4565,7 +4757,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     up_modes(dev, card)
 
-    # ---- 20. results -------------------------------------------------------
+    # ---- 20. the spatial (H) split --------------------------------------------
+    torch.cuda.empty_cache()
+    spatial_split(dev, card)
+
+    # ---- 21. results -------------------------------------------------------
     rows = [{"name": k, "route": "cuda", "source": KERNEL_INFO[k][0],
              "replaces": KERNEL_INFO[k][1], "launches": launches[k], **stats[k]}
             for k in KERNEL_INFO]

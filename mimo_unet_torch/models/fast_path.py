@@ -95,6 +95,7 @@ then the grouped 1x1 (K11) forward and backward.
 from __future__ import annotations
 
 import os
+import warnings
 from typing import Sequence, Tuple
 
 import torch
@@ -126,7 +127,7 @@ from mimo_unet_torch.ops.dropout import (
 )
 from mimo_unet_torch.ops.norm import update_running_stats
 from mimo_unet_torch.parallel.collectives import all_reduce_sum
-from mimo_unet_torch.parallel.mesh import current_ct_mesh, rank_count
+from mimo_unet_torch.parallel.mesh import current_ct_mesh, rank_count, spatial_count
 
 # what the train kernels take: a 3x3 conv's input and output channels
 # (conv3x3_train.MAX_C), the 1x1 out-conv's input and output channels
@@ -178,6 +179,25 @@ def x2_half_route() -> bool:
     return os.environ.get("MIMO_CT_TRAIN_X2_HALF", "0") != "0"
 
 
+_WARNED: set = set()
+
+
+def _spatial_mesh_refused(route: str) -> bool:
+    """True under a mesh that splits the height (``parallel/mesh.py``
+    ``Mesh2D`` with spatial > 1): the kernels hold whole images, so the
+    route stands aside and the plain modules, which exchange halo rows,
+    run the forward (the JAX gate's routing, mimo_unet_tpu/models/
+    fast_path.py:100-120).  Says so once per route.  A documented route,
+    not a fallback: nothing here catches a kernel failure."""
+    if spatial_count(current_ct_mesh()) <= 1:
+        return False
+    if route not in _WARNED:
+        _WARNED.add(route)
+        warnings.warn(f"the {route} kernels stand aside under a spatial (2-D) mesh; "
+                      f"the plain modules run the forward", stacklevel=3)
+    return True
+
+
 def fast_path_supported(cfg: MimoUNetConfig, x_shape: Tuple[int, ...],
                         device: torch.device, *, training: bool,
                         mc_dropout: bool = False) -> bool:
@@ -189,14 +209,15 @@ def fast_path_supported(cfg: MimoUNetConfig, x_shape: Tuple[int, ...],
     MC-dropout site is supported; at the up4 or final site a channel count
     beyond the grouped 1x1 kernel raises (``check_channels``), and so does
     a site whose channels fit no plan of the fused DoubleConv kernel
-    (``check_eval_plans``).  Nothing here catches a kernel failure: a CUDA
-    launch that fails raises.
+    (``check_eval_plans``).  Under a spatial mesh it returns False
+    (``_spatial_mesh_refused``).  Nothing here catches a kernel failure: a
+    CUDA launch that fails raises.
     """
     if cfg.ct_kernels == "off":
         return False
     if cfg.ct_kernels == "auto" and torch.device(device).type != "cuda":
         return False
-    if training:
+    if training or _spatial_mesh_refused("eval"):
         return False
     if cfg.compute_dtype != "bfloat16" or cfg.mode != "bilinear":
         return False
@@ -331,10 +352,13 @@ def train_path_supported(cfg: MimoUNetConfig, x_shape: Tuple[int, ...],
     256x256 patches, 640x480 frames and any other such shape take the same
     route (the kernels tile any pixel count), and on it a kernel that
     cannot take its shape raises; so does a configuration whose channel
-    counts the kernels cannot take (``check_channels``)."""
+    counts the kernels cannot take (``check_channels``).  Under a spatial
+    mesh it returns False (``_spatial_mesh_refused``)."""
     if cfg.ct_kernels == "off" or not training or mc_dropout:
         return False
     if cfg.ct_kernels == "auto" and torch.device(device).type != "cuda":
+        return False
+    if _spatial_mesh_refused("train"):
         return False
     if cfg.compute_dtype != "bfloat16" or cfg.mode != "bilinear":
         return False

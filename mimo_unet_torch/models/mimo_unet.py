@@ -59,6 +59,13 @@ from mimo_unet_torch.ops.dropout import (
     DropoutSource,
     Drops,
     dropout as apply_dropout,
+    shard_rows,
+)
+from mimo_unet_torch.parallel.mesh import (
+    check_spatial_height,
+    current_ct_mesh,
+    spatial_count,
+    spatial_mesh,
 )
 
 CT_KERNEL_MODES = ("auto", "off", "force")
@@ -350,7 +357,16 @@ class MimoUNet(nn.Module):
         ``mc_dropout`` (BatchNorm stays in eval mode, as in the
         reference's MC dropout); ``dropout`` then gives the masks and is
         required when a site has a nonzero rate (``mimo_unet_apply``,
-        mimo_unet_tpu/models/mimo_unet.py:201)."""
+        mimo_unet_tpu/models/mimo_unet.py:201).
+
+        Under a spatial mesh (the active ``ct_mesh_scope`` a ``Mesh2D``)
+        ``x`` holds this rank's batch rows and height rows, and so does
+        the output: the plain modules exchange halo rows with the spatial
+        peers and the kernel routes stand aside (``fast_path``); the
+        global height (the local one times ``spatial``) must be a
+        multiple of 16 x ``spatial``; the dropout sites are drawn at the
+        global height and each elementwise mask cut to this rank's rows,
+        so spatial peers apply the same masks."""
         from mimo_unet_torch.models.fast_path import (
             fast_path_supported, mimo_unet_apply_fast,
             mimo_unet_apply_train, train_path_supported)
@@ -361,14 +377,20 @@ class MimoUNet(nn.Module):
                              f"{cfg.num_subnetworks}, got {tuple(x.shape)}")
         if x.shape[-1] != cfg.in_channels:
             raise ValueError(f"channel dim must be {cfg.in_channels}")
+        mesh = current_ct_mesh()
+        split = spatial_mesh(mesh)
+        h = x.shape[2] * spatial_count(mesh)  # the global height
+        check_spatial_height(h, mesh)
         drops = NO_DROPOUT
         if self.training or mc_dropout:
-            sites = dropout_sites(cfg, x.shape[0], x.shape[2], x.shape[3])
+            sites = dropout_sites(cfg, x.shape[0], h, x.shape[3])
             if sites and dropout is None:
                 raise ValueError("a DropoutSource is required when dropout "
                                  "is live")
             if sites:
                 drops = dropout.draw(sites, x.device)
+                if split is not None:
+                    drops = shard_rows(drops, split.rank, split.size)
         if self.training:
             if train_path_supported(cfg, x.shape, x.device, training=True):
                 return mimo_unet_apply_train(self, x, drops)

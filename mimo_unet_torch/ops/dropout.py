@@ -69,6 +69,20 @@ class DropoutSource:
         return out
 
 
+def shard_rows(drops: Drops, index: int, count: int) -> Dict[str, Drop]:
+    """The live sites of a forward whose input is shard ``index`` of
+    ``count`` of the height (a spatial mesh): each elementwise mask
+    [B, H, W, C], drawn at the global height, cut to the shard's rows;
+    Dropout2d masks [B, C] as they are."""
+    out = {}
+    for name, (mask, keep) in drops.items():
+        if mask.ndim == 4:
+            per = mask.shape[1] // count
+            mask = mask[:, index * per:(index + 1) * per]
+        out[name] = (mask, keep)
+    return out
+
+
 def dropout(x: torch.Tensor, mask: torch.Tensor, keep: float) -> torch.Tensor:
     """Inverted dropout with a keep mask broadcastable to ``x``."""
     return torch.where(mask, x / torch.tensor(keep, dtype=x.dtype, device=x.device),

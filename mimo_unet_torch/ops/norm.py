@@ -11,7 +11,10 @@ out of ``x - mean``), and the bias is added to the running mean only.
 Under a mesh of several ranks (``parallel/mesh.py`` ``ct_mesh_scope``)
 the per-channel sums and sums of squares are summed over the ranks and
 divided by the global count, so every rank normalizes with the global
-batch's statistics (what the JAX package's global-batch math gives).
+batch's statistics (what the JAX package's global-batch math gives).  On
+a data x spatial mesh the sums run over every rank of it, each holding its
+batch rows and its height rows, and the count is the local one times
+data x spatial.
 """
 
 from __future__ import annotations

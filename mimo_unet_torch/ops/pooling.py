@@ -13,6 +13,11 @@ ties inside a window *every* tied element gets the gradient.
 common in bf16 after a ReLU, so it would break gradient parity.  The
 index pool's backward is the gradient of the JAX op's ``jnp.max``
 instead: tied maxima share the cotangent equally.
+
+Under a spatial mesh (``parallel/mesh.py`` ``Mesh2D``) the pools run on
+each rank's rows as they are: every window lies inside one shard when each
+shard holds an even number of rows, which ``check_spatial_height`` makes
+a rule for the model's input; a pool of an odd shard raises.
 """
 
 from __future__ import annotations
@@ -21,6 +26,8 @@ from typing import Tuple
 
 import torch
 import torch.nn.functional as F
+
+from mimo_unet_torch.parallel.mesh import check_spatial_height, current_ct_mesh, spatial_count
 
 
 def _pool_bwd(x: torch.Tensor, y: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
@@ -100,8 +107,15 @@ class _MaxPool2x2WithIndices(torch.autograd.Function):
         return F.pad(gx, (0, w - 2 * wp, 0, h - 2 * hp))
 
 
+def _check_shard(x: torch.Tensor) -> None:
+    """Under a spatial mesh, raise unless the shard's rows pair up."""
+    mesh = current_ct_mesh()
+    check_spatial_height(x.shape[-2] * spatial_count(mesh), mesh, levels=1)
+
+
 def max_pool_2x2(x: torch.Tensor) -> torch.Tensor:
     """[N, C, H, W] -> [N, C, H // 2, W // 2]."""
+    _check_shard(x)
     return _MaxPool2x2.apply(x)
 
 
@@ -109,6 +123,7 @@ def max_pool_2x2_skip(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """(pooled, skip=x) for a tensor that feeds both a 2x2 max pool and a
     skip connection; the skip's cotangent is added inside the pool's
     backward (one pass, one rounding)."""
+    _check_shard(x)
     return _MaxPool2x2Skip.apply(x)
 
 
@@ -118,6 +133,7 @@ def max_pool_2x2_with_indices(x: torch.Tensor
     code is the row-major position 0..3 of the window's maximum, the first
     one under ties (torch's ``MaxPool2d(return_indices=True)`` order;
     ``local_to_torch_flat_indices`` gives torch's flat indices)."""
+    _check_shard(x)
     return _MaxPool2x2WithIndices.apply(x)
 
 

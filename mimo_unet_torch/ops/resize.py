@@ -11,6 +11,13 @@ the activation dtype.  In float32 that is exact; in bfloat16 the weights
 round to bf16 and the H pass rounds to bf16 before the W pass, the same
 rounding points as the JAX package's bf16 path.  Gradients come from
 autograd through the contractions.
+
+Under a spatial mesh (``parallel/mesh.py`` ``Mesh2D``) each rank holds its
+rows of the height: the H pass contracts the shard's input rows and one
+neighbour row each side (``parallel/halo.py``) against the global
+matrix's rows of the shard's output rows.  Align-corners maps output row
+``o`` to ``o * (H - 1) / (2H - 1)``, which lies less than one row outside
+the shard's input rows, so one halo row each side suffices.
 """
 
 from __future__ import annotations
@@ -18,6 +25,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from mimo_unet_torch.parallel.halo import halo_rows
+from mimo_unet_torch.parallel.mesh import current_ct_mesh, spans_ranks, spatial_mesh
 
 
 def _align_corners_tables(in_size: int, out_size: int):
@@ -42,16 +52,27 @@ def _interp_matrix(in_size: int, out_size: int) -> np.ndarray:
     return mat
 
 
-def _matrices(x: torch.Tensor):
-    h, w = x.shape[-2], x.shape[-1]
-    mh = torch.from_numpy(_interp_matrix(h, 2 * h)).to(x.device, x.dtype)
-    mw = torch.from_numpy(_interp_matrix(w, 2 * w)).to(x.device, x.dtype)
-    return mh, mw
+def shard_interp_matrix(h: int, index: int, count: int) -> np.ndarray:
+    """The H matrix of shard ``index`` of ``count``, each of ``h`` input
+    rows: the global [2H, H] matrix's rows of the shard's 2h output rows,
+    its columns those of the global input rows ``index * h - 1`` to
+    ``(index + 1) * h`` (the shard and its halo rows; a column past the
+    global edge is zero).  [2h, h + 2]."""
+    full = np.pad(_interp_matrix(h * count, 2 * h * count), ((0, 0), (1, 1)))
+    return full[2 * h * index:2 * h * (index + 1), h * index:h * (index + 1) + 2]
 
 
 def upsample_bilinear_x2_align_corners(x: torch.Tensor) -> torch.Tensor:
     """NCHW x2 bilinear upsample, align_corners=True (torch semantics)."""
-    mh, mw = _matrices(x)
+    h, w = x.shape[-2], x.shape[-1]
+    mesh = spatial_mesh(current_ct_mesh())
+    if spans_ranks(mesh):
+        mh = shard_interp_matrix(h, mesh.rank, mesh.size)
+        x = halo_rows(x, mesh)
+    else:
+        mh = _interp_matrix(h, 2 * h)
+    mh = torch.from_numpy(mh).to(x.device, x.dtype)
+    mw = torch.from_numpy(_interp_matrix(w, 2 * w)).to(x.device, x.dtype)
     y = torch.einsum("oh,nchw->ncow", mh, x)
     return torch.einsum("pw,ncow->ncop", mw, y)
 

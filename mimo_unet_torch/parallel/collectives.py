@@ -7,7 +7,11 @@ mimo_unet_tpu/models/fast_path.py:1048-1054).  The port calls them here:
 * ``all_reduce_sum``: a sum over ranks whose backward sums the cotangent
   over ranks (the psum's transpose): every BatchNorm site's statistics;
 * ``all_gather_rows``: the global batch from every rank's rows (the
-  input transform permutes the global batch);
+  input transform permutes the global batch; under a spatial mesh, over
+  the data axis only);
+* ``gather_image``: global images from every rank's batch and height
+  rows (``parallel/mesh.py`` ``shard_image``'s inverse);
+* the halo rows of a spatial mesh (``parallel/halo.py``);
 * ``all_reduce``: gradients, logs, validation sums and agreed decisions,
   no autograd; ``sync_gradients`` sums the gradients over ranks in one
   flat buffer a dtype and divides them by the number of ranks;
@@ -31,7 +35,13 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from mimo_unet_torch.parallel.mesh import Mesh, current_ct_mesh, spans_ranks
+from mimo_unet_torch.parallel.mesh import (
+    AnyMesh,
+    Mesh,
+    current_ct_mesh,
+    image_sharding,
+    spans_ranks,
+)
 
 _calls: collections.Counter = collections.Counter()
 _bytes: collections.Counter = collections.Counter()
@@ -114,6 +124,32 @@ def all_gather_rows(x: torch.Tensor, mesh: Optional[Mesh] = None) -> torch.Tenso
     _all_reduce(buf, mesh, "rows")
     out = buf.view((mesh.size * src.shape[0],) + tuple(src.shape[1:]))
     return out.view(torch.bool) if as_bool else out
+
+
+def gather_image(y: torch.Tensor, mesh: Optional[AnyMesh] = None, rank: int = 5
+                 ) -> torch.Tensor:
+    """The global image tensor of rank ``rank`` from every rank's part as
+    ``image_sharding(mesh, rank)`` lays them out, on each rank: an
+    all-reduce of a zero-filled [data, spatial, ...] buffer holding this
+    rank's part in its own slot.  ``all_gather_rows`` on a mesh without a
+    spatial axis.  No autograd."""
+    mesh = _mesh(mesh)
+    h_axis = image_sharding(mesh, rank).h_axis if mesh is not None else None
+    if h_axis is None:
+        return all_gather_rows(y, mesh)
+    src = y.detach()
+    buf = torch.zeros((mesh.data, mesh.spatial) + tuple(src.shape), dtype=src.dtype,
+                      device=src.device)
+    buf[mesh.data_index, mesh.spatial_index] = src
+    if spans_ranks(mesh):
+        _all_reduce(buf, mesh, "image")
+    # [d, s, b, ..., h, ...] -> [d, b, ..., s, h, ...] -> [d*b, ..., s*h, ...]
+    dims = list(range(2, 2 + src.ndim))
+    buf = buf.permute([0, dims[0]] + dims[1:h_axis] + [1] + dims[h_axis:])
+    shape = list(src.shape)
+    shape[0] *= mesh.data
+    shape[h_axis] *= mesh.spatial
+    return buf.reshape(shape)
 
 
 def barrier(mesh: Optional[Mesh] = None) -> None:

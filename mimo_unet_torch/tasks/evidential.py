@@ -18,7 +18,8 @@ Under a mesh of several ranks a step is the global batch's, as the MIMO
 task's (``tasks/mimo.py``), with no input transform to gather rows for:
 each rank trains on its own rows, every BatchNorm normalizes with the
 global batch's statistics, the gradients are averaged over the ranks and
-the logs are the global batch's.
+the logs are the global batch's.  On a data x spatial mesh each rank holds
+its batch rows and height rows, as in the MIMO task's step.
 """
 
 from __future__ import annotations
@@ -35,7 +36,12 @@ from mimo_unet_torch.metrics import compute_regression_metrics
 from mimo_unet_torch.models.mimo_unet import MimoUNet, MimoUNetConfig, eval_mode
 from mimo_unet_torch.ops.dropout import DropoutSource
 from mimo_unet_torch.parallel.collectives import all_reduce, sync_gradients
-from mimo_unet_torch.parallel.mesh import current_ct_mesh, rank_count, spans_ranks
+from mimo_unet_torch.parallel.mesh import (
+    current_ct_mesh,
+    data_index,
+    rank_count,
+    spans_ranks,
+)
 from mimo_unet_torch.tasks.mimo import (
     TrainState,
     device_normalize,
@@ -166,7 +172,7 @@ class EvidentialUnetTask:
         mesh = current_ct_mesh()
         dev = next(model.parameters()).device
         if dropout is None and spans_ranks(mesh):
-            dropout = rank_dropout_source(self.seed + 2, state.step, mesh.rank, dev)
+            dropout = rank_dropout_source(self.seed + 2, state.step, data_index(mesh), dev)
         elif dropout is None and state.dropout_generator is not None:
             dropout = DropoutSource(generator=state.dropout_generator)
         batch = device_normalize({k: v.to(dev) for k, v in batch.items()})

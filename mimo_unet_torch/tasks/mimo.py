@@ -25,9 +25,17 @@ global batch's statistics; each rank backpropagates its own loss and the
 gradients are averaged over the ranks before the optimizer step; the
 per-subnetwork losses are averaged over the ranks before the loss buffer
 and the logs, and the metrics are those of the global batch.  Dropout
-masks are drawn per rank (``rank_dropout_source``).  ``val_step`` takes
-this rank's rows of a validation batch and logs the global batch's
+masks are drawn per data index (``rank_dropout_source``).  ``val_step``
+takes this rank's rows of a validation batch and logs the global batch's
 values.
+
+On a data x spatial mesh (``parallel/mesh.py`` ``make_mesh_2d``) ``batch``
+is this rank's batch rows and height rows (``shard_image``): the input
+transform gathers over the data axis only, each rank's loss is the mean
+over its pixels (with equal shards the ranks' mean is the global mean),
+and the gradients, BatchNorm statistics, loss buffer, logs and metrics
+are reduced over the whole mesh.  Spatial peers draw the same dropout
+masks.  ``Trainer`` and the CLIs keep the 1-D mesh.
 """
 
 from __future__ import annotations
@@ -56,6 +64,8 @@ from mimo_unet_torch.parallel.collectives import (
 )
 from mimo_unet_torch.parallel.mesh import (
     current_ct_mesh,
+    data_index,
+    data_mesh,
     local_slice,
     rank_count,
     spans_ranks,
@@ -86,11 +96,13 @@ def device_normalize(batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
 
 
 def rank_dropout_source(seed: int, step: int, rank: int, device) -> DropoutSource:
-    """Where rank ``rank`` of a mesh draws step ``step``'s dropout masks: a
-    generator on ``device`` seeded ``fold_in(fold_in(seed, step), rank)``,
-    as the JAX kernel path folds the data axis index into its step's key
+    """Where the ranks of data index ``rank`` of a mesh draw step
+    ``step``'s dropout masks: a generator on ``device`` seeded
+    ``fold_in(fold_in(seed, step), rank)``, as the JAX kernel path folds
+    the data axis index into its step's key
     (mimo_unet_tpu/models/fast_path.py:376, :1117).  A function of the
-    step, so a resumed run draws what a straight one draws."""
+    step, so a resumed run draws what a straight one draws; one of the
+    data index, so spatial peers draw the same masks."""
     gen = torch.Generator(device).manual_seed(fold_in(fold_in(seed, step), rank))
     return DropoutSource(generator=gen)
 
@@ -267,13 +279,14 @@ class MimoUnetTask:
         mesh = current_ct_mesh()
         dev = next(model.parameters()).device
         if dropout is None and spans_ranks(mesh):
-            dropout = rank_dropout_source(self.seed + 2, state.step, mesh.rank, dev)
+            dropout = rank_dropout_source(self.seed + 2, state.step, data_index(mesh), dev)
         elif dropout is None and state.dropout_generator is not None:
             dropout = DropoutSource(generator=state.dropout_generator)
-        # the global batch, rank-major, on every rank; the transform
-        # gathers only this rank's rows of its result, and normalizes those
-        # (elementwise), so no rank holds more than its share past here
-        batch = {k: all_gather_rows(v.to(dev), mesh) for k, v in batch.items()}
+        # the global batch, rank-major over the data axis, on every rank (its
+        # height rows under a spatial mesh); the transform gathers only this
+        # rank's rows of its result, and normalizes those (elementwise), so
+        # no rank holds more than its share past here
+        batch = {k: all_gather_rows(v.to(dev), data_mesh(mesh)) for k, v in batch.items()}
         rows = local_slice(mesh, len(batch["image"]) * self.batch_repetitions)
         image_t, label_t, mask_t = apply_input_transform(
             state.generator, batch["image"], batch["label"], batch.get("mask"),

@@ -51,9 +51,11 @@ from mimo_unet_torch.data.core import (
 from mimo_unet_torch.parallel.collectives import agree_max, barrier
 from mimo_unet_torch.parallel.mesh import (
     ct_mesh_scope,
+    data_mesh,
     make_mesh,
     pad_batch_to_divisible,
     spans_ranks,
+    spatial_count,
 )
 from mimo_unet_torch.train.checkpoint import CheckpointManager, load_checkpoint
 from mimo_unet_torch.train.logging import MetricLogger, NullLogger, TSVLogger
@@ -85,7 +87,9 @@ class Trainer:
     ):
         """The JAX Trainer's arguments, and ``device`` (the card when
         None; under a process group this rank's card, ``rank_device``).
-        ``mesh`` (``parallel.make_mesh``), else ``make_mesh(num_devices)``:
+        ``mesh`` (``parallel.make_mesh``, or a ``make_mesh_2d`` mesh of
+        one spatial rank: its data axis; one that splits the height
+        raises), else ``make_mesh(num_devices)``:
         a mesh of one without a process group, else the group's first
         ``num_devices`` ranks (all when None).  ``device_cache_budget`` is
         the bytes the device cache may take (None:
@@ -93,7 +97,14 @@ class Trainer:
         (``prefetch_to_device``)."""
         if host_chunk != 1:
             raise ValueError(f"host_chunk must be 1, got {host_chunk}")
-        self.mesh = mesh if mesh is not None else make_mesh(num_devices, device)
+        if spatial_count(mesh) > 1:
+            raise ValueError(
+                f"Trainer keeps a 1-D data mesh, as the JAX Trainer places its "
+                f"batches with batch_sharding; a mesh that splits the height "
+                f"({mesh.shape}) runs through the task's train_step and val_step "
+                f"inside parallel.ct_mesh_scope(mesh), on batches from "
+                f"parallel.shard_image")
+        self.mesh = data_mesh(mesh) if mesh is not None else make_mesh(num_devices, device)
         self.task = task
         self.dm = datamodule
         self.max_epochs = max_epochs
