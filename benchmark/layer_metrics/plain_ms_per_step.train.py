@@ -1,0 +1,8 @@
+"""Device ms a train step spends outside the port's kernels, Adam and copies:
+the plain modules (the cuDNN core and the glue)."""
+
+from benchmark.readers import plain_ms
+
+
+def read(ctx):
+    return plain_ms(ctx, "steps")
