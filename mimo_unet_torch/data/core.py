@@ -34,6 +34,7 @@ import numpy as np
 import torch
 
 from mimo_unet_torch.models.mimo_unet import resolve_device
+from mimo_unet_torch.train.profiling import span
 
 Batch = Dict[str, np.ndarray]
 
@@ -172,10 +173,11 @@ class DeviceDataset:
         device.  Unsharded: ``idx`` [B] global rows.  Sharded: shard-local
         rows, this rank's [B/D] or the [D, B/D] of every rank
         (``iterate_sharded_index_batches``), whose row ``rank`` is taken."""
-        if self.mesh is not None and np.ndim(idx) == 2:
-            idx = idx[self.mesh.rank]
-        idx = torch.as_tensor(idx).to(self.device, non_blocking=True)
-        return {k: v.index_select(0, idx) for k, v in self.data.items()}
+        with span("mimo.data.gather"):
+            if self.mesh is not None and np.ndim(idx) == 2:
+                idx = idx[self.mesh.rank]
+            idx = torch.as_tensor(idx).to(self.device, non_blocking=True)
+            return {k: v.index_select(0, idx) for k, v in self.data.items()}
 
 
 def iterate_sharded_index_batches(

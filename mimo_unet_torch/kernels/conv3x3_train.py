@@ -61,6 +61,7 @@ autograd through an f32 reflect conv.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Optional, Tuple
 
@@ -81,6 +82,7 @@ from mimo_unet_torch.kernels.train_elem import (
     reduce_groups,
 )
 from mimo_unet_torch.kernels.upsample2x import _h_tables, lerp_h2x_transpose
+from mimo_unet_torch.train.profiling import span
 
 BF16 = torch.bfloat16
 TW = 16               # K5/K6/K7 tile columns (the halo tile has TW + 2)
@@ -645,32 +647,35 @@ class Conv3x3Train(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dy, dsum, dsumsq):
-        x1, x2, w, scale, shift, y = ctx.saved_tensors
-        groups = w.shape[0]
-        if dy is None:
-            dy = torch.zeros_like(y)
-        zeros = torch.zeros((groups, y.shape[-1]), device=y.device)
-        geff = g_eff(dy.contiguous(), y,
-                     zeros if dsum is None else dsum,
-                     zeros if dsumsq is None else dsumsq)
-        need_x1, need_x2, need_w, need_sc, need_sh = ctx.needs_input_grad[:5]
-        dx1 = dx2 = dw = dsc = dsh = None
-        if x2 is not None:
-            if need_x1 or need_x2:
-                dx1, dx2 = conv3x3_dx_fold(geff, w, x1.shape[-1], x2.shape[0])
-                if ctx.x2_half_h:
-                    dx2 = lerp_h2x_transpose(dx2)
-        elif scale is not None:
-            if need_x1 or need_sc or need_sh:
-                dx1, dsc, dsh = conv3x3_dx(geff, w, x1=x1, scale=scale,
-                                           shift=shift)
-                dsc, dsh = dsc.to(scale.dtype), dsh.to(shift.dtype)
-        elif need_x1:
-            dx1 = conv3x3_dx(geff, w)
-        if need_w:
-            dw = conv3x3_dw(geff, x1, groups, x2=x2, scale=scale, shift=shift,
-                            x2_half_h=ctx.x2_half_h).to(w.dtype)
-        return dx1, dx2, dw, dsc, dsh, None
+        # the fast path names the conv's site on its node (fast_path._conv_bn)
+        site = getattr(ctx, "site", None)
+        with span(f"mimo.train_conv_bwd.{site}") if site else contextlib.nullcontext():
+            x1, x2, w, scale, shift, y = ctx.saved_tensors
+            groups = w.shape[0]
+            if dy is None:
+                dy = torch.zeros_like(y)
+            zeros = torch.zeros((groups, y.shape[-1]), device=y.device)
+            geff = g_eff(dy.contiguous(), y,
+                         zeros if dsum is None else dsum,
+                         zeros if dsumsq is None else dsumsq)
+            need_x1, need_x2, need_w, need_sc, need_sh = ctx.needs_input_grad[:5]
+            dx1 = dx2 = dw = dsc = dsh = None
+            if x2 is not None:
+                if need_x1 or need_x2:
+                    dx1, dx2 = conv3x3_dx_fold(geff, w, x1.shape[-1], x2.shape[0])
+                    if ctx.x2_half_h:
+                        dx2 = lerp_h2x_transpose(dx2)
+            elif scale is not None:
+                if need_x1 or need_sc or need_sh:
+                    dx1, dsc, dsh = conv3x3_dx(geff, w, x1=x1, scale=scale,
+                                               shift=shift)
+                    dsc, dsh = dsc.to(scale.dtype), dsh.to(shift.dtype)
+            elif need_x1:
+                dx1 = conv3x3_dx(geff, w)
+            if need_w:
+                dw = conv3x3_dw(geff, x1, groups, x2=x2, scale=scale, shift=shift,
+                                x2_half_h=ctx.x2_half_h).to(w.dtype)
+            return dx1, dx2, dw, dsc, dsh, None
 
 
 conv3x3_fwd.launches = 0

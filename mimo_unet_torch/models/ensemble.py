@@ -37,6 +37,7 @@ import torch
 
 from mimo_unet_torch.models.mimo_unet import eval_mode
 from mimo_unet_torch.ops.dropout import DropoutSource
+from mimo_unet_torch.train.profiling import span
 from mimo_unet_torch.transforms import compute_uncertainties, repeat_subnetworks
 
 _MASK64 = (1 << 64) - 1
@@ -169,17 +170,25 @@ class Ensemble:
         image, then trimmed); the batch at ``start`` draws its masks from
         ``fold_in(seed, start)``.  Returns numpy (mean, aleatoric_var,
         epistemic_var) over all inputs."""
-        if device is None:
-            device = next(self.members[0][1].parameters()).device
-        images = torch.as_tensor(np.asarray(images))
-        outs = []
-        for start in range(0, images.shape[0], batch_size):
-            chunk = images[start:start + batch_size]
-            real = chunk.shape[0]
-            if real < batch_size:
-                pad = chunk[-1:].expand(batch_size - real, *chunk.shape[1:])
-                chunk = torch.cat([chunk, pad])
-            p1, p2 = self.raw_forward(chunk.to(device), fold_in(seed, start))
-            mean, ale, epi = compute_uncertainties(self.loss_fn, p1, p2)
-            outs.append(tuple(t[:real].cpu().numpy() for t in (mean, ale, epi)))
-        return tuple(np.concatenate(parts, axis=0) for parts in zip(*outs))
+        with span("mimo.predict"):
+            with span("mimo.predict.in"):
+                if device is None:
+                    device = next(self.members[0][1].parameters()).device
+                images = torch.as_tensor(np.asarray(images))
+            outs = []
+            for start in range(0, images.shape[0], batch_size):
+                with span("mimo.predict.in"):
+                    chunk = images[start:start + batch_size]
+                    real = chunk.shape[0]
+                    if real < batch_size:
+                        pad = chunk[-1:].expand(batch_size - real, *chunk.shape[1:])
+                        chunk = torch.cat([chunk, pad])
+                    x = chunk.to(device)
+                with span("mimo.predict.forward"):
+                    p1, p2 = self.raw_forward(x, fold_in(seed, start))
+                    del x  # the input's card memory is free for what follows
+                    mean, ale, epi = compute_uncertainties(self.loss_fn, p1, p2)
+                with span("mimo.predict.fetch"):
+                    outs.append(tuple(t[:real].cpu().numpy() for t in (mean, ale, epi)))
+            with span("mimo.predict.assemble"):
+                return tuple(np.concatenate(parts, axis=0) for parts in zip(*outs))

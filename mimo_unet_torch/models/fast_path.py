@@ -128,6 +128,7 @@ from mimo_unet_torch.ops.dropout import (
 from mimo_unet_torch.ops.norm import update_running_stats
 from mimo_unet_torch.parallel.collectives import all_reduce_sum
 from mimo_unet_torch.parallel.mesh import current_ct_mesh, rank_count, spatial_count
+from mimo_unet_torch.train.profiling import span
 
 # what the train kernels take: a 3x3 conv's input and output channels
 # (conv3x3_train.MAX_C), the 1x1 out-conv's input and output channels
@@ -273,6 +274,14 @@ def _site_scale(drops: Drops, names: Sequence[str], dim: int = 0):
     return keep_scale([drops[k][0] for k in names], drops[names[0]][1], dim)
 
 
+def _eval_site(site: str, conv, *args, **kwargs):
+    """``conv(*args, **kwargs)``, one fused DoubleConv of the eval route,
+    inside the span ``mimo.eval_conv.<site>`` (its arguments are made
+    before the span opens)."""
+    with span(f"mimo.eval_conv.{site}"):
+        return conv(*args, **kwargs)
+
+
 @torch.no_grad()
 def mimo_unet_apply_fast(model, x: torch.Tensor,
                          drops: Drops = NO_DROPOUT) -> torch.Tensor:
@@ -287,14 +296,16 @@ def mimo_unet_apply_fast(model, x: torch.Tensor,
     # ---- encoder in_conv: S-major fold, emits the H half of down1's pool
     xin = x.to(bf16).transpose(0, 1).reshape(n, h, w, cin).contiguous()
     conv_in = fused_double_conv9 if cin <= 8 else fused_double_conv
-    x1s, hp1 = conv_in(xin, *double_conv_args(enc.in_convs), emit_hpool=True)
+    x1s, hp1 = _eval_site("in_conv", conv_in, xin, *double_conv_args(enc.in_convs),
+                          emit_hpool=True)
     sc = _site_scale(drops, [f"encoder.{i}.in_conv" for i in range(s)])
     if sc is not None:
         x1s, hp1 = scale_channels(x1s, sc), scale_channels(hp1, sc)
 
     # ---- down1: writes the subnetwork channel concat [B, H/2, W/2, 2FS]
     # and the H half of the core's down2 pool
-    x2cat, hp2 = fused_double_conv(
+    x2cat, hp2 = _eval_site(
+        "down1", fused_double_conv,
         pool_w(hp1), *double_conv_args([d.conv for d in enc.down1s]),
         emit_hpool=True, group_rows_out=True)
     sc = _site_scale(drops, [f"encoder.{i}.down1" for i in range(s)], dim=1)
@@ -307,7 +318,8 @@ def mimo_unet_apply_fast(model, x: torch.Tensor,
     xu2 = xu2.permute(0, 2, 3, 1).contiguous()
 
     # ---- up3: skip x2cat + upsampled up2 output (W half here, H in-kernel)
-    xup = fused_double_conv(
+    xup = _eval_site(
+        "up3", fused_double_conv,
         x2cat, *double_conv_args([core.up3.conv]),
         x2=upsample_w2x(xu2), x2_half_h=True)
     sc = _site_scale(drops, ["core.up3"])
@@ -323,10 +335,11 @@ def mimo_unet_apply_fast(model, x: torch.Tensor,
     sc = _site_scale(drops, [f"decoder.{i}.up4" for i in range(s)])
     finals = [f"decoder.{i}.final" for i in range(s)]
     if sc is None and finals[0] not in drops:
-        logits = fused_double_conv(x1s, *up4_args, x2=xupw, x2_half_h=True,
-                                   wo=wo, bo=bo)
+        logits = _eval_site("decoder", fused_double_conv, x1s, *up4_args, x2=xupw,
+                            x2_half_h=True, wo=wo, bo=bo)
     else:
-        y = fused_double_conv(x1s, *up4_args, x2=xupw, x2_half_h=True)
+        y = _eval_site("decoder", fused_double_conv, x1s, *up4_args, x2=xupw,
+                       x2_half_h=True)
         if sc is not None:
             y = scale_channels(y, sc)
         else:
@@ -402,23 +415,28 @@ def _w_train(convs: Sequence[torch.nn.Conv2d]) -> torch.Tensor:
     return torch.stack([_hwio(c) for c in convs]).to(torch.bfloat16)
 
 
-def _conv_bn(x1, dcs, idx, count, *, x2=None, prologue=None, x2_half_h=False):
+def _conv_bn(x1, dcs, idx, count, *, site, x2=None, prologue=None, x2_half_h=False):
     """One train conv (position ``idx`` = 0 or 1 of each group's
-    DoubleConv) and its BatchNorm: returns (y_raw, scale, shift).  Under a
+    DoubleConv) and its BatchNorm: returns (y_raw, scale, shift), inside
+    the span ``mimo.train_conv.<site>``; the conv's autograd node carries
+    ``site`` to its backward's span.  Under a
     mesh of several ranks the group sums of K5 are summed over the ranks
     (one all-reduce a site, its backward the cotangents' sum, the
     ``_psum_stats`` of fast_path.py:1048) and ``count``, this rank's, is
     scaled to the global batch's: every rank normalizes with the global
     batch's statistics and moves its running statistics alike."""
-    convs = [dc.double_conv[3 * idx] for dc in dcs]
-    bns = [dc.double_conv[3 * idx + 1] for dc in dcs]
-    sc, sh = prologue if prologue is not None else (None, None)
-    y, s, q = Conv3x3Train.apply(x1, x2, _w_train(convs), sc, sh, x2_half_h)
-    mesh = current_ct_mesh()
-    s, q = all_reduce_sum(torch.stack([s, q]), mesh).unbind(0)
-    count *= rank_count(mesh)
-    scale, shift = _bn_affine_from_stats(s, q, count, convs, bns)
-    return y, scale, shift
+    with span(f"mimo.train_conv.{site}"):
+        convs = [dc.double_conv[3 * idx] for dc in dcs]
+        bns = [dc.double_conv[3 * idx + 1] for dc in dcs]
+        sc, sh = prologue if prologue is not None else (None, None)
+        y, s, q = Conv3x3Train.apply(x1, x2, _w_train(convs), sc, sh, x2_half_h)
+        if y.grad_fn is not None:
+            y.grad_fn.site = site
+        mesh = current_ct_mesh()
+        s, q = all_reduce_sum(torch.stack([s, q]), mesh).unbind(0)
+        count *= rank_count(mesh)
+        scale, shift = _bn_affine_from_stats(s, q, count, convs, bns)
+        return y, scale, shift
 
 
 def _per_image_affine(sc: torch.Tensor, sh: torch.Tensor, m: torch.Tensor):
@@ -455,8 +473,9 @@ def encoder_train(enc, xin: torch.Tensor, b: int, drops: Drops = NO_DROPOUT):
     s = n // b
     # per group: the whole batch normalizes each group
     cnt_full, cnt_half = b * h * w, b * (h // 2) * (w // 2)
-    y1, sc1, sh1 = _conv_bn(xin, enc.in_convs, 0, cnt_full)
-    y2, sc2, sh2 = _conv_bn(y1, enc.in_convs, 1, cnt_full, prologue=(sc1, sh1))
+    y1, sc1, sh1 = _conv_bn(xin, enc.in_convs, 0, cnt_full, site="in.c1")
+    y2, sc2, sh2 = _conv_bn(y1, enc.in_convs, 1, cnt_full, site="in.c2",
+                            prologue=(sc1, sh1))
     m = _site_scale(drops, [f"encoder.{i}.in_conv" for i in range(s)])
     if m is not None:
         sc2, sh2 = _per_image_affine(sc2, sh2, m)
@@ -467,8 +486,8 @@ def encoder_train(enc, xin: torch.Tensor, b: int, drops: Drops = NO_DROPOUT):
 
     # down1, BatchNorm over each group's half-res pixels
     d1 = [d.conv for d in enc.down1s]
-    y3, sc3, sh3 = _conv_bn(pooled, d1, 0, cnt_half)
-    y4, sc4, sh4 = _conv_bn(y3, d1, 1, cnt_half, prologue=(sc3, sh3))
+    y3, sc3, sh3 = _conv_bn(pooled, d1, 0, cnt_half, site="down1.c1")
+    y4, sc4, sh4 = _conv_bn(y3, d1, 1, cnt_half, site="down1.c2", prologue=(sc3, sh3))
     m = _site_scale(drops, [f"encoder.{i}.down1" for i in range(s)])
     if m is not None:
         sc4, sh4 = _per_image_affine(sc4, sh4, m)
@@ -489,8 +508,8 @@ def decoder_train(dec, x_up: torch.Tensor, x1s: torch.Tensor, cnt_full: int,
     up = UpsampleW2x.apply(x_up) if half else Upsample2x.apply(x_up)
     up4 = [u.conv for u in dec.up4s]
     s = len(up4)
-    y5, sc5, sh5 = _conv_bn(x1s, up4, 0, cnt_full, x2=up, x2_half_h=half)
-    y6, sc6, sh6 = _conv_bn(y5, up4, 1, cnt_full, prologue=(sc5, sh5))
+    y5, sc5, sh5 = _conv_bn(x1s, up4, 0, cnt_full, site="dec.c1", x2=up, x2_half_h=half)
+    y6, sc6, sh6 = _conv_bn(y5, up4, 1, cnt_full, site="dec.c2", prologue=(sc5, sh5))
     wo = torch.stack([oc.conv.weight[:, :, 0, 0].t() for oc in dec.outcs])
     bo = torch.stack([oc.conv.bias for oc in dec.outcs])
     m = _site_scale(drops, [f"decoder.{i}.up4" for i in range(s)])

@@ -71,6 +71,7 @@ from mimo_unet_torch.parallel.mesh import (
     spans_ranks,
 )
 from mimo_unet_torch.train.optim import adam_with_steplr
+from mimo_unet_torch.train.profiling import span
 from mimo_unet_torch.transforms import (
     apply_input_transform,
     compute_uncertainties,
@@ -275,69 +276,72 @@ class MimoUnetTask:
         model's).  Dropout masks come from ``dropout`` when given, else
         from ``state.dropout_generator``.  Returns (state, logs,
         outputs-or-None)."""
-        model = state.model.train()
-        mesh = current_ct_mesh()
-        dev = next(model.parameters()).device
-        if dropout is None and spans_ranks(mesh):
-            dropout = rank_dropout_source(self.seed + 2, state.step, data_index(mesh), dev)
-        elif dropout is None and state.dropout_generator is not None:
-            dropout = DropoutSource(generator=state.dropout_generator)
-        # the global batch, rank-major over the data axis, on every rank (its
-        # height rows under a spatial mesh); the transform gathers only this
-        # rank's rows of its result, and normalizes those (elementwise), so
-        # no rank holds more than its share past here
-        batch = {k: all_gather_rows(v.to(dev), data_mesh(mesh)) for k, v in batch.items()}
-        rows = local_slice(mesh, len(batch["image"]) * self.batch_repetitions)
-        image_t, label_t, mask_t = apply_input_transform(
-            state.generator, batch["image"], batch["label"], batch.get("mask"),
-            num_subnetworks=self.num_subnetworks,
-            input_repetition_probability=self.input_repetition_probability,
-            batch_repetitions=self.batch_repetitions, rows=rows)
-        del batch
-        norm = device_normalize({"image": image_t, "label": label_t, "mask": mask_t})
-        image_t, label_t, mask_t = norm["image"], norm["label"], norm["mask"]
-        del norm
+        with span("mimo.train.input"):
+            model = state.model.train()
+            mesh = current_ct_mesh()
+            dev = next(model.parameters()).device
+            if dropout is None and spans_ranks(mesh):
+                dropout = rank_dropout_source(self.seed + 2, state.step, data_index(mesh), dev)
+            elif dropout is None and state.dropout_generator is not None:
+                dropout = DropoutSource(generator=state.dropout_generator)
+            # the global batch, rank-major over the data axis, on every rank (its
+            # height rows under a spatial mesh); the transform gathers only this
+            # rank's rows of its result, and normalizes those (elementwise), so
+            # no rank holds more than its share past here
+            batch = {k: all_gather_rows(v.to(dev), data_mesh(mesh)) for k, v in batch.items()}
+            rows = local_slice(mesh, len(batch["image"]) * self.batch_repetitions)
+            image_t, label_t, mask_t = apply_input_transform(
+                state.generator, batch["image"], batch["label"], batch.get("mask"),
+                num_subnetworks=self.num_subnetworks,
+                input_repetition_probability=self.input_repetition_probability,
+                batch_repetitions=self.batch_repetitions, rows=rows)
+            del batch
+            norm = device_normalize({"image": image_t, "label": label_t, "mask": mask_t})
+            image_t, label_t, mask_t = norm["image"], norm["label"], norm["mask"]
+            del norm
+        with span("mimo.train.forward"):
+            state.optimizer.zero_grad(set_to_none=True)
+            loss, loss_vec, weights, p1, p2 = self.objective(
+                model, image_t, label_t, mask_t, state.loss_buffer, dropout)
+        with span("mimo.train.backward"):
+            loss.backward()
+        with span("mimo.train.update"):
+            # a parameter outside the graph (a conv bias that train-mode
+            # BatchNorm cancels) has a zero gradient, as in the JAX package, so
+            # Adam still applies weight decay to it
+            for p in model.parameters():
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
+            sync_gradients(model.parameters(), mesh)
+            state.optimizer.step()
+            state.scheduler.step()
+            # equal rows a rank: the global mean is the ranks' mean
+            loss_vec = all_reduce(loss_vec.detach(), mesh, "logs") / rank_count(mesh)
+            loss_buffer_add(state.loss_buffer, loss_vec, self.loss_buffer_size)
+            state.step += 1
 
-        state.optimizer.zero_grad(set_to_none=True)
-        loss, loss_vec, weights, p1, p2 = self.objective(
-            model, image_t, label_t, mask_t, state.loss_buffer, dropout)
-        loss.backward()
-        # a parameter outside the graph (a conv bias that train-mode
-        # BatchNorm cancels) has a zero gradient, as in the JAX package, so
-        # Adam still applies weight decay to it
-        for p in model.parameters():
-            if p.grad is None:
-                p.grad = torch.zeros_like(p)
-        sync_gradients(model.parameters(), mesh)
-        state.optimizer.step()
-        state.scheduler.step()
-        # equal rows a rank: the global mean is the ranks' mean
-        loss_vec = all_reduce(loss_vec.detach(), mesh, "logs") / rank_count(mesh)
-        loss_buffer_add(state.loss_buffer, loss_vec, self.loss_buffer_size)
-        state.step += 1
-
-        with torch.no_grad():
-            p1, p2 = p1.detach(), p2.detach()
-            y_pred = self.loss_fn.mode(p1, p2)
-            logs = {"train_loss": loss_vec.mean()}
-            for i in range(self.num_subnetworks):
-                logs[f"train_loss_{i}"] = loss_vec[i]
-                logs[f"train_weight_{i}"] = weights[i]
-            for name, value in compute_regression_metrics(
-                    y_pred, label_t, reduce=mesh_reducer(mesh, "logs")).items():
-                logs[f"metric_train/{name}"] = value
-            outputs = None
-            if with_outputs:
-                outputs = {
-                    "label": flatten_subnetwork_dimension(label_t),
-                    "preds": flatten_subnetwork_dimension(y_pred),
-                    "aleatoric_std_map": flatten_subnetwork_dimension(
-                        self.loss_fn.std(p1, p2)),
-                    "err_map": flatten_subnetwork_dimension(y_pred - label_t),
-                    "mask": (flatten_subnetwork_dimension(mask_t)
-                             if mask_t is not None else None),
-                }
-        return state, logs, outputs
+            with torch.no_grad():
+                p1, p2 = p1.detach(), p2.detach()
+                y_pred = self.loss_fn.mode(p1, p2)
+                logs = {"train_loss": loss_vec.mean()}
+                for i in range(self.num_subnetworks):
+                    logs[f"train_loss_{i}"] = loss_vec[i]
+                    logs[f"train_weight_{i}"] = weights[i]
+                for name, value in compute_regression_metrics(
+                        y_pred, label_t, reduce=mesh_reducer(mesh, "logs")).items():
+                    logs[f"metric_train/{name}"] = value
+                outputs = None
+                if with_outputs:
+                    outputs = {
+                        "label": flatten_subnetwork_dimension(label_t),
+                        "preds": flatten_subnetwork_dimension(y_pred),
+                        "aleatoric_std_map": flatten_subnetwork_dimension(
+                            self.loss_fn.std(p1, p2)),
+                        "err_map": flatten_subnetwork_dimension(y_pred - label_t),
+                        "mask": (flatten_subnetwork_dimension(mask_t)
+                                 if mask_t is not None else None),
+                    }
+            return state, logs, outputs
 
     @torch.no_grad()
     def val_step(self, model: MimoUNet, batch: Dict[str, torch.Tensor]
