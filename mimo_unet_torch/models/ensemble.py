@@ -169,14 +169,22 @@ class Ensemble:
         ``batch_size`` batches (the last one padded with copies of its last
         image, then trimmed); the batch at ``start`` draws its masks from
         ``fold_in(seed, start)``.  Returns numpy (mean, aleatoric_var,
-        epistemic_var) over all inputs."""
+        epistemic_var) over all inputs.
+
+        Each answer is allocated whole once the first batch's shapes are
+        known, and every batch's rows are copied into it in place.  On a
+        CUDA device the answers are pinned host memory from torch's caching
+        host allocator, filled by asynchronous copies with one wait at the
+        end: a block the caller drops goes back to that cache for a later
+        call, and an answer the caller keeps is never written again."""
         with span("mimo.predict"):
             with span("mimo.predict.in"):
                 if device is None:
                     device = next(self.members[0][1].parameters()).device
                 images = torch.as_tensor(np.asarray(images))
-            outs = []
-            for start in range(0, images.shape[0], batch_size):
+            n = images.shape[0]
+            answers, pinned = (), False
+            for start in range(0, n, batch_size):
                 with span("mimo.predict.in"):
                     chunk = images[start:start + batch_size]
                     real = chunk.shape[0]
@@ -187,8 +195,34 @@ class Ensemble:
                 with span("mimo.predict.forward"):
                     p1, p2 = self.raw_forward(x, fold_in(seed, start))
                     del x  # the input's card memory is free for what follows
-                    mean, ale, epi = compute_uncertainties(self.loss_fn, p1, p2)
+                    parts = compute_uncertainties(self.loss_fn, p1, p2)
                 with span("mimo.predict.fetch"):
-                    outs.append(tuple(t[:real].cpu().numpy() for t in (mean, ale, epi)))
+                    pinned = parts[0].device.type == "cuda"
+                    if not answers:
+                        answers = tuple(torch.empty((n, *t.shape[1:]), dtype=t.dtype,
+                                                    pin_memory=pinned) for t in parts)
+                    for out, t in zip(answers, parts):
+                        out[start:start + real].copy_(t[:real], non_blocking=pinned)
+                    _FETCHES["pinned" if pinned else "host"] += 1
+                    if pinned:
+                        _FETCHES["pinned_bytes"] += sum(t[:real].nbytes for t in parts)
             with span("mimo.predict.assemble"):
-                return tuple(np.concatenate(parts, axis=0) for parts in zip(*outs))
+                if pinned:
+                    torch.cuda.current_stream(parts[0].device).synchronize()
+                return tuple(a.numpy() for a in answers)
+
+
+_FETCHES = {"pinned": 0, "host": 0, "pinned_bytes": 0}
+
+
+def reset_fetch_counts() -> None:
+    for k in _FETCHES:
+        _FETCHES[k] = 0
+
+
+def fetch_counts() -> dict:
+    """``predict``'s answer chunks fetched by path, ``"pinned"`` (async
+    copies into pinned host memory, on a CUDA device) or ``"host"`` (copies
+    into plain host memory), and ``"pinned_bytes"``, the bytes fetched into
+    pinned memory, since the last ``reset_fetch_counts``."""
+    return dict(_FETCHES)

@@ -18,6 +18,10 @@
 * MC serving and evaluation draw each batch's masks from (seed, member,
   batch start): repeated ``predict`` and ``make_predictions`` calls are
   bitwise equal, whatever ran before them.
+* ``predict`` fills whole answers chunk by chunk: bitwise the chunks'
+  answers concatenated, every chunk counted by ``fetch_counts``, and
+  answers the caller keeps unchanged by later calls (the card's pinned
+  path: ``tests/test_torch_predict_card.py``).
 * Every member runs the member loop: a run that the JAX package serves
   through its stacked program gives its predictions within 2e-4; member
   m's columns are its own forward, masks from ``fold_in(seed, m)``.
@@ -53,12 +57,13 @@ from mimo_unet_torch.eval import (
     write_artifacts,
 )
 from mimo_unet_torch.eval.fgsm import input_gradient
-from mimo_unet_torch.models.ensemble import Ensemble, fold_in
+from mimo_unet_torch.models.ensemble import (Ensemble, fetch_counts, fold_in,
+                                              reset_fetch_counts)
 from mimo_unet_torch.models.mimo_unet import eval_mode
 from mimo_unet_torch.ops.dropout import DropoutSource
 from mimo_unet_torch.tasks import EvidentialUnetTask, MimoUnetTask
 from mimo_unet_torch.train import checkpoint
-from mimo_unet_torch.transforms import repeat_subnetworks
+from mimo_unet_torch.transforms import compute_uncertainties, repeat_subnetworks
 
 from test_torch_evidential import EV, ev_weights, port_model
 from test_torch_slice import BASE, jax_weights, torch_model
@@ -365,6 +370,57 @@ def test_mc_predict_is_a_function_of_its_inputs():
         np.testing.assert_array_equal(a[2:4], d.numpy())
     other = ens.predict(images, batch_size=2, seed=1)
     assert not np.array_equal(other[0], first[0])
+
+
+def _predict_ensemble(members, mc):
+    tasks = [MimoUnetTask(**SMALL, num_subnetworks=2, decoder_dropout_rate=0.3,
+                          seed=10 + m) for m in range(members)]
+    return Ensemble([(t, t.build_model("cpu")) for t in tasks], monte_carlo_steps=mc)
+
+
+def _chunked_answers(ens, images, batch_size, seed=0):
+    """``predict``'s answers as fetched chunk by chunk and concatenated:
+    each padded batch's ``raw_forward`` → ``compute_uncertainties`` →
+    ``[:real]``."""
+    parts = []
+    for start in range(0, len(images), batch_size):
+        chunk = images[start:start + batch_size]
+        real = len(chunk)
+        chunk = np.concatenate([chunk, np.repeat(chunk[-1:], batch_size - real, axis=0)])
+        p1, p2 = ens.raw_forward(torch.from_numpy(chunk), fold_in(seed, start))
+        parts.append([t[:real].numpy() for t in compute_uncertainties(ens.loss_fn, p1, p2)])
+    return [np.concatenate(p, axis=0) for p in zip(*parts)]
+
+
+@pytest.mark.parametrize("members,mc", [(1, 0), (2, 0), (1, 2), (2, 2)])
+def test_predict_fills_whole_answers_chunk_by_chunk(members, mc):
+    """``predict`` over 5 frames in batches of 2 (three chunks, the last
+    padded) gives bitwise the chunks' answers concatenated, in their dtype
+    and shape; on the CPU every chunk is fetched on the host path."""
+    ens = _predict_ensemble(members, mc)
+    images = np.random.default_rng(5).uniform(0, 1, (5, 32, 32, 3)).astype(np.float32)
+    reset_fetch_counts()
+    got = ens.predict(images, batch_size=2)
+    assert fetch_counts() == {"pinned": 0, "host": 3, "pinned_bytes": 0}
+    want = _chunked_answers(ens, images, 2)
+    assert len(got) == 3
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype == np.float32 and a.shape == b.shape == (5, 32, 32, 1)
+        np.testing.assert_array_equal(a, b)
+
+
+def test_predict_answers_kept_by_the_caller_stay_as_they_were():
+    """The first call's answers, held, are bitwise unchanged after two
+    later calls on other frames."""
+    ens = _predict_ensemble(1, 2)
+    rng = np.random.default_rng(6)
+    images = [rng.uniform(0, 1, (3, 32, 32, 3)).astype(np.float32) for _ in range(3)]
+    first = ens.predict(images[0], batch_size=2)
+    kept = [a.copy() for a in first]
+    for other in images[1:]:
+        ens.predict(other, batch_size=2)
+    for a, b in zip(first, kept):
+        np.testing.assert_array_equal(a, b)
 
 
 @pytest.mark.parametrize("eps", [0.0, 0.01])
