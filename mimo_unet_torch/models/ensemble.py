@@ -17,7 +17,8 @@ the seed, as the JAX package folds them into its key (``rng=None`` being
 ``key(0)``, JAX ensemble.py:168,193,217,228): one input gives one answer,
 call after call, whatever ran before it.  The bits are torch's, not
 JAX's.  ``predict`` serves any number of images in fixed-size batches,
-padding the last one.
+padding the last one.  ``mc_counts()`` counts the MC forwards, passes and
+masks served.
 
 Every member runs this member loop (the eval kernels where they apply).
 The JAX package serves a run of same-architecture members off its
@@ -36,7 +37,7 @@ import numpy as np
 import torch
 
 from mimo_unet_torch.models.mimo_unet import eval_mode
-from mimo_unet_torch.ops.dropout import DropoutSource
+from mimo_unet_torch.ops.dropout import DropoutSource, draw_counts, reset_draw_counts
 from mimo_unet_torch.train.profiling import span
 from mimo_unet_torch.transforms import compute_uncertainties, repeat_subnetworks
 
@@ -140,6 +141,9 @@ class Ensemble:
         mc = max(1, self.monte_carlo_steps)
         live = self.monte_carlo_steps > 0
         b = image.shape[0]
+        if live:
+            _MC["passes"] += b * mc
+            _MC["forwards"] += len(self.members)
         p1s, p2s = [], []
         for m, (task, model) in enumerate(self.members):
             source = self._source(seed, m, image.device)
@@ -226,3 +230,23 @@ def fetch_counts() -> dict:
     into plain host memory), and ``"pinned_bytes"``, the bytes fetched into
     pinned memory, since the last ``reset_fetch_counts``."""
     return dict(_FETCHES)
+
+
+_MC = {"forwards": 0, "passes": 0}
+
+
+def reset_mc_counts() -> None:
+    for k in _MC:
+        _MC[k] = 0
+    reset_draw_counts()
+
+
+def mc_counts() -> dict:
+    """MC-dropout work since the last ``reset_mc_counts``: ``"forwards"``,
+    the members' forwards with live dropout; ``"passes"``, the passes those
+    calls served (a call's images times ``monte_carlo_steps``, padded rows
+    included, once whatever the members); ``"masks"`` and
+    ``"mask_elements"``, the keep masks ``DropoutSource.draw`` handed out
+    and their elements (``ops/dropout.py`` ``draw_counts``: a train step's
+    masks too)."""
+    return {**_MC, **draw_counts()}

@@ -345,7 +345,8 @@ def mimo_unet_apply_fast(model, x: torch.Tensor,
         else:
             y = dropout(y, torch.cat([drops[k][0] for k in finals]),
                         drops[finals[0]][1])
-        logits = conv1x1(y, wo, bo)
+        with span("mimo.eval_conv.outc"):
+            logits = conv1x1(y, wo, bo)
     # [S*B, H, W, C] -> [B, S, H, W, C] float32 at the loss boundary
     return logits.view(s, b, h, w, -1).transpose(0, 1).float().contiguous()
 

@@ -15,6 +15,10 @@ Every mask of a forward is drawn before the forward routes, in site order,
 so one generator state gives the same masks on the plain and the kernel
 paths.
 
+``DropoutSource.draw`` runs inside the span ``mimo.dropout.draw`` and
+counts what it draws (``draw_counts``: masks and their elements, since the
+last ``reset_draw_counts``).
+
 Rounding: ``dropout`` is ``where(mask, x / keep, 0)`` with ``keep`` in x's
 dtype, as the JAX package's ``x / keep`` with a weakly typed ``keep`` (bf16
 activations divide by bf16(keep)).  The kernel paths instead multiply by
@@ -27,6 +31,8 @@ from __future__ import annotations
 from typing import Dict, Mapping, Optional, Sequence, Tuple
 
 import torch
+
+from mimo_unet_torch.train.profiling import span
 
 # one live site: (keep mask, keep probability); a forward's live sites by name
 Drop = Tuple[torch.Tensor, float]
@@ -51,22 +57,40 @@ class DropoutSource:
         """Keep masks of ``sites`` (name -> (mask shape, rate)), in order:
         name -> (bool mask on ``device``, keep)."""
         out = {}
-        for name, (shape, rate) in sites.items():
-            keep = 1.0 - rate
-            shape = tuple(shape)
-            if self.masks is None:
-                mask = torch.rand(shape, generator=self.generator,
-                                  device=device) < keep
-            else:
-                if name not in self.masks:
-                    raise KeyError(f"no dropout mask for site {name!r}")
-                mask = self.masks[name]
-                if tuple(mask.shape) != shape:
-                    raise ValueError(f"mask {name!r} must be {shape}, got "
-                                     f"{tuple(mask.shape)}")
-                mask = mask.to(device=device, dtype=torch.bool)
-            out[name] = (mask, keep)
+        with span("mimo.dropout.draw"):
+            for name, (shape, rate) in sites.items():
+                keep = 1.0 - rate
+                shape = tuple(shape)
+                if self.masks is None:
+                    mask = torch.rand(shape, generator=self.generator,
+                                      device=device) < keep
+                else:
+                    if name not in self.masks:
+                        raise KeyError(f"no dropout mask for site {name!r}")
+                    mask = self.masks[name]
+                    if tuple(mask.shape) != shape:
+                        raise ValueError(f"mask {name!r} must be {shape}, got "
+                                         f"{tuple(mask.shape)}")
+                    mask = mask.to(device=device, dtype=torch.bool)
+                out[name] = (mask, keep)
+                _DRAWS["masks"] += 1
+                _DRAWS["mask_elements"] += mask.numel()
         return out
+
+
+_DRAWS = {"masks": 0, "mask_elements": 0}
+
+
+def reset_draw_counts() -> None:
+    for k in _DRAWS:
+        _DRAWS[k] = 0
+
+
+def draw_counts() -> dict:
+    """Keep masks handed out by ``DropoutSource.draw`` (drawn or replayed),
+    ``"masks"``, and their elements, ``"mask_elements"``, since the last
+    ``reset_draw_counts``."""
+    return dict(_DRAWS)
 
 
 def shard_rows(drops: Drops, index: int, count: int) -> Dict[str, Drop]:

@@ -23,7 +23,12 @@ port opens:
   ``mimo.train_conv.<site>`` around each train conv and its BatchNorm
   (``models/fast_path.py`` ``_conv_bn``), ``mimo.train_conv_bwd.<site>``
   around its backward (``Conv3x3Train.backward``, on autograd's thread), and
-  ``mimo.eval_conv.<site>`` around each fused DoubleConv of the eval route.
+  ``mimo.eval_conv.<site>`` around each fused DoubleConv of the eval route;
+* the MC-dropout route's own (``MC_SPANS``): ``mimo.dropout.draw`` around
+  ``DropoutSource.draw`` (``ops/dropout.py``: every live site's keep mask
+  of a forward, train steps' too), and ``mimo.eval_conv.outc`` around the
+  eval route's 1x1 out-conv (K11) where a live up4 or final dropout site
+  keeps it out of the decoder's fused DoubleConv.
 
 ``trace(dir)`` around ``Trainer.fit``, a ``train_step`` loop or
 ``Ensemble.predict`` writes a Chrome trace (for Perfetto or TensorBoard)
@@ -52,6 +57,8 @@ from torch.utils.flop_counter import FlopCounterMode
 # the train route's six convs and the eval route's four fused DoubleConvs
 TRAIN_CONV_SITES = ("in.c1", "in.c2", "down1.c1", "down1.c2", "dec.c1", "dec.c2")
 EVAL_CONV_SITES = ("in_conv", "down1", "up3", "decoder")
+# spans that open only where dropout is live
+MC_SPANS = ("mimo.dropout.draw", "mimo.eval_conv.outc")
 
 SPANS = (
     "mimo.predict",
@@ -67,6 +74,7 @@ SPANS = (
     *(f"mimo.train_conv.{s}" for s in TRAIN_CONV_SITES),
     *(f"mimo.train_conv_bwd.{s}" for s in TRAIN_CONV_SITES),
     *(f"mimo.eval_conv.{s}" for s in EVAL_CONV_SITES),
+    *MC_SPANS,
 )
 
 _OFF = contextlib.nullcontext()
